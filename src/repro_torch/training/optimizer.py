@@ -1,0 +1,132 @@
+"""Functional optimizers over nested dicts of tensors (port of
+``repro/training/optimizer.py``).
+
+AdamW with decoupled weight decay, global-norm gradient clipping and a
+warmup+cosine LR schedule. The state mirrors the params tree. Every update
+returns new tensors (the reference is pure); the math is fp32 whatever the
+moment dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch._tree import leaves as _leaves
+from repro_torch._tree import map_with_path as _map
+
+Params = Any
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor  # scalar int32
+    mu: Params          # first moment, params' shape, moment dtype
+    nu: Params          # second moment
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    learning_rate: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 0
+    total_steps: int = 0          # 0 => constant LR after warmup
+    min_lr_ratio: float = 0.1
+    # Moment dtype: "bfloat16" halves optimizer memory; math stays fp32
+    # (moments are upcast at the update).
+    moment_dtype: str = "float32"
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup then cosine decay to min_lr_ratio (constant if total_steps=0)."""
+    step = step.to(torch.float32)
+    peak = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=step.device)
+    if cfg.warmup_steps > 0:
+        warm = peak * (step + 1.0) / float(cfg.warmup_steps)
+    else:
+        warm = peak
+    if cfg.total_steps > 0:
+        frac = torch.clamp(
+            (step - cfg.warmup_steps) / max(1, cfg.total_steps - cfg.warmup_steps),
+            0.0, 1.0)
+        cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+            1 + torch.cos(math.pi * frac))
+        decayed = peak * cos
+    else:
+        decayed = peak
+    return torch.where(step < cfg.warmup_steps, warm, decayed)
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in _leaves(tree)))
+
+
+def clip_by_global_norm(tree: Params, max_norm: float) -> tuple[Params, torch.Tensor]:
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return _map(lambda _, g: g * scale.to(g.dtype), tree), norm
+
+
+def adamw_init(params: Params, moment_dtype: str = "float32") -> AdamState:
+    mdt = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+    zeros = lambda _, p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    device = _leaves(params)[0].device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     mu=_map(zeros, params), nu=_map(zeros, params))
+
+
+def _decay_mask(path) -> bool:
+    """No weight decay on biases / norm scales / 1-d params (list indices
+    carry no name, as in the reference's key paths)."""
+    joined = "/".join(k if isinstance(k, str) else "" for k in path)
+    return not any(t in joined for t in ("bias", "scale", "norm", "ln_"))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamState,
+                 params: Params) -> tuple[Params, AdamState, dict]:
+    """One AdamW step. Returns (new_params, new_state, metrics)."""
+    if cfg.grad_clip_norm > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+    else:
+        gnorm = global_norm(grads)
+    step = state.step
+    lr = _schedule(cfg, step)
+    t = (step + 1).to(torch.float32)
+    c1 = 1.0 - torch.pow(cfg.b1, t)
+    c2 = 1.0 - torch.pow(cfg.b2, t)
+
+    def upd_mu(_, g, m):
+        out = cfg.b1 * m.float() + (1 - cfg.b1) * g.float()
+        return out.to(m.dtype)
+
+    def upd_nu(_, g, v):
+        g = g.float()
+        out = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+        return out.to(v.dtype)
+
+    mu = _map(upd_mu, grads, state.mu)
+    nu = _map(upd_nu, grads, state.nu)
+
+    def upd_param(path, p, m, v):
+        m = m.float()
+        v = v.float()
+        update = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        if cfg.weight_decay > 0 and _decay_mask(path):
+            update = update + cfg.weight_decay * p.float()
+        return (p.float() - lr * update).to(p.dtype)
+
+    new_params = _map(upd_param, params, mu, nu)
+    new_state = AdamState(step=step + 1, mu=mu, nu=nu)
+    return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def sgd_update(lr: float, grads: Params, params: Params) -> Params:
+    return _map(lambda _, p, g: (p.float() - lr * g.float()).to(p.dtype),
+                params, grads)

@@ -1,0 +1,112 @@
+"""The port stands alone: no JAX, no ``repro``, and no silent CPU fallback."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from repro_torch.core import gnn as tgnn
+from repro_torch.core import train as ttrain
+from repro_torch.core.graph import paper_fig1_graph
+from repro_torch.kernels.gcn_spmm import kernel as tkernel
+from repro_torch.kernels.gcn_spmm import ops as tops
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+SRC = os.path.join(ROOT, "src")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = [m for m in sys.modules
+       if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    # a subprocess: this pytest session has imported jax already (conftest)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15   # every module of the slice
+
+
+def _tiny_cpu_setup():
+    cfg = tgnn.GNNConfig(hidden=8, n_classes=3)
+    graph = paper_fig1_graph()
+    feats = graph.node_features()
+    ex = ttrain.GraphExample(feats, graph.latency.astype(np.float32),
+                             np.zeros(graph.n, np.int64),
+                             np.ones(graph.n, np.float32))
+    return cfg, graph, ex
+
+
+ENTRY_POINTS = {
+    "init": lambda cfg, g, ex: tgnn.init(cfg, ex.feats.shape[1]),
+    "train_gnn": lambda cfg, g, ex: ttrain.train_gnn(cfg, [ex], steps=1),
+    "predict_logits": lambda cfg, g, ex: ttrain.predict_logits(
+        tgnn.init(cfg, ex.feats.shape[1], device="cpu"), cfg, g),
+    "predict": lambda cfg, g, ex: ttrain.predict(
+        tgnn.init(cfg, ex.feats.shape[1], device="cpu"), cfg, g),
+    "params_from_numpy": lambda cfg, g, ex: tgnn.params_from_numpy(
+        tgnn.params_to_numpy(tgnn.init(cfg, ex.feats.shape[1], device="cpu"))),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_never_fall_back(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, graph, ex = _tiny_cpu_setup()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ENTRY_POINTS[entry](cfg, graph, ex)
+
+
+def test_entry_points_run_on_cpu_when_asked():
+    cfg, graph, ex = _tiny_cpu_setup()
+    params, hist = ttrain.train_gnn(cfg, [ex], steps=2, device="cpu")
+    assert len(hist) == 2
+    logits = ttrain.predict_logits(params, cfg, graph, device="cpu")
+    assert logits.shape == (graph.n, cfg.n_classes)
+    assert np.isfinite(logits).all()
+
+
+def test_predict_refuses_params_on_another_device():
+    cfg, graph, ex = _tiny_cpu_setup()
+    params = tgnn.init(cfg, ex.feats.shape[1], device="cpu")
+    with pytest.raises(ValueError, match="params lie on"):
+        ttrain.predict_logits(params, cfg, graph, device="meta")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_instead_of_falling_back():
+    a, h = torch.ones(4, 4), torch.ones(4, 3)
+    before = dict(tkernel.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.scaled_spmm(a, h, torch.ones(4), torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.spmm(a, h)
+    assert tkernel.LAUNCHES == before
+
+
+def test_ops_refuse_devices_other_than_cuda_and_cpu():
+    a = torch.empty(4, 4, device="meta")
+    h = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tops.spmm(a, h)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
