@@ -2,15 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernel of ``gcn_spmm`` from
-``src/repro_torch/csrc`` with nvcc, checks it against its plain PyTorch
-version, drives the planner's main path at full width (hidden 213, two GCN
-layers) through the port's entry points, times the kernel, and prints one
-JSON line per phase. Any failure exits non-zero before the last line, which
-is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+Builds the hand-written Hopper kernels (``gcn_spmm``, ``flash_attention``,
+``decode_attention``) from ``src/repro_torch/csrc`` with nvcc, one process
+per source, and checks each against its plain PyTorch version. Then it
+drives both main paths through the port's entry points at full width: the
+planner (hidden 213, two GCN layers) on fleet46 and a 1024-node fleet, and
+serving gemma3-1b (26 layers, d_model 1152, bf16, random weights from a
+seed) on 4 prompts of 1024 tokens with 64 generated. It times every kernel
+beside its plain version, a one-call library yardstick and its bound, runs
+the card-only pytest files, and prints one JSON line per phase. Any failure
+exits non-zero before the last line, which is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or ``repro``.
 
-Phases: build -> kernel check -> fleet46 plan (paper Table 2 / Fig. 8) ->
-1024-node plan -> kernel times -> kernels summary -> import check.
+Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
+Fig. 8) -> 1024-node plan -> gcn_spmm times -> kernel check (attention) ->
+gemma3-1b serve -> attention times -> card-only pytest -> kernels summary
+-> import check.
 """
 from __future__ import annotations
 
@@ -24,9 +31,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+SOURCES = ("gcn_spmm", "flash_attention", "decode_attention")
 
 CHECK_SHAPES = [(8, 22, "float32"), (46, 15, "float32"), (64, 213, "float32"),
                 (128, 213, "float32"), (200, 64, "float32"),
@@ -60,6 +70,13 @@ def plan_invariants(graph, assignment, tasks) -> None:
               f"group of {name} misses its memory threshold")
 
 
+def _close(torch, got, want, tol) -> tuple[bool, float]:
+    """|got - want| <= tol + tol * |want| everywhere, and the max abs error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return bool((diff <= tol + tol * want.abs()).all()), diff.max().item()
+
+
 def phase_kernel_check(torch, K, R) -> dict:
     """Each kernel against its plain version on GCN-layer inputs: A = 0/1
     mask + I, r = c = (deg A)^-1/2, H normal. ``spmm`` gets the normalized
@@ -82,8 +99,7 @@ def phase_kernel_check(torch, K, R) -> dict:
             torch.cuda.synchronize()
             got, want = got.float(), want.float()
             tol = TOL[dt_name]
-            err = (got - want).abs().max().item()
-            ok = bool(torch.all((got - want).abs() <= tol + tol * want.abs()))
+            ok, err = _close(torch, got, want, tol)
             emit("kernel_check", kernel=name, n=n, d=d, dtype=dt_name,
                  max_abs_err=err, max_abs_ref=want.abs().max().item(),
                  rtol=tol, atol=tol, ok=ok)
@@ -258,6 +274,281 @@ def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
     return out
 
 
+# -- serving gemma3-1b --------------------------------------------------------
+SERVE = dict(arch="gemma3-1b", batch=4, prompt=1024, gen=64, seed=0)
+ATTN_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:71",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:58"}
+
+
+def phase_attention_check(torch, FK, FR, DK, DR) -> dict:
+    """Both attention kernels against their plain versions on the sweep of
+    ``tests/test_torch_attention_gpu.py``: the reference's FLASH_CASES and
+    DEC_CASES and gemma3-1b's own prefill and decode shapes, fp32 and bf16."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_attention_gpu as AG
+    import numpy as np
+    rng = np.random.default_rng(0)
+    normal = lambda shape, dt: AG.normal(rng, shape, dt)
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    cases = [("flash_attention", c) for c in AG.FLASH_CASES] \
+        + [("decode_attention", c) for c in AG.DEC_CASES]
+    for name, case in cases:
+        if name == "flash_attention":
+            b, s, h, kv, d, window, dt = case
+            q = normal((b, s, h, d), dt)
+            k, v = normal((b, s, kv, d), dt), normal((b, s, kv, d), dt)
+            got = FK.flash_attention(q, k, v, window=window)
+            want = FR.attention_ref(q, k, v, window=window)
+        else:
+            b, t, h, kv, d, mask, dt = case
+            q = normal((b, 1, h, d), dt)
+            k, v = normal((b, t, kv, d), dt), normal((b, t, kv, d), dt)
+            valid = AG.ring_mask(t, 3 * t + 7, 3 * t - 100) if mask == "ring" \
+                else (np.arange(t) < mask).astype(np.int32)
+            valid = torch.from_numpy(valid).cuda()
+            got = DK.decode_attention(q, k, v, valid)
+            want = DR.decode_attention_ref(q, k, v, valid)
+        torch.cuda.synchronize()
+        tol = TOL[dt]
+        ok, err = _close(torch, got, want, tol)
+        emit("kernel_check", kernel=name, case=list(case), dtype=dt,
+             max_abs_err=err, max_abs_ref=want.float().abs().max().item(),
+             rtol=tol, atol=tol, ok=ok)
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name} gave non-finite values at {case}")
+        check(ok, f"{name} disagrees with its plain version at {case}: "
+                  f"max abs err {err}")
+        errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    return errs
+
+
+def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
+    """Device busy share and the top device ops over ``steps`` decode steps
+    (torch.profiler, CUDA activity), after a fresh prefill."""
+    from torch.profiler import ProfilerActivity, profile
+    s = tokens.shape[1]
+    with torch.no_grad():
+        _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                _, caches = dlm.decode_step(params, cfg, fed[:, i:i + 1], s + i,
+                                            caches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+    events = prof.key_averages()
+    # kernel events only: an operator's device time repeats its kernels'
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(dev_time(e) for e in kernels)
+    top = sorted(kernels, key=dev_time, reverse=True)[:8]
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "cpu_events_per_step": sum(e.count for e in events
+                                       if e not in kernels) / steps,
+            "top_kernels": [[e.key[:100], dev_time(e) / steps, e.count / steps]
+                            for e in top]}
+
+
+def phase_serve(torch, device, FK, DK) -> dict:
+    """gemma3-1b at full width, bf16, random weights from a seeded generator,
+    through the port's ``serve_batch`` (which turns ``use_flash`` on), after
+    one short warm-up call. Then the same weights teacher-forced on the
+    generated tokens, with ``use_flash`` on and off, in bf16 and upcast to
+    fp32. In fp32 the kernel path must give the plain path's logits within
+    the model-level tolerance: the same function. In bf16 the two paths
+    round at different places (the plain einsums round scores and softmax
+    weights to bf16, the kernels keep them in fp32), so over 26 layers their
+    logits differ by more than 2e-2; those differences, each path's
+    distance from the fp32 logits and the greedy agreement are printed, not
+    asserted."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import common as cc
+    from repro_torch.models import decoder_lm as dlm
+
+    cfg = get_config(SERVE["arch"])
+    b, s, gen_n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_len = s + gen_n
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dlm.init_params(cfg, seed=SERVE["seed"], device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=SERVE["seed"]), 0)
+    _, cold = serve.serve_batch(cfg, params, batch, 2, log=lambda *_: None)
+
+    FK.reset_launches()
+    DK.reset_launches()
+    gen, stats = serve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
+    launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
+                "decode_attention": DK.LAUNCHES["decode_attention"]}
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers
+    check(launches == {"flash_attention": n_layers,
+                       "decode_attention": n_layers * (gen_n - 1)},
+          f"serve launches {launches}, want {n_layers} flash and "
+          f"{n_layers * (gen_n - 1)} decode")
+    check(gen.shape == (b, gen_n) and ((gen >= 0) & (gen < cfg.vocab_size)).all(),
+          f"generated tokens of shape {gen.shape} out of range")
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    fed = torch.as_tensor(gen, device=device)
+    prof = _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len)
+
+    def teacher_forced(p, c, flash: bool):
+        cc.RUNTIME["use_flash"] = flash
+        with torch.no_grad():
+            last, caches = dlm.prefill(p, c, tokens=tokens, max_len=max_len)
+            logits = [last[:, -1]]
+            for i in range(gen_n - 1):
+                step, caches = dlm.decode_step(p, c, fed[:, i:i + 1], s + i,
+                                               caches)
+                logits.append(step[:, -1])
+        return torch.stack(logits, dim=1)            # (B, gen, V) fp32
+
+    on = teacher_forced(params, cfg, True)
+    off = teacher_forced(params, cfg, False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    on32 = teacher_forced(params32, cfg32, True)
+    off32 = teacher_forced(params32, cfg32, False)
+    del params32
+    cc.RUNTIME["use_flash"] = True
+    check(all(bool(torch.isfinite(x).all()) for x in (on, off, on32, off32)),
+          "serve logits are not finite")
+    tol32 = 2e-4      # tests/test_kernels.py: the model-level fp32 tolerance
+    ok32_prefill, err32_prefill = _close(torch, on32[:, 0], off32[:, 0], tol32)
+    ok32_decode, err32_decode = _close(torch, on32[:, 1:], off32[:, 1:], tol32)
+    rms = lambda x: x.square().mean().sqrt().item()
+    rms_kernel = rms(on - off32)
+    rms_plain = rms(off - off32)
+    emit("serve", arch=SERVE["arch"], dtype=cfg.dtype, layers=n_layers,
+         d_model=cfg.d_model, params=dlm.param_count(params), init_s=t_init,
+         batch=b, prompt_tokens=s, gen_tokens=gen_n, max_len=max_len,
+         prefill_tokens_per_s=stats["prefill_tokens_per_s"],
+         decode_tokens_per_s=stats["tokens_per_s"], prefill_s=stats["prefill_s"],
+         decode_s=stats["decode_s"], cold_prefill_s=cold["prefill_s"],
+         peak_mem_bytes=peak, launches=launches,
+         fp32_prefill_logits_max_abs_err_kernels_vs_plain=err32_prefill,
+         fp32_decode_logits_max_abs_err_kernels_vs_plain=err32_decode,
+         fp32_tol=tol32,
+         bf16_logits_rms_err_vs_fp32={"kernels": rms_kernel, "plain": rms_plain},
+         bf16_prefill_logits_max_abs_err_kernels_vs_plain=(
+             on[:, 0] - off[:, 0]).abs().max().item(),
+         bf16_decode_logits_max_abs_err_kernels_vs_plain=(
+             on[:, 1:] - off[:, 1:]).abs().max().item(),
+         logits_max_abs=off.abs().max().item(),
+         greedy_agreement_with_plain=(off.argmax(-1) == fed).float().mean().item(),
+         greedy_agreement_with_fp32=(off32.argmax(-1) == fed).float().mean().item(),
+         replay_matches_serve=(on.argmax(-1) == fed).float().mean().item(),
+         sample=gen[0, :8].tolist())
+    # the profiler slows the host: the idle share of an unprofiled step
+    step_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
+    prof["unprofiled_ms_per_step"] = step_ms
+    prof["device_idle_share_unprofiled"] = \
+        1.0 - prof["device_busy_ms_per_step"] / step_ms
+    emit("serve_profile", **prof)
+    check(ok32_prefill, f"fp32 prefill logits with the kernels differ from "
+                        f"the plain path by {err32_prefill}")
+    check(ok32_decode, f"fp32 teacher-forced decode logits with the kernels "
+                       f"differ from the plain path by {err32_decode}")
+    return launches
+
+
+def _attn_time_cases(torch, F, FK, FR, DK, DR):
+    """The serve shapes: prefill of a global (causal) and a local (window
+    512) layer, and one decode step of the global cache (T 1088, valid up
+    to the middle of generation) and of a local ring (T 512, all valid)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE["arch"])
+    spec_local = cfg.segments[0].layers[0].attn
+    h, kvh, d = spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim
+    b, s = SERVE["batch"], SERVE["prompt"]
+    max_len = s + SERVE["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    elt = 2
+    cases = {}
+    for label, window in (("global", None), ("local", spec_local.window)):
+        q, k, v = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d)
+        qpos = torch.arange(s, device="cuda")[:, None]
+        kpos = torch.arange(s, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        cases[("flash_attention", label)] = dict(
+            shape=dict(B=b, S=s, H=h, KV=kvh, D=d, window=window),
+            kernel=lambda q=q, k=k, v=v, w=window: FK.flash_attention(q, k, v, window=w),
+            plain=lambda q=q, k=k, v=v, w=window: FR.attention_ref(q, k, v, window=w),
+            library=lambda qt=qt, kt=kt, vt=vt, m=mask: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m, enable_gqa=True),
+            nbytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
+            flops=4 * d * pairs * b * h)
+    for label, t, n_valid in (("global", max_len, s + SERVE["gen"] // 2),
+                              ("local", spec_local.window, spec_local.window)):
+        q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
+        valid = (torch.arange(t, device="cuda") < n_valid).to(torch.int32)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        cases[("decode_attention", label)] = dict(
+            shape=dict(B=b, T=t, H=h, KV=kvh, D=d, valid=n_valid),
+            kernel=lambda q=q, k=k, v=v, m=valid: DK.decode_attention(q, k, v, m),
+            plain=lambda q=q, k=k, v=v, m=valid: DR.decode_attention_ref(q, k, v, m),
+            library=lambda qt=qt, kt=kt, vt=vt, m=valid > 0: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m[None, :], enable_gqa=True),
+            # the valid slots' K/V, the query, the mask and the output
+            nbytes=(2 * b * n_valid * kvh * d + 2 * q.numel()) * elt + 4 * t,
+            flops=4 * d * n_valid * b * h)
+    return cases
+
+
+def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
+    """Kernel, plain version, SDPA yardstick (timed only, never used by the
+    port) and bound, at the serve shapes, bf16."""
+    import torch.nn.functional as F
+    out = {}
+    for (name, label), c in _attn_time_cases(torch, F, FK, FR, DK, DR).items():
+        t_bytes = c["nbytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = c["flops"] / PEAK_BF16_FLOPS * 1e3
+        row = {"layer": label, **c["shape"], "dtype": "bfloat16",
+               "ms": _time_ms(torch, c["kernel"]),
+               "plain_ms": _time_ms(torch, c["plain"]),
+               "library_ms": _time_ms(torch, c["library"]),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": c["nbytes"], "flops": c["flops"]}
+        emit("times", kernel=name, card=card, **row)
+        out.setdefault(name, {})[label] = row
+    return out
+
+
+def phase_gpu_pytest() -> None:
+    """The card-only pytest files (no JAX: they run with --noconftest)."""
+    files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
+                           "-p", "no:cacheprovider", "-q", *files],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] if proc.stdout else []
+    emit("gpu_pytest", files=files, rc=proc.returncode, summary=tail)
+    check(proc.returncode == 0 and "skipped" not in " ".join(tail),
+          f"card-only pytest failed or skipped:\n{proc.stdout[-3000:]}"
+          f"{proc.stderr[-2000:]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -272,29 +563,47 @@ def main() -> None:
     torch.cuda.set_device(device)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
     from repro_torch.kernels.gcn_spmm import kernel as K
     from repro_torch.kernels.gcn_spmm import ref as R
 
-    # 1. build
-    _build.load("gcn_spmm")
-    info = _build.BUILD_INFO["gcn_spmm"]
-    emit("build", kernel="gcn_spmm", seconds=info["seconds"],
-         ptxas=[l.strip() for l in info["log"].splitlines()
-                if "registers" in l or "spill" in l])
-    # 2. kernel check
+    # 1. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    _build.load_all(SOURCES)
+    emit("build_all", seconds=time.perf_counter() - t0)
+    for name in SOURCES:
+        info = _build.BUILD_INFO[name]
+        emit("build", kernel=name, seconds=info["seconds"],
+             ptxas=[l.strip() for l in info["log"].splitlines()
+                    if "registers" in l or "spill" in l or "Compiling" in l])
+    # 2. gcn_spmm kernel check
     errs = phase_kernel_check(torch, K, R)
-    # 3. + 4. the main path, counts zeroed before and read after each plan
+    # 3. + 4. the planner's main path, counts zeroed before and read after
+    # each plan
     params46, cfg46, fleet46, l46 = phase_fleet46(torch, device)
     fleet1024, l1024 = phase_1024(torch, device)
     launches = {k: l46[k] + l1024[k] for k in l46}
-    # 5. times
+    # 5. gcn_spmm times
     card = card_identity()
     times = phase_times(torch, K, R, params46, cfg46,
                         {64: fleet46, 1024: fleet1024}, device, card)
-    # 6. kernels summary: headline times at bucket 1024, the largest the
-    # planner runs; both buckets in by_bucket
+    # 6. attention kernel check
+    errs.update(phase_attention_check(torch, FK, FR, DK, DR))
+    # 7. the serving main path, counts zeroed before and read after
+    launches.update(phase_serve(torch, device, FK, DK))
+    # 8. attention times at the serve shapes
+    attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
+    # 9. the card-only pytest files
+    phase_gpu_pytest()
+    # 10. kernels summary. gcn_spmm: headline at bucket 1024, the largest
+    # the planner runs. Attention: headline at the global layer (the most
+    # work per launch), every serve shape in by_case.
     replaces = {"scaled_spmm": "src/repro/kernels/gcn_spmm/kernel.py:87",
                 "spmm": "src/repro/kernels/gcn_spmm/kernel.py:43"}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = []
     for name in ("scaled_spmm", "spmm"):
         top = times[name][1024]
@@ -305,11 +614,19 @@ def main() -> None:
             "on_main_path": name == "scaled_spmm",
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"],
+            **{k: top[k] for k in keys},
             "by_bucket": {str(b): times[name][b] for b in TIMED_BUCKETS}})
-    # 7. import check
+    for name in ("flash_attention", "decode_attention"):
+        kernels.append({
+            "name": f"{name}.{name}", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": ATTN_REPLACES[name], "launches": launches[name],
+            "on_main_path": True,
+            "max_abs_err": errs[name]["float32"],
+            "max_abs_err_bf16": errs[name]["bfloat16"],
+            **{k: attn_times[name]["global"][k] for k in keys},
+            "by_case": attn_times[name]})
+    # 11. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     check(not bad, f"the port loaded JAX or the reference package: {bad}")

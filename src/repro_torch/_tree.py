@@ -1,6 +1,9 @@
 """Nested dicts / lists of tensors (the port's stand-in for JAX pytrees)."""
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 
 def map_with_path(fn, tree, *rest, path=()):
     """Apply ``fn(path, leaf, *other_leaves)`` over parallel trees; ``path``
@@ -22,3 +25,22 @@ def leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``device``. A bfloat16 array (the
+    ``ml_dtypes`` type that ``np.asarray`` gives for a bf16 JAX array) comes
+    over by bit pattern, as int16 viewed as ``torch.bfloat16``, so that
+    ``ml_dtypes`` is never imported."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a)).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> numpy. numpy has no bfloat16 of its own, so a bf16
+    tensor comes back as float32, which holds every bf16 value exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _device
-from repro_torch._tree import leaves, tree_map
+from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
+                              tree_map)
 from repro_torch.kernels.gcn_spmm import ops as spmm_ops
 
 Params = Any   # nested dict / list of tensors
@@ -95,13 +96,14 @@ def init(cfg: GNNConfig, d_in: int, seed: int = 0, device=None) -> Params:
 
 
 def params_from_numpy(tree, device=None) -> Params:
-    """Reference params as numpy arrays -> the port's dict of float tensors."""
+    """Reference params as numpy arrays -> the port's dict of tensors
+    (bfloat16 leaves by bit pattern, see ``_tree.tensor_from_numpy``)."""
     dev = _device.resolve(device)
-    return tree_map(lambda a: torch.as_tensor(np.array(a)).to(dev), tree)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
 def params_to_numpy(params: Params):
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    return tree_map(tensor_to_numpy, params)
 
 
 def n_params(params: Params) -> int:

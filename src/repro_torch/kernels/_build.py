@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -61,3 +62,10 @@ def load(name: str) -> ctypes.CDLL:
     BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
     _LOADED[name] = lib
     return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """``load`` several sources at once: one nvcc process per source, all
+    started together (each build releases the GIL while nvcc runs)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,0 +1,25 @@
+"""Dispatch for decode attention (port of
+``repro/kernels/decode_attention/ops.py``).
+
+A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
+version in ``ref.py``; any other device raises. ``valid`` becomes the int32
+slot mask the kernel takes. The kernel leaves slots past T out, so nothing
+is padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import kernel as _k
+from repro_torch.kernels.decode_attention import ref as _ref
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Model layout: q (B, 1, H, D); k/v (B, T, KV, D); valid (T,) bool/int.
+    Returns (B, 1, H, D)."""
+    if q.device.type == "cuda":
+        return _k.decode_attention(q, k, v, (valid > 0).to(torch.int32))
+    if q.device.type == "cpu":
+        return _ref.decode_attention_ref(q, k, v, valid)
+    raise ValueError(f"decode_attention runs on CUDA or CPU tensors, got {q.device}")

@@ -1,0 +1,108 @@
+"""Shared layer primitives: inits, norms, activations, RoPE, masks, loss.
+Port of ``repro/models/common.py``.
+
+Parameters are plain nested dicts of tensors. The reference's sharding
+annotations (``logical_constraint``) have no counterpart on one card, so
+the port leaves them out. Every init draws from an explicit
+``torch.Generator``; ``jax.random`` draws other numbers, so parity tests
+inject the reference's params instead of comparing two inits.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+# Runtime execution knobs, set by the launcher per device:
+#   use_flash — route attention through the hand-written CUDA kernels
+#               (their plain versions for CPU tensors)
+#   q_chunk   — q-block chunked attention in plain torch (0 = off)
+# The reference's knobs for the SSM, mLSTM, MoE and remat arrive with
+# their slices.
+RUNTIME = {"use_flash": False, "q_chunk": 0}
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def truncnorm_init(gen: torch.Generator, shape, scale=0.02,
+                   dtype=torch.float32) -> torch.Tensor:
+    """``scale`` x a standard normal truncated to [-2, 2] (the reference's
+    ``jax.random.truncated_normal``), drawn on ``gen``'s device."""
+    t = torch.empty(shape, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (scale * t).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale=None) -> torch.Tensor:
+    scale = scale if scale is not None else d_in ** -0.5
+    return truncnorm_init(gen, (d_in, d_out), scale, dtype)
+
+
+def rmsnorm_params(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), device=device)}
+
+
+def layernorm_params(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), device=device),
+            "bias": torch.zeros((d,), device=device)}
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    return F.silu(x)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (GPT-NeoX half-rotation convention).
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    angles = positions[..., None].float() * freqs              # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]                      # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: Optional[int] = None) -> torch.Tensor:
+    """(..., q, k) boolean mask: True = attend. Sliding window if set."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL over (optionally masked) positions; logits fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,0 +1,284 @@
+"""Generic decoder-only LM over config segments. Port of the serving half of
+``repro/models/decoder_lm.py``.
+
+A segment is ``count`` repetitions of a *block* of layers (Gemma-3's 5 local
++ 1 global). Segment parameters are a list (one entry per layer-in-block) of
+layer param dicts; for count > 1 every leaf has a leading (count,) axis, as
+in the reference, so weights carry across one to one. Caches mirror that
+layout. A Python loop over the (count,) axis takes the place of the
+reference's ``lax.scan``; indexing gives views, so a decode step writes each
+layer's K/V into the stacked cache in place.
+
+Entry points: ``init_params``, ``init_caches``, ``forward``, ``prefill``
+and ``decode_step``; ``params_from_numpy`` / ``params_to_numpy`` carry
+weights across from the reference. This slice runs ``attn`` layers with
+``dense`` MLPs; other layer kinds raise ``NotImplementedError`` naming the
+slice they wait for. The training objective waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import _device
+from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
+                               tree_map)
+from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (DTYPES, apply_norm, layernorm_params,
+                                       rmsnorm_params, truncnorm_init)
+
+PyTree = Any
+
+_LATER = {
+    "mla": "the MLA slice (DeepSeek-V2)",
+    "mamba": "the SSM slice (ssm.py, Jamba)",
+    "mlstm": "the xLSTM slice (xlstm.py)",
+    "slstm": "the xLSTM slice (xlstm.py)",
+    "moe": "the MoE slice (models/mlp.py::moe)",
+}
+
+
+def _unported(kind: str):
+    raise NotImplementedError(
+        f"{kind!r} layers are not ported yet: they wait for "
+        f"{_LATER.get(kind, 'a later slice')}")
+
+
+def _norm_params(cfg: ModelConfig, d: int, device):
+    return layernorm_params(d, device) if cfg.norm == "layernorm" \
+        else rmsnorm_params(d, device)
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _stack(trees: list):
+    """Stack parallel trees on a new leading axis (None leaves stay None)."""
+    return tree_map(lambda *xs: None if xs[0] is None else torch.stack(xs),
+                    trees[0], *trees[1:])
+
+
+def _index(tree, i: int):
+    """Views of entry ``i`` of a stacked tree."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Single layer
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, layer: LayerSpec, cfg: ModelConfig) -> dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    p: dict = {"norm1": _norm_params(cfg, d, gen.device)}
+    if layer.kind != "attn":
+        _unported(layer.kind)
+    p["attn"] = attn_mod.init_attn(gen, layer.attn, d, dt)
+    if layer.mlp == "dense":
+        p["norm2"] = _norm_params(cfg, d, gen.device)
+        p["mlp"] = mlp_mod.init_mlp(gen, d, layer.d_ff, cfg.act, dt)
+    elif layer.mlp == "moe":
+        _unported("moe")
+    return p
+
+
+def init_block(gen: torch.Generator, seg: Segment, cfg: ModelConfig) -> list:
+    return [init_layer(gen, l, cfg) for l in seg.layers]
+
+
+def layer_cache_init(layer: LayerSpec, cfg: ModelConfig, batch: int,
+                     max_len: int, device) -> Optional[dict]:
+    if layer.kind != "attn":
+        _unported(layer.kind)
+    return attn_mod.init_cache(layer.attn, batch, max_len, _dtype(cfg), device)
+
+
+def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
+               want_cache: bool, max_len: int):
+    """Full-sequence layer. Returns (x, aux, cache_or_None)."""
+    if layer.kind != "attn":
+        _unported(layer.kind)
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    cache = None
+    if want_cache:
+        y, cache = attn_mod.attn_prefill(p["attn"], layer.attn, h, positions,
+                                         max_len)
+    else:
+        y = attn_mod.attn_full(p["attn"], layer.attn, h, positions)
+    x = x + y
+    aux = torch.zeros((), device=x.device)
+    if layer.mlp == "dense":
+        h2 = apply_norm(p["norm2"], x, cfg.norm)
+        x = x + mlp_mod.mlp(p["mlp"], h2, cfg.act)
+    elif layer.mlp == "moe":
+        _unported("moe")
+    return x, aux, cache
+
+
+def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos: int, cache):
+    """Single-token layer step; updates ``cache`` in place. Returns
+    (x, cache)."""
+    if layer.kind != "attn":
+        _unported(layer.kind)
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    y, cache = attn_mod.attn_decode(p["attn"], layer.attn, h, pos, cache)
+    x = x + y
+    if layer.mlp == "dense":
+        x = x + mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
+                            cfg.act)
+    elif layer.mlp == "moe":
+        _unported("moe")
+    return x, cache
+
+
+def block_full(block_p, seg: Segment, cfg: ModelConfig, x, positions,
+               want_cache: bool, max_len: int):
+    """One block (all layers of a segment repetition). Returns
+    (x, aux_sum, [caches])."""
+    aux_sum = torch.zeros((), device=x.device)
+    caches = []
+    for p_i, layer in zip(block_p, seg.layers):
+        x, aux, cache = layer_full(p_i, layer, cfg, x, positions, want_cache,
+                                   max_len)
+        aux_sum = aux_sum + aux
+        caches.append(cache)
+    return x, aux_sum, caches
+
+
+def block_decode(block_p, block_c, seg: Segment, cfg: ModelConfig, x, pos: int):
+    new_caches = []
+    for p_i, c_i, layer in zip(block_p, block_c, seg.layers):
+        x, c = layer_decode(p_i, layer, cfg, x, pos, c_i)
+        new_caches.append(c)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> PyTree:
+    """Fresh params with the reference's tree and distributions (truncated
+    normals), drawn on ``device`` from a ``torch.Generator`` seeded with
+    ``seed``. ``jax.random`` draws other numbers: compare with the
+    reference by injecting its params (``params_from_numpy``)."""
+    dev = _device.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg)
+    params: dict = {
+        "embed": truncnorm_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
+        "final_norm": _norm_params(cfg, cfg.d_model, dev),
+        "segments": [],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = truncnorm_init(gen, (cfg.d_model, cfg.vocab_size),
+                                           0.02, dt)
+    for seg in cfg.segments:
+        blocks = [init_block(gen, seg, cfg) for _ in range(seg.count)]
+        params["segments"].append(blocks[0] if seg.count == 1
+                                  else _stack(blocks))
+    return params
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> list:
+    dev = _device.resolve(device)
+    caches = []
+    for seg in cfg.segments:
+        block = [layer_cache_init(l, cfg, batch, max_len, dev)
+                 for l in seg.layers]
+        caches.append(block if seg.count == 1
+                      else _stack([block] * seg.count))
+    return caches
+
+
+def backbone_full(params, cfg: ModelConfig, x, positions, want_cache: bool,
+                  max_len: int):
+    """Run all segments over embeddings x. Returns (x, aux, caches)."""
+    aux_total = torch.zeros((), device=x.device)
+    caches = []
+    for seg, seg_p in zip(cfg.segments, params["segments"]):
+        if seg.count == 1:
+            x, aux, cache = block_full(seg_p, seg, cfg, x, positions,
+                                       want_cache, max_len)
+            aux_total = aux_total + aux
+            caches.append(cache)
+            continue
+        seg_caches = []
+        for i in range(seg.count):
+            x, aux, cache = block_full(_index(seg_p, i), seg, cfg, x,
+                                       positions, want_cache, max_len)
+            aux_total = aux_total + aux
+            seg_caches.append(cache)
+        caches.append(_stack(seg_caches))
+    return x, aux_total, caches
+
+
+def _logits(params, cfg: ModelConfig, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    return logits.float() if cfg.logits_fp32 else logits
+
+
+def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
+            max_len: int):
+    """Embeddings through every segment and the final norm."""
+    if embeds is None:
+        embeds = params["embed"][tokens]
+    b, s = embeds.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=embeds.device)[None].expand(b, s)
+    x, aux, caches = backbone_full(params, cfg, embeds, positions, want_cache,
+                                   max_len or s)
+    return apply_norm(params["final_norm"], x, cfg.norm), aux, caches
+
+
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
+            want_cache: bool = False, max_len: int = 0):
+    """tokens: (B,S) int (or embeds (B,S,d)). Returns (logits, aux, caches)."""
+    x, aux, caches = _hidden(params, cfg, tokens, embeds, want_cache, max_len)
+    return _logits(params, cfg, x), aux, caches
+
+
+def prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
+            max_len: int = 0):
+    """Returns (logits_last (B,1,V), caches). The head runs on the last
+    position only: the same numbers as the reference's ``logits[:, -1:]``
+    without its (B, S, V) fp32 logits (4.3 GB at gemma3-1b, B 4, S 1024)."""
+    x, _, caches = _hidden(params, cfg, tokens, embeds, True, max_len)
+    return _logits(params, cfg, x[:, -1:]), caches
+
+
+def decode_step(params, cfg: ModelConfig, token, pos: int, caches):
+    """token: (B,1) int; pos: the token's position. Updates ``caches`` in
+    place. Returns (logits (B,1,V), caches)."""
+    x = params["embed"][token]
+    for seg, seg_p, seg_c in zip(cfg.segments, params["segments"], caches):
+        if seg.count == 1:
+            x, _ = block_decode(seg_p, seg_c, seg, cfg, x, pos)
+            continue
+        for i in range(seg.count):
+            x, _ = block_decode(_index(seg_p, i), _index(seg_c, i), seg, cfg,
+                                x, pos)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(params, cfg, x), caches
+
+
+def param_count(params) -> int:
+    return sum(int(p.numel()) for p in leaves(params))
+
+
+def params_from_numpy(tree, device=None) -> PyTree:
+    """Reference params (``jax.tree.map(np.asarray, params)``) -> the port's
+    tree of tensors on ``device``; bfloat16 leaves come over by bit
+    pattern."""
+    dev = _device.resolve(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
+
+
+def params_to_numpy(params) -> PyTree:
+    """The port's tree -> numpy (bfloat16 leaves widened to float32, which
+    is exact)."""
+    return tree_map(tensor_to_numpy, params)

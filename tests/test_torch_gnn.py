@@ -113,6 +113,19 @@ def test_init_keeps_the_reference_tree_and_distributions():
     assert all(torch.equal(a, b) for a, b in zip(leaves(tp), leaves(again)))
 
 
+def test_params_from_numpy_takes_bf16_leaves_exactly():
+    """A bf16 JAX tree (``np.asarray`` gives ``ml_dtypes.bfloat16`` leaves)
+    comes over by bit pattern and goes back exactly."""
+    jp, _ = _ref_params(jgnn.GNNConfig(hidden=16, n_classes=3), 12)
+    jp16 = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp)
+    tp = tgnn.params_from_numpy(jax.tree.map(np.asarray, jp16), device="cpu")
+    assert all(t.dtype == torch.bfloat16 for t in leaves(tp))
+    back = tgnn.params_to_numpy(tp)
+    for want, got in zip(jax.tree.leaves(jp16), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+        assert (jnp.asarray(got).astype(jnp.bfloat16) == want).all()
+
+
 ADAM_CASES = {
     "paper": dict(learning_rate=0.01, weight_decay=0.0, b2=0.999,
                   grad_clip_norm=0.0),

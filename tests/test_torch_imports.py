@@ -9,11 +9,16 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import gnn as tgnn
 from repro_torch.core import train as ttrain
 from repro_torch.core.graph import paper_fig1_graph
+from repro_torch.kernels.decode_attention import kernel as tdec_kernel
+from repro_torch.kernels.flash_attention import kernel as tflash_kernel
 from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.kernels.gcn_spmm import ops as tops
+from repro_torch.launch import serve as tserve
+from repro_torch.models import decoder_lm as tdlm
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -37,7 +42,7 @@ def test_every_port_module_imports_without_jax_or_repro():
                           env=dict(os.environ, PYTHONPATH=SRC),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15   # every module of the slice
+    assert int(proc.stdout.strip()) >= 50   # every module of slices 1 and 2
 
 
 def _tiny_cpu_setup():
@@ -59,7 +64,20 @@ ENTRY_POINTS = {
         tgnn.init(cfg, ex.feats.shape[1], device="cpu"), cfg, g),
     "params_from_numpy": lambda cfg, g, ex: tgnn.params_from_numpy(
         tgnn.params_to_numpy(tgnn.init(cfg, ex.feats.shape[1], device="cpu"))),
+    "lm.init_params": lambda *_: tdlm.init_params(_lm_cfg()),
+    "lm.params_from_numpy": lambda *_: tdlm.params_from_numpy(
+        tdlm.params_to_numpy(tdlm.init_params(_lm_cfg(), device="cpu"))),
+    "lm.init_caches": lambda *_: tdlm.init_caches(_lm_cfg(), 1, 8),
+    # a serving session as a user starts one: params at their default device
+    "serve_batch": lambda *_: tserve.serve_batch(
+        _lm_cfg(), tdlm.init_params(_lm_cfg()),
+        {"tokens": np.zeros((1, 4), np.int32)}, 2),
+    "serve.main": lambda *_: tserve.main(["--arch", "gemma3-1b", "--smoke"]),
 }
+
+
+def _lm_cfg():
+    return reduce_for_smoke(get_config("gemma3-1b"))
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -94,6 +112,24 @@ def test_kernel_wrapper_refuses_cpu_tensors_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA device"):
         tkernel.spmm(a, h)
     assert tkernel.LAUNCHES == before
+
+
+def test_attention_kernel_wrappers_refuse_cpu_tensors_without_a_launch():
+    q, k = torch.ones(1, 8, 2, 16), torch.ones(1, 8, 1, 16)
+    before = (dict(tflash_kernel.LAUNCHES), dict(tdec_kernel.LAUNCHES))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tflash_kernel.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdec_kernel.decode_attention(q[:, :1], k, k,
+                                     torch.ones(8, dtype=torch.int32))
+    assert (tflash_kernel.LAUNCHES, tdec_kernel.LAUNCHES) == before
+
+
+def test_serve_runs_on_cpu_when_asked(capsys):
+    tserve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "generated shape (2, 3)" in out and "backend=cpu" in out
 
 
 def test_ops_refuse_devices_other_than_cuda_and_cpu():
