@@ -15,7 +15,8 @@ exits non-zero before the last line, which is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX or ``repro``.
 
 Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
-Fig. 8) -> 1024-node plan -> gcn_spmm times -> kernel check (attention) ->
+Fig. 8) -> 1024-node plan -> gcn_spmm times and a bit-for-bit repeat at
+bucket 1024 -> kernel check (attention) ->
 gemma3-1b serve -> attention times -> card-only pytest -> kernels summary
 -> import check.
 """
@@ -233,7 +234,9 @@ def card_identity() -> str:
 
 def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
     """Kernel, plain version, one-library-call yardstick and bound, at the
-    main path's buckets 64 (paper_fleet46) and 1024 (random_fleet(1024))."""
+    main path's buckets 64 (paper_fleet46) and 1024 (random_fleet(1024)).
+    At bucket 1024 (split-K over a cluster) two kernel calls must agree bit
+    for bit."""
     out = {}
     for b in TIMED_BUCKETS:
         a, h, s = _gcn_inputs(torch, params, cfg, graphs[b], device)
@@ -269,9 +272,22 @@ def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": c["nbytes"], "flops": c["flops"]}
-            emit("times", kernel=name, card=card, **row)
+            emit("times", kernel=name, card=card, **_shares(row))
             out.setdefault(name, {})[b] = row
+            if b == 1024:   # split-K over a cluster: no atomics, same bits
+                first, second = c["kernel"](), c["kernel"]()
+                torch.cuda.synchronize()
+                same = torch.equal(first, second)
+                emit("determinism", kernel=name, bucket=b, bit_identical=same)
+                check(same, f"two {name} calls at bucket {b} differ")
     return out
+
+
+def _shares(row: dict) -> dict:
+    """A times row with bound_share = bound / kernel time and vs_library =
+    kernel time / library time."""
+    return {**row, "bound_share": row["bound_ms"] / row["ms"],
+            "vs_library": row["ms"] / row["library_ms"]}
 
 
 # -- serving gemma3-1b --------------------------------------------------------
@@ -323,6 +339,44 @@ def phase_attention_check(torch, FK, FR, DK, DR) -> dict:
     return errs
 
 
+def _dev_time(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def _profile_prefill(torch, dlm, params, cfg, tokens, max_len, repeats=5) -> dict:
+    """Median host wall time of ``repeats`` warm prefills (each ended by a
+    synchronize), then one prefill under torch.profiler (CUDA activity):
+    the device time of its kernels, the flash kernel's part of it and the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    with torch.no_grad():
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_dev_time(e) for e in kernels)
+    flash_us = sum(_dev_time(e) for e in kernels if "flash_" in e.key)
+    top = sorted(kernels, key=_dev_time, reverse=True)[:6]
+    wall = statistics.median(walls)
+    return {"repeats": repeats, "wall_ms_median": wall * 1e3,
+            "wall_ms": [w * 1e3 for w in walls],
+            "tokens_per_s_median": tokens.numel() / wall,
+            "device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
+            "flash_share_of_busy": flash_us / busy_us,
+            "top_kernels": [[e.key[:100], _dev_time(e) / 1e3, e.count]
+                            for e in top]}
+
+
 def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
     """Device busy share and the top device ops over ``steps`` decode steps
     (torch.profiler, CUDA activity), after a fresh prefill."""
@@ -339,21 +393,19 @@ def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
                                             caches)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
     events = prof.key_averages()
     # kernel events only: an operator's device time repeats its kernels'
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(dev_time(e) for e in kernels)
-    top = sorted(kernels, key=dev_time, reverse=True)[:8]
+    busy_us = sum(_dev_time(e) for e in kernels)
+    top = sorted(kernels, key=_dev_time, reverse=True)[:8]
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernels_per_step": sum(e.count for e in kernels) / steps,
             "cpu_events_per_step": sum(e.count for e in events
                                        if e not in kernels) / steps,
-            "top_kernels": [[e.key[:100], dev_time(e) / steps, e.count / steps]
+            "top_kernels": [[e.key[:100], _dev_time(e) / steps, e.count / steps]
                             for e in top]}
 
 
@@ -404,6 +456,8 @@ def phase_serve(torch, device, FK, DK) -> dict:
     tokens = torch.as_tensor(batch["tokens"], device=device)
     fed = torch.as_tensor(gen, device=device)
     prof = _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len)
+    emit("serve_prefill_profile",
+         **_profile_prefill(torch, dlm, params, cfg, tokens, max_len))
 
     def teacher_forced(p, c, flash: bool):
         cc.RUNTIME["use_flash"] = flash
@@ -529,7 +583,7 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["nbytes"], "flops": c["flops"]}
-        emit("times", kernel=name, card=card, **row)
+        emit("times", kernel=name, card=card, **_shares(row))
         out.setdefault(name, {})[label] = row
     return out
 

@@ -4,7 +4,9 @@ Port of the Pallas TPU kernel ``flash_attention_bhsd``
 (``repro/kernels/flash_attention/kernel.py``). The kernel reads the model
 layout and masks its own ragged edges, so nothing is transposed or padded
 here. Every argument is checked before a pointer is handed over, and each
-launch adds one to ``LAUNCHES["flash_attention"]``.
+launch adds one to ``LAUNCHES["flash_attention"]``. The source holds two
+bodies: bf16 runs on the tensor cores, fp32 on the FMA pipe (which keeps the
+fp32 tolerance); the C entry point picks one by type.
 
 Forward only, like the reference: an input that requires grad is refused
 instead of silently dropping its gradient.
@@ -76,6 +78,9 @@ def _check(q, k, v, causal: bool, window) -> None:
         if x.requires_grad:
             raise RuntimeError(f"{name} requires grad, but the flash_attention "
                                "kernel is forward-only")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary: the "
+                             "bf16 kernel moves its tiles by 16-byte cp.async")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

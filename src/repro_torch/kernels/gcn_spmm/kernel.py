@@ -4,7 +4,10 @@ Port of the Pallas TPU kernels ``scaled_spmm_blocked`` / ``spmm_blocked``
 (``repro/kernels/gcn_spmm/kernel.py``). One CUDA body serves both: null scale
 pointers give the plain ``A @ H``. The kernel masks its own ragged edges, so
 nothing is padded here. Every argument is checked before a pointer is
-handed over, and each launch adds one to ``LAUNCHES[<wrapper>]``.
+handed over, and each launch adds one to ``LAUNCHES[<wrapper>]``. Where the
+output tiles alone leave SMs idle the kernel splits K over a thread-block
+cluster and sums the partial tiles in a fixed order, so repeated calls give
+the same bits and no scratch buffer is needed.
 
 Forward only, like the reference: training runs the ``use_pallas=False``
 path, so an input that requires grad is refused instead of silently

@@ -31,6 +31,14 @@ FLASH_CASES = [
     (4, 1024, 4, 1, 256, None, "float32"),
     (4, 1024, 4, 1, 256, 512, "bfloat16"),
     (4, 1024, 4, 1, 256, None, "bfloat16"),
+    # the tensor-core body: ragged S (40, 72, 100, 192), GQA groups 1, 2, 4
+    # and 8, every head dim, windows smaller than a kv tile
+    (1, 40, 4, 1, 256, 16, "bfloat16"),
+    (2, 192, 4, 4, 64, None, "bfloat16"),
+    (2, 192, 8, 4, 128, 48, "bfloat16"),
+    (1, 100, 8, 1, 16, None, "bfloat16"),
+    (2, 72, 16, 2, 32, 5, "bfloat16"),
+    (1, 256, 8, 1, 128, None, "bfloat16"),
 ]
 # tests/test_kernels.py::DEC_CASES, then gemma3-1b's decode shapes: the
 # window-512 ring (a non-prefix mask) and the global cache at max_len 1088
@@ -87,6 +95,22 @@ def test_flash_kernel_matches_plain_version(b, s, h, kv, d, window, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_with_more_keys_than_queries(causal, dtype):
+    """T != S (keys past the last query, ragged against the kv tile) and the
+    non-causal mask, which the serve path does not reach."""
+    _need_cuda()
+    rng = np.random.default_rng(2)
+    q = normal(rng, (2, 50, 8, 64), dtype)
+    k, v = (normal(rng, (2, 97, 2, 64), dtype) for _ in range(2))
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    want = tflash_ref.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,t,h,kv,d,mask,dtype", DEC_CASES)
 def test_decode_kernel_matches_plain_version(b, t, h, kv, d, mask, dtype):
     _need_cuda()
@@ -138,4 +162,8 @@ def test_kernels_refuse_cpu_tensors_grad_and_bad_shapes():
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, k)
+    qb = torch.ones(8 * 4 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    kb = k.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tflash.flash_attention(qb.view(1, 8, 4, 64), kb, kb)
     assert (tflash.LAUNCHES, tdec.LAUNCHES) == counts

@@ -15,7 +15,11 @@ from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.kernels.gcn_spmm import ops as tops
 from repro_torch.kernels.gcn_spmm import ref as tref
 
-# tests/test_kernels.py::SPMM_CASES, the GNN width at buckets 64 and 1024
+# tests/test_kernels.py::SPMM_CASES, the GNN width at buckets 64 and 1024,
+# then the edges of the split-K cluster and of the 16-byte A path: n 1023
+# and 1025 (ragged K ranges, rows of A not 16-byte aligned), n 512 at d 64
+# (8 ranks, the most), n 2048 (enough tiles to need no split), d 1 / 15 /
+# 300 (column tiles of one, part of one and ten)
 SPMM_CASES = [
     (8, 22, "float32"),
     (46, 15, "float32"),
@@ -24,6 +28,12 @@ SPMM_CASES = [
     (200, 64, "float32"),
     (1024, 213, "float32"),
     (46, 12, "bfloat16"),
+    (1023, 213, "float32"),
+    (1025, 15, "float32"),
+    (512, 64, "float32"),
+    (2048, 300, "float32"),
+    (1024, 1, "float32"),
+    (1025, 213, "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
 
@@ -64,6 +74,20 @@ def test_cuda_kernel_matches_plain_version(n, d, dtype):
     scale = max(1.0, want_plain.abs().max().item())
     torch.testing.assert_close(got_plain.float(), want_plain, rtol=TOL[dtype],
                                atol=TOL[dtype] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(1024, 213), (512, 64), (200, 64)])
+def test_cuda_kernel_repeats_bit_for_bit(n, d):
+    """Split-K sums its cluster's partial tiles in rank order, with no
+    atomics: two calls on the same inputs give the same bits."""
+    _need_cuda()
+    ta, th, tr, tc = (torch.from_numpy(x).cuda() for x in _inputs(n, d))
+    for fn, args in ((tops.scaled_spmm, (ta, th, tr, tc)), (tops.spmm, (ta, th))):
+        first = fn(*args)
+        second = fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
