@@ -8,7 +8,8 @@ per source, and checks each against its plain PyTorch version. Then it
 drives both main paths through the port's entry points at full width: the
 planner (hidden 213, two GCN layers) on fleet46 and a 1024-node fleet, and
 serving gemma3-1b (26 layers, d_model 1152, bf16, random weights from a
-seed) on 4 prompts of 1024 tokens with 64 generated. It times every kernel
+seed) on 4 prompts of 1024 tokens with 64 generated, whose decode loop
+replays one captured CUDA graph of the decode step. It times every kernel
 beside its plain version, a one-call library yardstick and its bound, runs
 the card-only pytest files, and prints one JSON line per phase. Any failure
 exits non-zero before the last line, which is ``{"ok": true, "device":
@@ -16,9 +17,17 @@ exits non-zero before the last line, which is ``{"ok": true, "device":
 
 Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
 Fig. 8) -> 1024-node plan -> gcn_spmm times and a bit-for-bit repeat at
-bucket 1024 -> kernel check (attention) ->
-gemma3-1b serve -> attention times -> card-only pytest -> kernels summary
--> import check.
+bucket 1024 -> kernel check (attention) -> gemma3-1b serve (launch counts,
+a repeat call that must hold no more memory, the graphed step against the
+eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
+attention times (decode also per call inside a graph and from HBM) ->
+card-only pytest -> kernels summary -> import check.
+
+Launch counts on the serve path, zeroed just before the 64-token call and
+read just after it: 26 ``flash_attention`` (one prefill of 26 layers) and
+26 x 64 = 1,664 ``decode_attention``: the eager warm-up step before the
+capture (26), then 63 replays of a graph that holds one step (26 each);
+the capture itself runs nothing.
 """
 from __future__ import annotations
 
@@ -224,6 +233,55 @@ def _time_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _time_graphed_ms(torch, fn, launches=100, replays=7) -> float:
+    """Mean device time per call with no per-call event or launch cost: one
+    CUDA graph of ``launches`` back-to-back calls, the median over
+    ``replays`` replays, each between two events. A kernel wrapper counts
+    these calls as captured, not as launches on the main path."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    graph.reset()
+    return statistics.median(times)
+
+
+FLUSH_BYTES = 96 << 20   # past the H100's 50 MB L2
+
+
+def _time_cold_ms(torch, fn, flush, n=30) -> float:
+    """Median device time of one call, CUDA events around each, with a
+    write of FLUSH_BYTES before each so that its inputs come from HBM, as on
+    the decode path, where 26 layers' caches and ~2 GB of weights pass
+    between two visits to one layer. A sleep kernel queued first keeps the
+    host's launch cost out, as in ``_time_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    torch.cuda._sleep(50_000_000)
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
 def card_identity() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -320,9 +378,7 @@ def phase_attention_check(torch, FK, FR, DK, DR) -> dict:
             b, t, h, kv, d, mask, dt = case
             q = normal((b, 1, h, d), dt)
             k, v = normal((b, t, kv, d), dt), normal((b, t, kv, d), dt)
-            valid = AG.ring_mask(t, 3 * t + 7, 3 * t - 100) if mask == "ring" \
-                else (np.arange(t) < mask).astype(np.int32)
-            valid = torch.from_numpy(valid).cuda()
+            valid = torch.from_numpy(AG.dec_mask(t, mask)).cuda()
             got = DK.decode_attention(q, k, v, valid)
             want = DR.decode_attention_ref(q, k, v, valid)
         torch.cuda.synchronize()
@@ -378,11 +434,21 @@ def _profile_prefill(torch, dlm, params, cfg, tokens, max_len, repeats=5) -> dic
 
 
 def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
-    """Device busy share and the top device ops over ``steps`` decode steps
-    (torch.profiler, CUDA activity), after a fresh prefill."""
+    """The eager decode step (``decode_step`` with an int pos, op by op, as
+    before the graph): host wall time per step over ``steps`` unprofiled
+    steps, then device busy share and the top device ops over ``steps``
+    steps under torch.profiler (CUDA activity), each run after a fresh
+    prefill."""
     from torch.profiler import ProfilerActivity, profile
     s = tokens.shape[1]
     with torch.no_grad():
+        _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            _, caches = dlm.decode_step(params, cfg, fed[:, i:i + 1], s + i, caches)
+        torch.cuda.synchronize()
+        unprofiled = (time.perf_counter() - t0) / steps
         _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -400,8 +466,11 @@ def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
     busy_us = sum(_dev_time(e) for e in kernels)
     top = sorted(kernels, key=_dev_time, reverse=True)[:8]
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "unprofiled_ms_per_step": unprofiled * 1e3,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_idle_share_unprofiled":
+                1.0 - busy_us / 1e3 / steps / (unprofiled * 1e3),
             "kernels_per_step": sum(e.count for e in kernels) / steps,
             "cpu_events_per_step": sum(e.count for e in events
                                        if e not in kernels) / steps,
@@ -409,10 +478,135 @@ def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
                             for e in top]}
 
 
+def _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen, max_len,
+                    steps=8) -> dict:
+    """The captured step against the eager one on the same weights and the
+    same prefill caches: ``decode_step`` captured with a tensor pos and
+    replayed teacher-forced on ``fed`` against eager ``decode_step`` calls
+    (logits, bit for bit expected: the same kernels in the same order), and
+    ``serve_batch``'s graphed tokens ``gen`` against an eager greedy loop
+    of ``make_decode_step``'s step."""
+    from repro_torch.training.train_step import make_decode_step
+    s = tokens.shape[1]
+
+    def clone(tree):   # caches: lists of per-layer dicts of tensors
+        return [{k: v.clone() for k, v in c.items()} if isinstance(c, dict)
+                else clone(c) for c in tree]
+
+    with torch.no_grad():
+        last, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        eager_caches = clone(caches)
+        tok = fed[:, :1].clone()
+        pos = torch.full((), s, dtype=torch.int32, device=tokens.device)
+        dlm.decode_step(params, cfg, tok, pos, clone(caches))   # eager warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = dlm.decode_step(params, cfg, tok, pos, caches)
+        errs, same = [], True
+        for i in range(steps):
+            tok.copy_(fed[:, i:i + 1])
+            pos.fill_(s + i)
+            graph.replay()
+            want, eager_caches = dlm.decode_step(params, cfg, fed[:, i:i + 1],
+                                                 s + i, eager_caches)
+            torch.cuda.synchronize()
+            same = same and torch.equal(logits, want)
+            errs.append((logits - want).abs().max().item())
+        graph.reset()
+        del graph, logits, caches, eager_caches
+        step = make_decode_step(cfg)
+        _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        t = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
+        out = [t]
+        for i in range(gen.shape[1] - 1):
+            t, caches = step(params, t, s + i, caches)
+            out.append(t)
+        eager_gen = torch.cat(out, dim=1).cpu().numpy()
+    return {"steps": steps, "logits_bit_identical": same,
+            "logits_max_abs_err": max(errs),
+            "tokens_equal": bool((eager_gen == gen).all()),
+            "token_agreement": float((eager_gen == gen).mean())}
+
+
+def _profile_decode_graph(torch, dlm, serve, params, cfg, tokens, max_len, DK,
+                          steps=16) -> dict:
+    """Replays of ``serve_batch``'s captured decode step under torch.profiler
+    (CUDA activity), after a fresh prefill: host wall time per step (an
+    unprofiled run of the same replays first), device-busy time per step,
+    the device's idle share, kernels per step, the decode kernel's launches
+    per step and the top kernels. The graph is captured while the profiler
+    records, so its kernels are traced. A sleep kernel queued just before
+    the replays marks their start on the card's own clock: only device
+    activity after it is counted (the host's and the card's timestamps may
+    be offset by more than a kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.train_step import make_decode_step
+    s = tokens.shape[1]
+    step = make_decode_step(cfg)
+
+    def prefilled():
+        last, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        return torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None], caches
+
+    with torch.no_grad():
+        tok, caches = prefilled()
+        graph = serve.DecodeGraph(step, params, tok, s, caches, steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            graph.replay()
+        torch.cuda.synchronize()
+        wall_unprofiled = (time.perf_counter() - t0) / steps
+        graph.release()
+        del graph
+        tok, caches = prefilled()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph = serve.DecodeGraph(step, params, tok, s, caches, steps)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)   # the marker
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                graph.replay()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        graph.release()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    marks = [e for e in device if "spin_kernel" in e.name or "sleep" in e.name]
+    check(len(marks) == 1, f"the profiler shows {len(marks)} replay markers")
+    lo = marks[0].time_range.end
+    # device activity (kernels, copies, fills) after the marker
+    kernels = [e for e in device if e.time_range.start >= lo and e is not marks[0]]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+    dec = sum(n for name, (n, _) in by_name.items() if "decode_kernel" in name)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3,
+            "unprofiled_ms_per_step": wall_unprofiled * 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / (wall * steps),
+            "device_idle_share_unprofiled":
+                1.0 - busy_us / 1e6 / (wall_unprofiled * steps),
+            "kernels_per_step": len(kernels) / steps,
+            "decode_kernels_per_step": dec / steps,
+            "top_kernels": [[name[:100], t / 1e3 / steps, n / steps]
+                            for name, (n, t) in top]}
+
+
 def phase_serve(torch, device, FK, DK) -> dict:
     """gemma3-1b at full width, bf16, random weights from a seeded generator,
-    through the port's ``serve_batch`` (which turns ``use_flash`` on), after
-    one short warm-up call. Then the same weights teacher-forced on the
+    through the port's ``serve_batch`` (which turns ``use_flash`` on and
+    decodes by graph replays), after one short warm-up call, then once more
+    to show that the graph's memory is released. The graphed step is held
+    against the eager one (tokens equal, logits bit for bit or within 2e-2),
+    and both decode loops are profiled. Then the same weights teacher-forced on the
     generated tokens, with ``use_flash`` on and off, in bf16 and upcast to
     fp32. In fp32 the kernel path must give the plain path's logits within
     the model-level tolerance: the same function. In bf16 the two paths
@@ -439,6 +633,8 @@ def phase_serve(torch, device, FK, DK) -> dict:
     batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
                                             seed=SERVE["seed"]), 0)
     _, cold = serve.serve_batch(cfg, params, batch, 2, log=lambda *_: None)
+    torch.cuda.synchronize()
+    allocated = [torch.cuda.memory_allocated()]
 
     FK.reset_launches()
     DK.reset_launches()
@@ -446,16 +642,41 @@ def phase_serve(torch, device, FK, DK) -> dict:
     launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
                 "decode_attention": DK.LAUNCHES["decode_attention"]}
     peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    allocated.append(torch.cuda.memory_allocated())
     n_layers = cfg.n_layers
+    # one eager warm-up step before the capture, then gen_n - 1 replays of a
+    # graph that holds one step: n_layers decode launches per step, gen_n
+    # steps' worth; the capture itself launches nothing
     check(launches == {"flash_attention": n_layers,
-                       "decode_attention": n_layers * (gen_n - 1)},
+                       "decode_attention": n_layers * gen_n},
           f"serve launches {launches}, want {n_layers} flash and "
-          f"{n_layers * (gen_n - 1)} decode")
+          f"{n_layers * gen_n} decode")
     check(gen.shape == (b, gen_n) and ((gen >= 0) & (gen < cfg.vocab_size)).all(),
           f"generated tokens of shape {gen.shape} out of range")
+    # a repeat call: the graph and its pool are released, memory does not grow
+    torch.cuda.reset_peak_memory_stats()
+    gen_again, stats_again = serve.serve_batch(cfg, params, batch, gen_n,
+                                               log=lambda *_: None)
+    peak_again = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    allocated.append(torch.cuda.memory_allocated())
+    check(max(allocated[1:]) <= allocated[0],
+          f"device memory after serve calls grows: {allocated}")
+    check((gen_again == gen).all(), "a repeat serve call generated other tokens")
     tokens = torch.as_tensor(batch["tokens"], device=device)
     fed = torch.as_tensor(gen, device=device)
+    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen,
+                             max_len)
+    emit("serve_graph_vs_eager", **g_vs_e)
+    check(g_vs_e["tokens_equal"], "graphed serve tokens differ from the eager "
+                                  "greedy loop's")
+    check(g_vs_e["logits_bit_identical"] or g_vs_e["logits_max_abs_err"] <= 2e-2,
+          f"graphed decode logits differ from eager ones by "
+          f"{g_vs_e['logits_max_abs_err']}")
     prof = _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len)
+    gprof = _profile_decode_graph(torch, dlm, serve, params, cfg, tokens, max_len,
+                                  DK)
     emit("serve_prefill_profile",
          **_profile_prefill(torch, dlm, params, cfg, tokens, max_len))
 
@@ -492,7 +713,11 @@ def phase_serve(torch, device, FK, DK) -> dict:
          prefill_tokens_per_s=stats["prefill_tokens_per_s"],
          decode_tokens_per_s=stats["tokens_per_s"], prefill_s=stats["prefill_s"],
          decode_s=stats["decode_s"], cold_prefill_s=cold["prefill_s"],
-         peak_mem_bytes=peak, launches=launches,
+         decode_capture_s=stats["decode_capture_s"],
+         repeat_call={k: stats_again[k] for k in (
+             "prefill_tokens_per_s", "tokens_per_s", "decode_capture_s")},
+         peak_mem_bytes=peak, peak_mem_bytes_repeat_call=peak_again,
+         allocated_bytes_after_calls=allocated, launches=launches,
          fp32_prefill_logits_max_abs_err_kernels_vs_plain=err32_prefill,
          fp32_decode_logits_max_abs_err_kernels_vs_plain=err32_decode,
          fp32_tol=tol32,
@@ -506,12 +731,11 @@ def phase_serve(torch, device, FK, DK) -> dict:
          greedy_agreement_with_fp32=(off32.argmax(-1) == fed).float().mean().item(),
          replay_matches_serve=(on.argmax(-1) == fed).float().mean().item(),
          sample=gen[0, :8].tolist())
-    # the profiler slows the host: the idle share of an unprofiled step
-    step_ms = stats["decode_s"] * 1e3 / stats["decode_steps"]
-    prof["unprofiled_ms_per_step"] = step_ms
-    prof["device_idle_share_unprofiled"] = \
-        1.0 - prof["device_busy_ms_per_step"] / step_ms
     emit("serve_profile", **prof)
+    emit("serve_decode_graph_profile", **gprof)
+    check(gprof["decode_kernels_per_step"] == n_layers,
+          f"a profiled replay ran {gprof['decode_kernels_per_step']} decode "
+          f"kernels per step, want {n_layers}")
     check(ok32_prefill, f"fp32 prefill logits with the kernels differ from "
                         f"the plain path by {err32_prefill}")
     check(ok32_decode, f"fp32 teacher-forced decode logits with the kernels "
@@ -554,24 +778,29 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     for label, t, n_valid in (("global", max_len, s + SERVE["gen"] // 2),
                               ("local", spec_local.window, spec_local.window)):
         q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
-        valid = (torch.arange(t, device="cuda") < n_valid).to(torch.int32)
+        valid = torch.arange(t, device="cuda") < n_valid
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         cases[("decode_attention", label)] = dict(
             shape=dict(B=b, T=t, H=h, KV=kvh, D=d, valid=n_valid),
             kernel=lambda q=q, k=k, v=v, m=valid: DK.decode_attention(q, k, v, m),
             plain=lambda q=q, k=k, v=v, m=valid: DR.decode_attention_ref(q, k, v, m),
-            library=lambda qt=qt, kt=kt, vt=vt, m=valid > 0: F.scaled_dot_product_attention(
+            library=lambda qt=qt, kt=kt, vt=vt, m=valid: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m[None, :], enable_gqa=True),
-            # the valid slots' K/V, the query, the mask and the output
-            nbytes=(2 * b * n_valid * kvh * d + 2 * q.numel()) * elt + 4 * t,
+            # the valid slots' K/V, the query, the bool mask and the output
+            nbytes=(2 * b * n_valid * kvh * d + 2 * q.numel()) * elt + t,
             flops=4 * d * n_valid * b * h)
     return cases
 
 
 def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
     """Kernel, plain version, SDPA yardstick (timed only, never used by the
-    port) and bound, at the serve shapes, bf16."""
+    port) and bound, at the serve shapes, bf16. ``ms`` has an event pair
+    around each call (continuity with earlier runs); for decode also
+    ``ms_graphed`` (per call inside a graph of 100 calls: no per-call event
+    or launch cost) and ``ms_cold`` (inputs from HBM), with the same two
+    yardsticks for SDPA."""
     import torch.nn.functional as F
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     out = {}
     for (name, label), c in _attn_time_cases(torch, F, FK, FR, DK, DR).items():
         t_bytes = c["nbytes"] / PEAK_BYTES_PER_S * 1e3
@@ -583,6 +812,13 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["nbytes"], "flops": c["flops"]}
+        if name == "decode_attention":
+            row.update(
+                ms_graphed=_time_graphed_ms(torch, c["kernel"]),
+                library_ms_graphed=_time_graphed_ms(torch, c["library"]),
+                ms_cold=_time_cold_ms(torch, c["kernel"], flush),
+                library_ms_cold=_time_cold_ms(torch, c["library"], flush))
+            row["bound_share_graphed"] = row["bound_ms"] / row["ms_graphed"]
         emit("times", kernel=name, card=card, **_shares(row))
         out.setdefault(name, {})[label] = row
     return out
@@ -590,7 +826,8 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
 
 def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
-    files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py"]
+    files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
+             "tests/test_torch_serve_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -658,6 +895,7 @@ def main() -> None:
     replaces = {"scaled_spmm": "src/repro/kernels/gcn_spmm/kernel.py:87",
                 "spmm": "src/repro/kernels/gcn_spmm/kernel.py:43"}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    decode_keys = ("ms_graphed", "library_ms_graphed", "ms_cold", "library_ms_cold")
     kernels = []
     for name in ("scaled_spmm", "spmm"):
         top = times[name][1024]
@@ -679,6 +917,8 @@ def main() -> None:
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
             **{k: attn_times[name]["global"][k] for k in keys},
+            **{k: attn_times[name]["global"][k] for k in decode_keys
+               if k in attn_times[name]["global"]},
             "by_case": attn_times[name]})
     # 11. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -2,9 +2,9 @@
 ``repro/kernels/decode_attention/ops.py``).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
-version in ``ref.py``; any other device raises. ``valid`` becomes the int32
-slot mask the kernel takes. The kernel leaves slots past T out, so nothing
-is padded.
+version in ``ref.py``; any other device raises. The kernel reads a boolean
+slot mask as it is, so a bool ``valid`` costs no extra launch. It leaves
+slots past T out, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Model layout: q (B, 1, H, D); k/v (B, T, KV, D); valid (T,) bool/int.
     Returns (B, 1, H, D)."""
     if q.device.type == "cuda":
-        return _k.decode_attention(q, k, v, (valid > 0).to(torch.int32))
+        return _k.decode_attention(
+            q, k, v, valid if valid.dtype == torch.bool else valid > 0)
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, valid)
     raise ValueError(f"decode_attention runs on CUDA or CPU tensors, got {q.device}")

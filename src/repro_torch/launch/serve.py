@@ -4,7 +4,12 @@ Port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-Runs on the CUDA device unless ``--device`` says otherwise.
+Runs on the CUDA device unless ``--device`` says otherwise. On the card the
+decode loop replays one captured CUDA graph of the decode step
+(``DecodeGraph``), the counterpart of the reference's jitted step with
+donated caches; on the CPU, the caller's explicit choice, it runs eagerly.
+The prefill stays eager: it runs once per call at a shape of its own, so a
+capture would cost more than it saves.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from repro_torch import _device
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
+from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
 from repro_torch.training.train_step import make_decode_step, make_prefill
@@ -32,6 +38,79 @@ def _clock(device: torch.device) -> float:
     return time.time()
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One warm-up and capture stream per device, reused: every new stream
+    would get its own cuBLAS workspace, which stays allocated."""
+    if device.index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device.index]
+
+
+class DecodeGraph:
+    """``decode_fn`` (``make_decode_step``'s ``serve_step``) captured once as
+    a CUDA graph and replayed once per generated token.
+
+    The step's inputs live in static device buffers: the token, ``pos`` as a
+    0-d int32 tensor and the caches, which the step updates in place (the
+    reference donates them). The graph ends by writing its token into
+    column ``i`` of ``tokens``, feeding it back as the next input and
+    advancing ``pos`` and ``i``, so a replay needs no host work besides the
+    launch. Before the capture one eager step runs on the capture's side
+    stream; its cache writes are the ones the first replay makes again. The
+    graph holds the memory of its intermediates until ``release``.
+
+    Launch counting: the warm-up's kernels count as they run; the capture
+    records ``held`` (wrapper -> launches in the graph, from
+    ``kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+
+    def __init__(self, decode_fn, params, token: torch.Tensor, pos: int,
+                 caches, steps: int):
+        dev = token.device
+        self.steps = steps
+        self.replays = 0
+        self.token = token.clone()
+        self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
+        self.col = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.tokens = torch.zeros((token.shape[0], steps), dtype=torch.int32,
+                                  device=dev)
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = dict(dec_kernel.CAPTURED)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            decode_fn(params, self.token, self.pos, caches)   # the warm-up
+            # capture_begin, not torch.cuda.graph(): that one empties the
+            # allocator's cache first, and the next prefill would pay to
+            # allocate its memory again
+            self.graph.capture_begin()
+            try:
+                nxt, _ = decode_fn(params, self.token, self.pos, caches)
+                self.tokens.index_copy_(1, self.col, nxt)
+                self.token.copy_(nxt)
+                self.pos.add_(1)
+                self.col.add_(1)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.held = {k: dec_kernel.CAPTURED[k] - n for k, n in before.items()}
+
+    def replay(self) -> None:
+        """Decode the next token (at most ``steps`` replays)."""
+        if self.replays >= self.steps:
+            raise RuntimeError(f"DecodeGraph holds columns for {self.steps} "
+                               "tokens; capture a new one to decode more")
+        self.graph.replay()
+        self.replays += 1
+        dec_kernel.count_replays(self.held)
+
+    def release(self) -> None:
+        """Free the graph and its memory pool."""
+        self.graph.reset()
+
+
 @torch.no_grad()
 def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     """Prefill the prompt batch, then greedy-decode gen_tokens. Returns
@@ -39,9 +118,13 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
 
     Runs where ``params`` lie. On a CUDA device it turns on
     ``RUNTIME["use_flash"]`` (the hand-written attention kernels), as the
-    reference does on its accelerator. Each decode step writes the new token
-    into the prefill-time caches in place (the reference donates them).
-    ``stats`` has the reference's keys; ``backend`` is the device type."""
+    reference does on its accelerator, and decodes by replaying one captured
+    graph of the step (``DecodeGraph``); on the CPU the steps run eagerly.
+    Each decode step writes the new token into the prefill-time caches in
+    place (the reference donates them). ``stats`` has the reference's keys,
+    ``backend`` being the device type, plus ``decode_capture_s``: the
+    warm-up step and the capture, timed between the prefill and the decode
+    clocks (0 on the CPU)."""
     device = _device.of(params)
     if device.type == "cuda":
         cc.RUNTIME["use_flash"] = True
@@ -57,14 +140,26 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     token = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)[:, None]
     t_prefill = _clock(device) - t0
 
-    out = [token]
-    t0 = _clock(device)
-    for i in range(gen_tokens - 1):
-        token, caches = decode_fn(params, token, s + i, caches)
-        out.append(token)
-    t_decode = _clock(device) - t0
-    gen = torch.cat(out, dim=1)
     decode_steps = gen_tokens - 1
+    t_capture = 0.0
+    if device.type == "cuda" and decode_steps > 0:
+        t0 = _clock(device)
+        graph = DecodeGraph(decode_fn, params, token, s, caches, decode_steps)
+        t_capture = _clock(device) - t0
+        t0 = _clock(device)
+        for _ in range(decode_steps):
+            graph.replay()
+        t_decode = _clock(device) - t0
+        gen = torch.cat([token, graph.tokens], dim=1)
+        graph.release()
+    else:
+        out = [token]
+        t0 = _clock(device)
+        for i in range(decode_steps):
+            token, caches = decode_fn(params, token, s + i, caches)
+            out.append(token)
+        t_decode = _clock(device) - t0
+        gen = torch.cat(out, dim=1)
     stats = {
         "batch": b,
         "prompt_tokens": s,
@@ -78,9 +173,10 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
         "tokens_per_s": b * decode_steps / max(t_decode, 1e-9),
         "decode_s_per_token": (t_decode / max(b * decode_steps, 1)),
         "backend": device.type,
+        "decode_capture_s": t_capture,
     }
     log(f"prefill {s} toks x{b}: {t_prefill:.2f}s; "
-        f"decode {decode_steps} steps: {t_decode:.2f}s "
+        f"capture {t_capture:.2f}s; decode {decode_steps} steps: {t_decode:.2f}s "
         f"({stats['tokens_per_s']:.1f} tok/s)")
     return gen.cpu().numpy(), stats
 

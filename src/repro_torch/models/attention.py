@@ -161,21 +161,28 @@ def attn_prefill(p, spec: AttnSpec, x, positions, max_len: int):
     return y, cache
 
 
-def attn_decode(p, spec: AttnSpec, x, pos: int, cache: dict):
-    """One-token decode. x: (B,1,d); pos: the current position (an int).
-    Writes the new K/V into ``cache`` in place. Returns (y, cache)."""
+def attn_decode(p, spec: AttnSpec, x, pos, cache: dict):
+    """One-token decode. x: (B,1,d); pos: the current position, an int or a
+    0-d int32 tensor on x's device (the reference's traced scalar). Writes
+    the new K/V into ``cache`` in place. Returns (y, cache).
+
+    Nothing here reads a value back to the host, so the step can be
+    captured in a CUDA graph and replayed at later positions: an int pos
+    becomes a 0-d tensor by a fill on the device, the slot is written with
+    ``index_copy_`` and the masks are built from tensors."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, spec, x, positions)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, spec, x, pos.view(1, 1).expand(b, 1))
 
     t = cache["k"].shape[1]
-    slot = pos if spec.window is None else pos % t
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    slot = (pos if spec.window is None else pos % t).long().view(1)
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
     if spec.window is None:
         valid = torch.arange(t, device=x.device) <= pos
     else:
-        cache["slot_pos"][slot] = pos
+        cache["slot_pos"].index_copy_(0, slot, pos.view(1))
         slot_pos = cache["slot_pos"]
         valid = (slot_pos >= 0) & (slot_pos <= pos) \
             & (slot_pos > pos - spec.window)

@@ -118,9 +118,9 @@ def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
     return x, aux, cache
 
 
-def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos: int, cache):
-    """Single-token layer step; updates ``cache`` in place. Returns
-    (x, cache)."""
+def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
+    """Single-token layer step at ``pos`` (an int or a 0-d int32 tensor);
+    updates ``cache`` in place. Returns (x, cache)."""
     if layer.kind != "attn":
         _unported(layer.kind)
     h = apply_norm(p["norm1"], x, cfg.norm)
@@ -148,7 +148,7 @@ def block_full(block_p, seg: Segment, cfg: ModelConfig, x, positions,
     return x, aux_sum, caches
 
 
-def block_decode(block_p, block_c, seg: Segment, cfg: ModelConfig, x, pos: int):
+def block_decode(block_p, block_c, seg: Segment, cfg: ModelConfig, x, pos):
     new_caches = []
     for p_i, c_i, layer in zip(block_p, block_c, seg.layers):
         x, c = layer_decode(p_i, layer, cfg, x, pos, c_i)
@@ -251,9 +251,11 @@ def prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
     return _logits(params, cfg, x[:, -1:]), caches
 
 
-def decode_step(params, cfg: ModelConfig, token, pos: int, caches):
-    """token: (B,1) int; pos: the token's position. Updates ``caches`` in
-    place. Returns (logits (B,1,V), caches)."""
+def decode_step(params, cfg: ModelConfig, token, pos, caches):
+    """token: (B,1) int; pos: the token's position, an int or a 0-d int32
+    tensor on the params' device (then nothing syncs with the host and the
+    step can be captured in a CUDA graph). Updates ``caches`` in place.
+    Returns (logits (B,1,V), caches)."""
     x = params["embed"][token]
     for seg, seg_p, seg_c in zip(cfg.segments, params["segments"], caches):
         if seg.count == 1:

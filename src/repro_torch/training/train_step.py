@@ -2,8 +2,10 @@
 ``repro/training/train_step.py``; the train-step builders (loss, grads,
 AdamW) wait for the training slice.
 
-The builders return plain functions over (params, batch / token, caches);
-PyTorch runs them eagerly, so nothing is traced or compiled.
+``make_prefill`` and ``make_decode_step`` return plain functions over
+(params, batch / token, caches). PyTorch runs them eagerly;
+``launch/serve.py`` captures the decode step in a CUDA graph on the card,
+the counterpart of the reference's jitted step.
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ def make_prefill(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
 
 
 def make_decode_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
-    """(params, token (B,1), pos int, caches) -> (next_token (B,1) int32,
-    caches). Greedy: the argmax of the last logits. The caches are updated
-    in place."""
+    """(params, token (B,1), pos, caches) -> (next_token (B,1) int32,
+    caches). ``pos`` is an int or a 0-d int32 tensor on the params' device,
+    as the reference's ``serve_step`` takes a traced scalar. Greedy: the
+    argmax of the last logits. The caches are updated in place."""
     api = api or get_api(cfg)
 
-    def serve_step(params, token, pos: int, caches):
+    def serve_step(params, token, pos, caches):
         logits, caches = api.decode_step(params, cfg, token, pos, caches)
         next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token[:, None], caches

@@ -53,6 +53,31 @@ DEC_CASES = [
     (4, 512, 4, 1, 256, "ring", "bfloat16"),
     (4, 1088, 4, 1, 256, 1050, "bfloat16"),
 ]
+# the redesigned kernel's edges: T = 1, T off the 8-row chunk, a whole
+# chunk invalid ("hole"), one valid slot at the end ("last"), no valid slot
+# ("none": the plain version's uniform weights), G 1, 7 (padded to 8), 8
+# and 12 (two head groups), B * KV = 64 and T = 32,768
+DEC_EDGE_CASES = [
+    # (B, T, H, KV, D, mask, dtype)
+    (2, 1, 4, 1, 64, 1, "bfloat16"),
+    (1, 1, 8, 8, 128, 1, "float32"),
+    (3, 1000, 4, 1, 256, 999, "bfloat16"),
+    (2, 77, 8, 2, 32, 77, "float32"),
+    (4, 1088, 4, 1, 256, "hole", "bfloat16"),
+    (2, 300, 4, 2, 64, "hole", "float32"),
+    (4, 1088, 4, 1, 256, "last", "bfloat16"),
+    (1, 513, 2, 1, 16, "last", "float32"),
+    (4, 512, 4, 1, 256, "none", "bfloat16"),
+    (2, 100, 8, 4, 64, "none", "float32"),
+    (2, 700, 8, 8, 128, 650, "bfloat16"),
+    (1, 96, 14, 2, 64, 90, "float32"),
+    (2, 1088, 16, 2, 128, 1000, "bfloat16"),
+    (1, 300, 8, 1, 256, 256, "float32"),
+    (1, 200, 24, 2, 128, 180, "bfloat16"),
+    (16, 1088, 16, 4, 128, 1056, "bfloat16"),
+    (1, 32768, 4, 1, 256, 32000, "bfloat16"),
+    (1, 32768, 4, 1, 128, "ring", "float32"),
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
 
 
@@ -64,6 +89,22 @@ def _need_cuda():
 def normal(rng, shape, dtype):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
         "cuda", getattr(torch, dtype))
+
+
+def dec_mask(t: int, mask) -> np.ndarray:
+    """A (T,) bool slot mask: an int n is the prefix of n slots; "ring" a
+    ring mask with holes mid-ring; "hole" all but 40 slots from T // 3;
+    "last" only slot T - 1; "none" no slot."""
+    if mask == "ring":
+        return ring_mask(t, 3 * t + 7, 3 * t - 100).astype(bool)
+    idx = np.arange(t)
+    if mask == "hole":
+        return (idx < t // 3) | (idx >= t // 3 + 40)
+    if mask == "last":
+        return idx == t - 1
+    if mask == "none":
+        return np.zeros(t, bool)
+    return idx < mask
 
 
 def ring_mask(t: int, newest: int, pos: int) -> np.ndarray:
@@ -110,19 +151,21 @@ def test_flash_kernel_with_more_keys_than_queries(causal, dtype):
                                atol=TOL[dtype])
 
 
+def _decode_inputs(b, t, h, kv, d, mask, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    q = normal(rng, (b, 1, h, d), dtype)
+    k, v = (normal(rng, (b, t, kv, d), dtype) for _ in range(2))
+    return q, k, v, torch.from_numpy(dec_mask(t, mask)).cuda()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,h,kv,d,mask,dtype", DEC_CASES)
 def test_decode_kernel_matches_plain_version(b, t, h, kv, d, mask, dtype):
     _need_cuda()
-    rng = np.random.default_rng(1)
-    q = normal(rng, (b, 1, h, d), dtype)
-    k, v = (normal(rng, (b, t, kv, d), dtype) for _ in range(2))
-    valid = ring_mask(t, newest=3 * t + 7, pos=3 * t - 100) if mask == "ring" \
-        else (np.arange(t) < mask).astype(np.int32)
+    q, k, v, valid = _decode_inputs(b, t, h, kv, d, mask, dtype)
     if mask == "ring":
-        first_hole = int(np.argmin(valid))
+        first_hole = int(np.argmin(valid.cpu().numpy()))
         assert valid[first_hole:].any(), "the ring mask should not be a prefix"
-    valid = torch.from_numpy(valid).cuda()
     before = tdec.LAUNCHES["decode_attention"]
     got = tdec.decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
@@ -134,11 +177,76 @@ def test_decode_kernel_matches_plain_version(b, t, h, kv, d, mask, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,kv,d,mask,dtype", DEC_EDGE_CASES)
+def test_decode_kernel_edges_match_plain_version(b, t, h, kv, d, mask, dtype):
+    _need_cuda()
+    q, k, v, valid = _decode_inputs(b, t, h, kv, d, mask, dtype, seed=3)
+    got = tdec.decode_attention(q, k, v, valid)
+    want = tdec_ref.decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", tdec.HEAD_DIMS)
+def test_decode_kernel_every_head_dim(d, dtype):
+    _need_cuda()
+    q, k, v, valid = _decode_inputs(2, 333, 4, 1, d, "hole", dtype, seed=4)
+    got = tdec.decode_attention(q, k, v, valid)
+    want = tdec_ref.decode_attention_ref(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_repeats_bit_for_bit(dtype):
+    """The chunks are combined in a fixed order: no atomics."""
+    _need_cuda()
+    q, k, v, valid = _decode_inputs(4, 1088, 4, 1, 256, 1056, dtype)
+    first, second = (tdec.decode_attention(q, k, v, valid) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_replays_in_a_cuda_graph():
+    """Captured once and replayed on new cache contents, the kernel gives
+    the eager call's bits; the capture counts as captured, each replay as
+    the launches the graph holds."""
+    _need_cuda()
+    q, k, v, valid = _decode_inputs(4, 512, 4, 1, 256, "ring", "bfloat16")
+    tdec.decode_attention(q, k, v, valid)   # eager first call: attributes
+    torch.cuda.synchronize()
+    launches, captured = tdec.LAUNCHES["decode_attention"], \
+        tdec.CAPTURED["decode_attention"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.decode_attention(q, k, v, valid)
+    assert tdec.LAUNCHES["decode_attention"] == launches
+    assert tdec.CAPTURED["decode_attention"] == captured + 1
+    rng = np.random.default_rng(9)
+    for _ in range(2):
+        k.copy_(normal(rng, tuple(k.shape), "bfloat16"))
+        v.copy_(normal(rng, tuple(v.shape), "bfloat16"))
+        graph.replay()
+        tdec.count_replays({"decode_attention": 1})
+        eager = tdec.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert tdec.LAUNCHES["decode_attention"] == launches + 4
+    graph.reset()
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_cpu_tensors_grad_and_bad_shapes():
     _need_cuda()
     q = torch.ones(1, 8, 4, 64, device="cuda")
     k = torch.ones(1, 8, 2, 64, device="cuda")
-    valid = torch.ones(8, dtype=torch.int32, device="cuda")
+    valid = torch.ones(8, dtype=torch.bool, device="cuda")
     counts = (dict(tflash.LAUNCHES), dict(tdec.LAUNCHES))
     with pytest.raises(ValueError, match="CUDA device"):
         tflash.flash_attention(q.cpu(), k, k)
@@ -157,8 +265,14 @@ def test_kernels_refuse_cpu_tensors_grad_and_bad_shapes():
                                k[..., :48].contiguous())
     with pytest.raises(ValueError, match=r"need q \(B, 1, H, D\)"):
         tdec.decode_attention(q, k, k, valid)
-    with pytest.raises(ValueError, match="valid must be int32"):
+    with pytest.raises(ValueError, match="valid must be bool"):
         tdec.decode_attention(q[:, :1], k, k, valid[:5])
+    with pytest.raises(ValueError, match="valid must be bool"):
+        tdec.decode_attention(q[:, :1], k, k, valid.int())
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kb = torch.ones(8 * 2 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:]
+        tdec.decode_attention(q[:, :1].to(torch.bfloat16), kb.view(1, 8, 2, 64),
+                              k.to(torch.bfloat16), valid)
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, k)
