@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernels (``gcn_spmm``, ``flash_attention``,
-``decode_attention``) from ``src/repro_torch/csrc`` with nvcc, one process
-per source, and checks each against its plain PyTorch version. Then it
-drives both main paths through the port's entry points at full width: the
-planner (hidden 213, two GCN layers) on fleet46 and a 1024-node fleet, and
-serving gemma3-1b (26 layers, d_model 1152, bf16, random weights from a
-seed) on 4 prompts of 1024 tokens with 64 generated, whose decode loop
-replays one captured CUDA graph of the decode step. It times every kernel
-beside its plain version, a one-call library yardstick and its bound, runs
-the card-only pytest files, and prints one JSON line per phase. Any failure
-exits non-zero before the last line, which is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX or ``repro``.
+Builds the hand-written Hopper kernels (``gcn_spmm``, ``flash_attention``
+with its backward ``flash_attention_bwd``, ``decode_attention``) from
+``src/repro_torch/csrc`` with nvcc, one process per source, and checks each
+against its plain PyTorch version. Then it drives the three main paths
+through the port's entry points at full width: the planner (hidden 213, two
+GCN layers) on fleet46 and a 1024-node fleet; serving gemma3-1b (26 layers,
+d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
+with 64 generated, whose decode loop replays one captured CUDA graph of the
+decode step; and training the same model (batch 4 x 1024 tokens, remat on,
+chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
+checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
+times every kernel beside its plain version, a one-call library yardstick
+and its bound, runs the card-only pytest files, and prints one JSON line
+per phase. Any failure exits non-zero before the last line, which is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 
 Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
 Fig. 8) -> 1024-node plan -> gcn_spmm times and a bit-for-bit repeat at
@@ -21,19 +24,26 @@ bucket 1024 -> kernel check (attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
 attention times (decode also per call inside a graph and from HBM) ->
-card-only pytest -> kernels summary -> import check.
+kernel check (flash backward) -> flash backward times -> gemma3-1b train
+(launch counts, the resumed losses against the straight run's, a profile
+of one step) -> card-only pytest -> kernels summary -> import check.
 
 Launch counts on the serve path, zeroed just before the 64-token call and
 read just after it: 26 ``flash_attention`` (one prefill of 26 layers) and
 26 x 64 = 1,664 ``decode_attention``: the eager warm-up step before the
 capture (26), then 63 replays of a graph that holds one step (26 each);
-the capture itself runs nothing.
+the capture itself runs nothing. On the train path, zeroed just before
+the 6 straight steps and read just after: 26 x 2 x 6 = 312
+``flash_attention`` (each layer's forward and its recompute under remat)
+and 26 x 6 = 156 ``flash_attention_bwd``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -824,10 +834,238 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
     return out
 
 
+# -- training gemma3-1b --------------------------------------------------------
+TRAIN = dict(arch="gemma3-1b", batch=4, seq=1024, steps=6, ckpt_every=3,
+             seed=0, lr=3e-4)
+BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:71"  # its gradient
+
+
+def phase_flash_bwd_check(torch, FK, FR) -> dict:
+    """The backward kernel against the plain version's autograd (fp32
+    math) on the sweep of ``tests/test_torch_flash_backward_gpu.py``: head
+    dims, causal and window, GQA 1 / 4 / 8, ragged S and T, S 1, a window
+    wider than S, gemma3-1b's training shapes. Max abs error of dQ, dK, dV
+    per dtype."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_flash_backward_gpu as FB
+    errs = {}
+    for case in FB.BWD_CASES:
+        causal, window, dt = case[6], case[7], case[8]
+        q, k, v, do = FB.bwd_inputs(case)
+        got, _ = FB.kernel_grads(q, k, v, do, causal, window)
+        want = FB.plain_grads(q, k, v, do, causal, window)
+        torch.cuda.synchronize()
+        tol = FB.TOL[dt]
+        oks, e = zip(*(_close(torch, g, w, tol) for g, w in zip(got, want)))
+        ok, e = all(oks), list(e)
+        emit("kernel_check", kernel="flash_attention_bwd", case=list(case),
+             dtype=dt, max_abs_err_dq_dk_dv=e,
+             max_abs_ref_dq_dk_dv=[w.float().abs().max().item() for w in want],
+             rtol=tol, atol=tol, ok=ok)
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"flash_attention_bwd gave non-finite values at {case}")
+        check(ok, f"flash_attention_bwd disagrees with the plain autograd at "
+                  f"{case}: max abs err dq/dk/dv {e}")
+        prev = errs.get(dt, [0.0, 0.0, 0.0])
+        errs[dt] = [max(a, b) for a, b in zip(prev, e)]
+    emit("flash_attention_bwd_errors", max_abs_err_dq_dk_dv=errs)
+    return {"float32": max(errs["float32"]), "bfloat16": max(errs["bfloat16"])}
+
+
+def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
+    """The backward at gemma3-1b's training shape (B 4, S 1024, H 4, KV 1,
+    D 256, bf16), global and window 512: kernel (one call: delta, dK/dV and
+    dQ), its plain version (``attention_bwd_ref``: the same function from
+    the same o and log-sum-exp), and one SDPA forward + backward as the
+    library yardstick (timed only, never used by the port; causal flag for
+    the global layer, a boolean mask for the window). Bound: bytes (q, k,
+    v, o, dO and the log-sum-exp read, dq, dk, dv written) / 3.35 TB/s
+    against the backward's five products over the visible pairs (S, dP,
+    dV, dK, dQ: 10 D flops a pair and head) / 989 TFLOP/s."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    spec = get_config(TRAIN["arch"]).segments[0].layers[0].attn
+    h, kvh, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    out = {}
+    for label, window in (("global", None), ("local", spec.window)):
+        q, k, v, do = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d), rn(b, s, h, d)
+        o, lse = FK.flash_attention(q, k, v, window=window, return_lse=True)
+        qpos = torch.arange(s, device="cuda")[:, None]
+        kpos = torch.arange(s, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def library(qt=qt, kt=kt, vt=vt, dot=dot, m=mask, w=window):
+            y = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=None if w is None else m,
+                is_causal=w is None, enable_gqa=True)
+            torch.autograd.grad(y, (qt, kt, vt), dot)
+
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+        flops = 10 * d * pairs * b * h
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        row = {"layer": label, "B": b, "S": s, "H": h, "KV": kvh, "D": d,
+               "window": window, "dtype": "bfloat16",
+               "ms": _time_ms(torch, lambda: FK.flash_attention_bwd(
+                   q, k, v, o, lse, do, window=window)),
+               "plain_ms": _time_ms(torch, lambda: FR.attention_bwd_ref(
+                   q, k, v, o, lse, do, window=window)),
+               "library_ms": _time_ms(torch, library),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        emit("times", kernel="flash_attention_bwd", card=card, **_shares(row))
+        out[label] = row
+    return out
+
+
+def _profile_train_step(torch, step_fn, state, batch) -> dict:
+    """One train step (the last state, the next batch) unprofiled, then one
+    under torch.profiler (CUDA activity): host wall time, device-busy time
+    (kernels' own device time), the device's idle share, kernels per step,
+    the flash kernels' part and the largest kernels. The new states are
+    dropped."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = step_fn(state, batch)
+    float(m["loss"])
+    wall_unprofiled = time.perf_counter() - t0
+    del new, m
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del new, m
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_dev_time(e) for e in kernels)
+    part = lambda *names: sum(_dev_time(e) for e in kernels
+                              if any(n in e.key for n in names)) / 1e3
+    top = sorted(kernels, key=_dev_time, reverse=True)[:10]
+    return {"wall_ms": wall * 1e3, "wall_ms_unprofiled": wall_unprofiled * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_idle_share_unprofiled": 1.0 - busy_us / 1e6 / wall_unprofiled,
+            "kernels_per_step": sum(e.count for e in kernels),
+            "flash_fwd_ms": part("flash_tc_kernel"),
+            "flash_bwd_ms": part("dkv_tc_kernel", "dq_tc_kernel", "delta_kernel"),
+            "top_kernels": [[e.key[:100], _dev_time(e) / 1e3, e.count] for e in top]}
+
+
+def phase_train(torch, device, FK, card) -> dict:
+    """gemma3-1b at full width (26 layers, bf16, remat on as configured,
+    ``ce_chunk`` 512), random weights from a seed, batch 4 x 1024 tokens,
+    through ``train_loop``: 6 straight steps with a checkpoint every 3 into
+    build/train_ckpt, then, with step 6's checkpoint removed, a fresh loop
+    that resumes from step 3 to 6, whose losses must equal the straight
+    run's at tests/test_train_resume.py's rtol 1e-5 / atol 1e-6. Launch
+    counts of the straight run, step times (each step's own wall time:
+    ``log_every`` 1 reads its metrics on the host), tokens/s, peak device
+    memory, and a profile of one more step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import common as cc
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config(TRAIN["arch"])
+    b, s, steps, every = (TRAIN[k] for k in ("batch", "seq", "steps", "ckpt_every"))
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(global_batch=b, seq_len=s, ckpt_dir=ckpt, ckpt_every=every,
+              keep_k=2, lr=TRAIN["lr"], seed=TRAIN["seed"], log_every=1,
+              log=lambda *_: None, schedule_steps=steps, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    t0 = time.perf_counter()
+    state, straight = launch_train.train_loop(cfg, steps, **kw)
+    loop_s = time.perf_counter() - t0
+    launches = dict(FK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers
+    check(launches == {"flash_attention": 2 * n_layers * steps,
+                       "flash_attention_bwd": n_layers * steps},
+          f"train launches {launches}, want {2 * n_layers * steps} forward and "
+          f"{n_layers * steps} backward")
+    check(len(straight) == steps and all(
+        math.isfinite(h[k]) for h in straight for k in ("loss", "grad_norm")),
+        f"train metrics are not finite: {straight}")
+    check(CheckpointManager(ckpt).committed_steps() == [every, steps],
+          "the straight run did not commit steps 3 and 6")
+    n_params = dlm.param_count(state.params)
+    del state
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(os.path.join(ckpt, f"step_{steps:08d}"))
+    logs = []
+    t0 = time.perf_counter()
+    state, resumed = launch_train.train_loop(cfg, steps, **{**kw, "log": logs.append})
+    resume_s = time.perf_counter() - t0
+    check(f"resumed from step {every}" in logs, f"no resume from step {every}: {logs}")
+    check([h["step"] for h in resumed] == list(range(every, steps)),
+          f"resumed steps {[h['step'] for h in resumed]}")
+    by_step = {h["step"]: h for h in straight}
+    loss_err = [abs(h["loss"] - by_step[h["step"]]["loss"]) for h in resumed]
+    resume_ok = all(abs(h["loss"] - by_step[h["step"]]["loss"])
+                    <= 1e-6 + 1e-5 * abs(by_step[h["step"]]["loss"]) for h in resumed)
+
+    opt_cfg = AdamWConfig(learning_rate=TRAIN["lr"], warmup_steps=min(20, steps // 10),
+                          total_steps=steps)
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=TRAIN["seed"]), steps)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    saved = {k: cc.RUNTIME[k] for k in ("use_flash", "q_chunk")}
+    cc.RUNTIME.update(use_flash=True, q_chunk=0)   # as train_loop sets on CUDA
+    try:
+        prof = _profile_train_step(torch, make_train_step(cfg, opt_cfg), state, batch)
+    finally:
+        cc.RUNTIME.update(saved)
+    del state
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step_ms = [h["step_s"] * 1e3 for h in straight]
+    warm_ms = statistics.median(step_ms[1:])
+    emit("train", arch=TRAIN["arch"], dtype=cfg.dtype, layers=n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+         remat=cfg.remat, ce_chunk=cfg.ce_chunk, batch=b, seq=s, steps=steps,
+         card=card, step_ms=step_ms, step_ms_median_warm=warm_ms,
+         step_ms_median_all=statistics.median(step_ms),
+         tokens_per_s=b * s / (warm_ms / 1e3), peak_mem_bytes=peak,
+         loop_s=loop_s, resume_loop_s=resume_s,
+         losses=[h["loss"] for h in straight],
+         grad_norms=[h["grad_norm"] for h in straight],
+         lrs=[h["lr"] for h in straight],
+         resumed_losses=[h["loss"] for h in resumed],
+         resumed_grad_norms=[h["grad_norm"] for h in resumed],
+         resumed_loss_abs_err=loss_err, resume_rtol=1e-5, resume_atol=1e-6,
+         launches=launches,
+         launches_per_step={k: n / steps for k, n in launches.items()})
+    emit("train_profile", card=card, **prof)
+    check(resume_ok, f"resumed losses differ from the straight run's: {loss_err}")
+    return launches
+
+
 def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
-             "tests/test_torch_serve_gpu.py"]
+             "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -887,9 +1125,14 @@ def main() -> None:
     launches.update(phase_serve(torch, device, FK, DK))
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
-    # 9. the card-only pytest files
+    # 9. the flash backward: check and times at the training shape
+    bwd_errs = phase_flash_bwd_check(torch, FK, FR)
+    bwd_times = phase_flash_bwd_times(torch, FK, FR, card)
+    # 10. the training main path, counts zeroed before and read after
+    train_launches = phase_train(torch, device, FK, card)
+    # 11. the card-only pytest files
     phase_gpu_pytest()
-    # 10. kernels summary. gcn_spmm: headline at bucket 1024, the largest
+    # 12. kernels summary. gcn_spmm: headline at bucket 1024, the largest
     # the planner runs. Attention: headline at the global layer (the most
     # work per launch), every serve shape in by_case.
     replaces = {"scaled_spmm": "src/repro/kernels/gcn_spmm/kernel.py:87",
@@ -920,7 +1163,19 @@ def main() -> None:
             **{k: attn_times[name]["global"][k] for k in decode_keys
                if k in attn_times[name]["global"]},
             "by_case": attn_times[name]})
-    # 11. import check
+    kernels[-2]["launches"] += train_launches["flash_attention"]
+    kernels[-2]["launches_by_path"] = {
+        "serve": launches["flash_attention"],
+        "train": train_launches["flash_attention"]}
+    kernels.append({
+        "name": "flash_attention.flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": BWD_REPLACES, "replaces_note": "the gradient of that "
+        "kernel's function (the reference differentiates its plain oracle)",
+        "launches": train_launches["flash_attention_bwd"], "on_main_path": True,
+        "max_abs_err": bwd_errs["float32"], "max_abs_err_bf16": bwd_errs["bfloat16"],
+        **{k: bwd_times["global"][k] for k in keys}, "by_case": bwd_times})
+    # 13. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     check(not bad, f"the port loaded JAX or the reference package: {bad}")

@@ -1,0 +1,3 @@
+from repro_torch.checkpoint.manager import CheckpointManager, restore_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "restore_pytree", "save_pytree"]

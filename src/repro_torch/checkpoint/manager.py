@@ -1,0 +1,169 @@
+"""Atomic checkpointing (numpy + atomic rename). Port of
+``repro/checkpoint/manager.py``, with the same on-disk layout, so that
+each package restores the other's checkpoints bit for bit.
+
+Layout: <dir>/step_<N>/  (N zero-padded to 8 digits)
+  shard_<k>.npz          leaf_<i>: leaf i as a uint8 byte view
+  manifest.json          leaf names, dtypes, shapes
+  meta.json              {"step": N, "extra": {...}}
+  COMMIT                 written LAST: a checkpoint without it is ignored
+
+Leaves are numbered in the reference's order (JAX's pytree flattening):
+dict keys sorted, list and tuple entries by index, NamedTuple fields in
+declaration order, None an empty subtree. Names join the keys, indices
+and field names of a leaf's path with "/". A bfloat16 leaf is stored by
+its bits and named "bfloat16", as ``ml_dtypes`` names it.
+
+Fault tolerance, as in the reference: ``save`` writes
+``step_<N>.tmp-<pid>``, ``os.replace``s it into place, and only then writes
+COMMIT; after a successful save only the newest ``keep_k`` committed steps
+are kept; ``restore_latest`` returns the newest committed step.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+def _walk(tree: PyTree, path=()):
+    """(path, leaf) pairs in the reference's leaf order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from _walk(getattr(tree, f), path + (f,))
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _walk(x, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _flatten_with_names(tree: PyTree):
+    pairs = list(_walk(tree))
+    return [leaf for _, leaf in pairs], ["/".join(p) for p, _ in pairs]
+
+
+def _unflatten(like: PyTree, it):
+    """``like``'s structure with its leaves taken from ``it`` in leaf order."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        new = {k: _unflatten(like[k], it) for k in sorted(like)}
+        return {k: new[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(getattr(like, f), it) for f in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(x, it) for x in like)
+    return next(it)
+
+
+def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A leaf as numpy (bf16 by its bits, as int16) and the dtype name the
+    reference writes for it."""
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), "bfloat16"
+    return t.numpy(), str(t.numpy().dtype)
+
+
+def _encode(leaf) -> np.ndarray:
+    """Byte view: survives npz whatever the dtype (bfloat16 included)."""
+    return np.atleast_1d(np.ascontiguousarray(_to_numpy(leaf)[0])).view(np.uint8)
+
+
+def _decode(raw: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Bytes -> a tensor of ``like``'s dtype, shape and device."""
+    wide = torch.int16 if like.dtype == torch.bfloat16 else like.dtype
+    t = torch.from_numpy(np.ascontiguousarray(raw).view(
+        torch.empty(0, dtype=wide).numpy().dtype).copy())
+    return t.view(like.dtype).reshape(like.shape).to(like.device)
+
+
+def save_pytree(path: str, tree: PyTree, shard_id: int = 0) -> None:
+    leaves, names = _flatten_with_names(tree)
+    arrays = {f"leaf_{i}": _encode(l) for i, l in enumerate(leaves)}
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, f"shard_{shard_id}.npz"), **arrays)
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump({"names": names,
+                   "dtypes": [_to_numpy(l)[1] for l in leaves],
+                   "shapes": [list(l.shape) for l in leaves]}, f)
+
+
+def restore_pytree(path: str, like: PyTree, shard_id: int = 0) -> PyTree:
+    leaves, _ = _flatten_with_names(like)
+    with np.load(os.path.join(path, f"shard_{shard_id}.npz")) as z:
+        cast = [_decode(z[f"leaf_{i}"], l) for i, l in enumerate(leaves)]
+    return _unflatten(like, iter(cast))
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep_k: int = 3, shard_id: int = 0):
+        self.dir = directory
+        self.keep_k = keep_k
+        self.shard_id = shard_id
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write --------------------------------------------------------------
+    def save(self, step: int, tree: PyTree, extra: Optional[dict] = None):
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = final + f".tmp-{os.getpid()}"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        save_pytree(tmp, tree, self.shard_id)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "extra": extra or {}}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        # COMMIT marker last: a checkpoint without it is invisible
+        with open(os.path.join(final, "COMMIT"), "w") as f:
+            f.write("ok")
+        self._prune()
+        return final
+
+    def _prune(self):
+        steps = self.committed_steps()
+        for s in steps[:-self.keep_k] if self.keep_k > 0 else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # -- read ---------------------------------------------------------------
+    def committed_steps(self) -> list[int]:
+        out = []
+        for name in sorted(os.listdir(self.dir)):
+            full = os.path.join(self.dir, name)
+            if (name.startswith("step_") and not name.endswith(".tmp")
+                    and os.path.exists(os.path.join(full, "COMMIT"))):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    continue
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.committed_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, like: PyTree) -> tuple[PyTree, dict]:
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return restore_pytree(path, like, self.shard_id), meta
+
+    def restore_latest(self, like: PyTree) -> Optional[tuple[int, PyTree, dict]]:
+        step = self.latest_step()
+        if step is None:
+            return None
+        tree, meta = self.restore(step, like)
+        return step, tree, meta

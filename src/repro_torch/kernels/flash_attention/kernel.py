@@ -1,4 +1,5 @@
-"""ctypes binding of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""ctypes bindings of the Hopper flash-attention kernels
+(``csrc/flash_attention.cu``): the forward and its backward.
 
 Port of the Pallas TPU kernel ``flash_attention_bhsd``
 (``repro/kernels/flash_attention/kernel.py``). The kernel reads the model
@@ -6,10 +7,14 @@ layout and masks its own ragged edges, so nothing is transposed or padded
 here. Every argument is checked before a pointer is handed over, and each
 launch adds one to ``LAUNCHES["flash_attention"]``. The source holds two
 bodies: bf16 runs on the tensor cores, fp32 on the FMA pipe (which keeps the
-fp32 tolerance); the C entry point picks one by type.
+fp32 tolerance); the C entry point picks one by type. The forward can also
+return the per-row log-sum-exp (fp32, (B, H, S)) that ``flash_attention_bwd``
+reads; each backward call (three kernels: the delta pre-pass, dK/dV, dQ) adds
+one to ``LAUNCHES["flash_attention_bwd"]``.
 
-Forward only, like the reference: an input that requires grad is refused
-instead of silently dropping its gradient.
+These wrappers are not differentiable: an input that requires grad is
+refused instead of silently dropping its gradient. ``ops.flash_attention``
+wraps them in an ``autograd.Function`` for training.
 """
 from __future__ import annotations
 
@@ -20,10 +25,12 @@ import torch
 from repro_torch.kernels import _build
 
 # wrapper name -> number of kernel launches made through it
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
@@ -36,12 +43,14 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    # forward: q, k, v, o, lse; backward: q, k, v, o, do, lse, delta, dq, dk, dv
+    for entries, n_ptr in ((_ENTRY, 5), (_BWD_ENTRY, 10)):
+        for name in entries.values():
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
+                    + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -84,22 +93,74 @@ def _check(q, k, v, causal: bool, window) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None, return_lse: bool = False):
     """q (B, S, H, D); k/v (B, T, KV, D), one dtype (float32 or bfloat16),
-    contiguous, on one CUDA device -> o (B, S, H, D) in q's dtype."""
+    contiguous, on one CUDA device -> o (B, S, H, D) in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exp of the scaled scores, fp32
+    (B, H, S)."""
     _check(q, k, v, causal, window)
     out = torch.empty_like(q)
-    if out.numel() == 0 or k.shape[1] == 0:
-        return out.zero_()
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if out.numel() == 0 or t == 0:
+        out.zero_()
+        return (out, lse.fill_(-1e30)) if return_lse else out
     fn = getattr(_lib(), _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, s, t, h, kvh, d, int(causal),
                  -1 if window is None else int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window=None):
+    """The gradient of ``flash_attention``: q, o, do (B, S, H, D); k/v
+    (B, T, KV, D); lse the forward's fp32 (B, H, S) -> (dq, dk, dv) in the
+    inputs' layout and dtype, contiguous. Refuses a shape where some query
+    row sees no key (its forward is a uniform average, whose gradient the
+    kernel does not rebuild)."""
+    _check(q, k, v, causal, window)
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous() or x.requires_grad:
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor of "
+                             f"q's shape {tuple(q.shape)} on {q.device} that "
+                             "does not require grad")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {s}) "
+                         f"tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    if window is not None and window >= s:
+        window = None   # no row reaches back that far: the same mask
+    if not causal and window is not None and s >= t + window:
+        raise ValueError(f"with window {window} and no causal mask, rows from "
+                         f"{t + window - 1} on see no key (S {s}, T {t})")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or t == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = getattr(_lib(), _BWD_ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+                 b, s, t, h, kvh, d, int(causal),
+                 -1 if window is None else int(window), stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

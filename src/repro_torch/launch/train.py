@@ -1,0 +1,134 @@
+"""Training launcher: data -> train step -> checkpoint / resume -> metrics.
+Port of ``repro/launch/train.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --smoke \
+      --steps 20 --global-batch 4 --seq-len 64 --ckpt-dir /tmp/ckpt [--device cpu]
+
+Runs on the CUDA device unless ``--device`` says otherwise; with no card
+and no ``--device cpu`` it raises. On the card, attention goes through the
+hand-written flash kernels forward and backward (``use_flash``, the
+reference's accelerator branch); on the CPU, sequences longer than 512 use
+the q-chunked plain attention, as the reference does off its accelerator.
+Fault tolerance as in the reference: atomic keep-k checkpoints and
+auto-resume from the newest committed step; the data is a pure function of
+the step, so a resumed run replays the same batches. One card, no sharding.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import _device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+from repro_torch.models import common as cc
+from repro_torch.models.registry import get_api
+from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.train_step import init_train_state, make_train_step
+
+
+def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
+               ckpt_dir: str = "", ckpt_every: int = 50, keep_k: int = 3,
+               lr: float = 3e-4, seed: int = 0, log_every: int = 10,
+               resume: bool = True, log=print, schedule_steps: int = 0,
+               device=None):
+    """Train ``cfg`` from a fresh init (or the newest checkpoint in
+    ``ckpt_dir``) up to ``steps``. Returns (state, history): one dict per
+    logged step with the step's metrics as floats, ``step``, ``elapsed_s``
+    (seconds since the loop started, rounded, as the reference logs it)
+    and ``step_s``: the wall time from the step's start to its metrics on
+    the host. Reading metrics waits for the card, so with ``log_every=1``
+    ``step_s`` is the time of that step alone.
+
+    ``schedule_steps`` is the planned total, so that a run stopped at
+    ``steps`` and resumed later sees the same LR schedule. Checkpoints are
+    saved every ``ckpt_every`` steps and at the end (unless the end step is
+    already committed). The RUNTIME knobs the loop sets are restored when it
+    returns."""
+    dev = _device.resolve(device)
+    api = get_api(cfg)
+    sched = schedule_steps or steps
+    opt_cfg = AdamWConfig(learning_rate=lr, warmup_steps=min(20, sched // 10),
+                          total_steps=sched)
+    if dev.type == "cuda":
+        # the hand-written attention kernels, forward and backward
+        knobs = {"use_flash": True, "q_chunk": 0}
+    else:
+        knobs = {"q_chunk": 256} if seq_len > 512 else {}
+    saved_knobs = {k: cc.RUNTIME[k] for k in knobs}
+    cc.RUNTIME.update(knobs)
+    try:
+        state = init_train_state(cfg, seed, opt_cfg, dev)
+        step_fn = make_train_step(cfg, opt_cfg, api)
+        data = SyntheticLM(cfg, SyntheticConfig(global_batch=global_batch,
+                                                seq_len=seq_len, seed=seed))
+        start_step = 0
+        mgr = None
+        if ckpt_dir:
+            mgr = CheckpointManager(ckpt_dir, keep_k=keep_k)
+            if resume:
+                latest = mgr.restore_latest(state)
+                if latest is not None:
+                    start_step, state, _ = latest
+                    log(f"resumed from step {start_step}")
+
+        history = []
+        t0 = time.perf_counter()
+        for step, batch in data.iter(start_step):
+            if step >= steps:
+                break
+            t_step = time.perf_counter()
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            state, metrics = step_fn(state, tb)
+            if step % log_every == 0 or step == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["step_s"] = time.perf_counter() - t_step
+                m["elapsed_s"] = round(time.perf_counter() - t0, 1)
+                history.append(m)
+                log(f"step {step:5d} loss {m['loss']:.4f} "
+                    f"lr {m['lr']:.2e} gnorm {m['grad_norm']:.2f}")
+            if mgr and (step + 1) % ckpt_every == 0:
+                mgr.save(step + 1, state, extra={"data_step": step + 1})
+        if mgr and steps not in mgr.committed_steps():
+            mgr.save(steps, state, extra={"data_step": steps})
+    finally:
+        cc.RUNTIME.update(saved_knobs)
+    return state, history
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+        cfg = dataclasses.replace(cfg, remat=False)
+    _, history = train_loop(cfg, args.steps, args.global_batch, args.seq_len,
+                            ckpt_dir=args.ckpt_dir,
+                            ckpt_every=args.ckpt_every, lr=args.lr,
+                            seed=args.seed, device=args.device)
+    first, last = history[0]["loss"], history[-1]["loss"]
+    print(f"loss {first:.4f} -> {last:.4f} "
+          f"({'improved' if last < first else 'NOT improved'})")
+
+
+if __name__ == "__main__":
+    main()

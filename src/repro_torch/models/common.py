@@ -18,9 +18,11 @@ import torch.nn.functional as F
 #   use_flash — route attention through the hand-written CUDA kernels
 #               (their plain versions for CPU tensors)
 #   q_chunk   — q-block chunked attention in plain torch (0 = off)
-# The reference's knobs for the SSM, mLSTM, MoE and remat arrive with
-# their slices.
-RUNTIME = {"use_flash": False, "q_chunk": 0}
+#   remat_policy — what a rematerialized block keeps for the backward:
+#               "" or "nothing" (recompute the whole block) or "outputs"
+#               (keep the attention and MLP block outputs)
+# The reference's knobs for the SSM, mLSTM and MoE arrive with their slices.
+RUNTIME = {"use_flash": False, "q_chunk": 0, "remat_policy": ""}
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

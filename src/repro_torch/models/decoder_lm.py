@@ -1,4 +1,4 @@
-"""Generic decoder-only LM over config segments. Port of the serving half of
+"""Generic decoder-only LM over config segments. Port of
 ``repro/models/decoder_lm.py``.
 
 A segment is ``count`` repetitions of a *block* of layers (Gemma-3's 5 local
@@ -9,17 +9,25 @@ layout. A Python loop over the (count,) axis takes the place of the
 reference's ``lax.scan``; indexing gives views, so a decode step writes each
 layer's K/V into the stacked cache in place.
 
-Entry points: ``init_params``, ``init_caches``, ``forward``, ``prefill``
-and ``decode_step``; ``params_from_numpy`` / ``params_to_numpy`` carry
-weights across from the reference. This slice runs ``attn`` layers with
-``dense`` MLPs; other layer kinds raise ``NotImplementedError`` naming the
-slice they wait for. The training objective waits for the training slice.
+Entry points: ``init_params``, ``init_caches``, ``forward``,
+``loss_and_metrics`` (the training objective), ``prefill`` and
+``decode_step``; ``params_from_numpy`` / ``params_to_numpy`` carry weights
+across from the reference. The port runs ``attn`` layers with ``dense``
+MLPs; other layer kinds raise ``NotImplementedError`` naming the slice they
+wait for.
+
+Training memory, as in the reference: with ``cfg.remat`` each block runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scan body, see ``_remat_policy``), and a long sequence's cross-entropy is
+taken one ``ce_chunk`` at a time under its own checkpoint
+(``_chunked_ce``), so the (B, S, vocab) fp32 logits never exist whole.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
@@ -27,7 +35,8 @@ from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (DTYPES, apply_norm, layernorm_params,
+from repro_torch.models.common import (DTYPES, RUNTIME, apply_norm,
+                                       cross_entropy, layernorm_params,
                                        rmsnorm_params, truncnorm_init)
 
 PyTree = Any
@@ -67,6 +76,19 @@ def _index(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree) -> list:
+    """Views of every entry of a stacked tree, by one ``unbind`` per leaf:
+    its backward stacks the entries' gradients into one tensor, where
+    indexing each entry would add one full-size zero-filled gradient per
+    entry."""
+    parts = [t.unbind(0) for t in leaves(tree)]
+    out = []
+    for i in range(len(parts[0])):
+        it = iter([p[i] for p in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
@@ -96,23 +118,44 @@ def layer_cache_init(layer: LayerSpec, cfg: ModelConfig, batch: int,
     return attn_mod.init_cache(layer.attn, batch, max_len, _dtype(cfg), device)
 
 
+def _attn_branch(p, layer: LayerSpec, cfg: ModelConfig, x, positions):
+    return attn_mod.attn_full(p["attn"], layer.attn,
+                              apply_norm(p["norm1"], x, cfg.norm), positions)
+
+
+def _mlp_branch(p, cfg: ModelConfig, x):
+    return mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.act)
+
+
+def _branch(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under its own checkpoint, which keeps
+    only the branch's input (the residual stream) and recomputes its
+    internals in the backward."""
+    if remat:
+        # the model draws no random numbers: no RNG state to stash
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
-               want_cache: bool, max_len: int):
-    """Full-sequence layer. Returns (x, aux, cache_or_None)."""
+               want_cache: bool, max_len: int, remat_branches: bool = False):
+    """Full-sequence layer. Returns (x, aux, cache_or_None).
+    ``remat_branches``: the attention and MLP branches each under their own
+    checkpoint (remat policy "outputs")."""
     if layer.kind != "attn":
         _unported(layer.kind)
-    h = apply_norm(p["norm1"], x, cfg.norm)
     cache = None
     if want_cache:
+        h = apply_norm(p["norm1"], x, cfg.norm)
         y, cache = attn_mod.attn_prefill(p["attn"], layer.attn, h, positions,
                                          max_len)
     else:
-        y = attn_mod.attn_full(p["attn"], layer.attn, h, positions)
+        y = _branch(_attn_branch, remat_branches, p, layer, cfg, x, positions)
     x = x + y
     aux = torch.zeros((), device=x.device)
     if layer.mlp == "dense":
-        h2 = apply_norm(p["norm2"], x, cfg.norm)
-        x = x + mlp_mod.mlp(p["mlp"], h2, cfg.act)
+        x = x + _branch(_mlp_branch, remat_branches, p, cfg, x)
     elif layer.mlp == "moe":
         _unported("moe")
     return x, aux, cache
@@ -135,14 +178,14 @@ def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
 
 
 def block_full(block_p, seg: Segment, cfg: ModelConfig, x, positions,
-               want_cache: bool, max_len: int):
+               want_cache: bool, max_len: int, remat_branches: bool = False):
     """One block (all layers of a segment repetition). Returns
     (x, aux_sum, [caches])."""
     aux_sum = torch.zeros((), device=x.device)
     caches = []
     for p_i, layer in zip(block_p, seg.layers):
         x, aux, cache = layer_full(p_i, layer, cfg, x, positions, want_cache,
-                                   max_len)
+                                   max_len, remat_branches)
         aux_sum = aux_sum + aux
         caches.append(cache)
     return x, aux_sum, caches
@@ -194,22 +237,46 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def _remat_policy(cfg: ModelConfig, want_cache: bool) -> str:
+    """The reference's ``_maybe_remat``: "" (no remat), "nothing" (the
+    whole block under one checkpoint, ``nothing_saveable``) or "outputs"
+    (``save_only_these_names("block_out")``: each attention and MLP branch
+    under its own checkpoint, so what is kept per layer is the residual
+    stream before each branch, which with the block's input holds what the
+    reference's saved block outputs hold). Remat only matters when a
+    backward follows: not under ``no_grad`` nor for a prefill."""
+    if not cfg.remat or want_cache or not torch.is_grad_enabled():
+        return ""
+    return RUNTIME.get("remat_policy", "") or "nothing"
+
+
+def _run_block(block_p, seg: Segment, cfg: ModelConfig, x, positions,
+               want_cache: bool, max_len: int, policy: str):
+    if policy == "nothing":
+        return checkpoint(block_full, block_p, seg, cfg, x, positions,
+                          want_cache, max_len, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block_full(block_p, seg, cfg, x, positions, want_cache, max_len,
+                      policy == "outputs")
+
+
 def backbone_full(params, cfg: ModelConfig, x, positions, want_cache: bool,
                   max_len: int):
     """Run all segments over embeddings x. Returns (x, aux, caches)."""
+    policy = _remat_policy(cfg, want_cache)
     aux_total = torch.zeros((), device=x.device)
     caches = []
     for seg, seg_p in zip(cfg.segments, params["segments"]):
         if seg.count == 1:
-            x, aux, cache = block_full(seg_p, seg, cfg, x, positions,
-                                       want_cache, max_len)
+            x, aux, cache = _run_block(seg_p, seg, cfg, x, positions,
+                                       want_cache, max_len, policy)
             aux_total = aux_total + aux
             caches.append(cache)
             continue
         seg_caches = []
-        for i in range(seg.count):
-            x, aux, cache = block_full(_index(seg_p, i), seg, cfg, x,
-                                       positions, want_cache, max_len)
+        for block_p in _unstack(seg_p):
+            x, aux, cache = _run_block(block_p, seg, cfg, x, positions,
+                                       want_cache, max_len, policy)
             aux_total = aux_total + aux
             seg_caches.append(cache)
         caches.append(_stack(seg_caches))
@@ -240,6 +307,53 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     """tokens: (B,S) int (or embeds (B,S,d)). Returns (logits, aux, caches)."""
     x, aux, caches = _hidden(params, cfg, tokens, embeds, want_cache, max_len)
     return _logits(params, cfg, x), aux, caches
+
+
+def _ce_chunk(x_blk, l_blk, head):
+    """Summed NLL and label count of one sequence chunk, fp32 logits."""
+    logits = (x_blk @ head.to(x_blk.dtype)).float()
+    m = (l_blk >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, l_blk.clamp(min=0)[..., None].long())[..., 0]
+    return (nll * m).sum(), m.sum()
+
+
+def _chunked_ce(params, cfg: ModelConfig, x, labels):
+    """Seq-chunked CE: the logits of one ``ce_chunk`` of the sequence at a
+    time, each chunk under checkpoint (recomputed in the backward), so the
+    (B, S, V) fp32 logits never exist whole: at gemma3-1b, B 4 and S 1024
+    they would be 4.3 GB, one chunk of 512 is 2.1 GB. Exact: CE decomposes
+    over positions."""
+    s = x.shape[1]
+    chunk = cfg.ce_chunk
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    nlls, counts = [], []
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head)
+        nll, count = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False) \
+            if torch.is_grad_enabled() else _ce_chunk(*args)
+        nlls.append(nll)
+        counts.append(count)
+    return torch.stack(nlls).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                 min=1.0)
+
+
+def loss_and_metrics(params, cfg: ModelConfig, batch: dict):
+    """batch: {"tokens": (B,S), "labels": (B,S)} int tensors on the params'
+    device; labels -100 = masked. Returns (loss, {"loss", "ce", "aux"}),
+    0-d fp32 tensors. The chunked CE runs exactly when the reference's
+    does: ``s % ce_chunk == 0 and s > ce_chunk``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    s = tokens.shape[1]
+    if cfg.ce_chunk and s % cfg.ce_chunk == 0 and s > cfg.ce_chunk:
+        x, aux, _ = _hidden(params, cfg, tokens, None, False, s)
+        ce = _chunked_ce(params, cfg, x, labels)
+    else:
+        logits, aux, _ = forward(params, cfg, tokens=tokens)
+        ce = cross_entropy(logits, labels.clamp(min=0), (labels >= 0).float())
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None,

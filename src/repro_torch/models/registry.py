@@ -1,9 +1,9 @@
 """Model registry: family -> (init / prefill / decode) entry points.
 Port of ``repro/models/registry.py``.
 
-This slice serves the ``lm`` family (decoder-only LMs built from
-``decoder_lm`` segments). ``audio`` (encoder-decoder) and ``vlm`` raise until
-their slices; ``loss_and_metrics`` joins the API with the training slice.
+The ``lm`` family (decoder-only LMs built from ``decoder_lm`` segments)
+trains and serves. ``audio`` (encoder-decoder) and ``vlm`` raise until
+their slices.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.models import decoder_lm as dlm
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init_params: Callable[..., Any]
+    loss_and_metrics: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_caches: Callable[..., Any] | None = None
@@ -25,6 +26,7 @@ class ModelApi:
 def _lm_api() -> ModelApi:
     return ModelApi(
         init_params=dlm.init_params,
+        loss_and_metrics=dlm.loss_and_metrics,
         prefill=dlm.prefill,
         decode_step=dlm.decode_step,
         init_caches=dlm.init_caches,

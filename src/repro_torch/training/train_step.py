@@ -1,20 +1,83 @@
-"""Serving-step builders. Port of the serving half of
-``repro/training/train_step.py``; the train-step builders (loss, grads,
-AdamW) wait for the training slice.
+"""train_step / serve_step builders. Port of
+``repro/training/train_step.py``.
 
-``make_prefill`` and ``make_decode_step`` return plain functions over
-(params, batch / token, caches). PyTorch runs them eagerly;
-``launch/serve.py`` captures the decode step in a CUDA graph on the card,
-the counterpart of the reference's jitted step.
+Every builder returns a plain function: ``make_train_step`` and
+``make_eval_step`` over (state or params, batch), ``make_prefill`` and
+``make_decode_step`` over (params, batch / token, caches). PyTorch runs
+them eagerly (the reference jits them); ``launch/serve.py`` captures the
+decode step in a CUDA graph on the card. A captured training step is later
+work. TrainState = (params, opt), as in the reference.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import ModelApi, get_api
+from repro_torch.training.optimizer import (AdamState, AdamWConfig, adamw_init,
+                                            adamw_update)
+
+PyTree = Any
+
+
+class TrainState(NamedTuple):
+    params: PyTree
+    opt: AdamState
+
+
+def init_train_state(cfg: ModelConfig, seed: int = 0,
+                     opt_cfg: AdamWConfig | None = None,
+                     device=None) -> TrainState:
+    """Fresh params (``init_params(cfg, seed, device)``) and zero AdamW
+    moments in ``opt_cfg.moment_dtype``."""
+    params = get_api(cfg).init_params(cfg, seed=seed, device=device)
+    moment_dtype = opt_cfg.moment_dtype if opt_cfg else "float32"
+    return TrainState(params=params, opt=adamw_init(params, moment_dtype))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    api: ModelApi | None = None) -> Callable:
+    """(state, batch) -> (state, metrics). ``batch``: {"tokens", "labels"}
+    int tensors on the params' device. One step: the loss, its gradient by
+    ``torch.autograd.grad`` over every param leaf, then ``adamw_update``
+    (global-norm clip, schedule, decoupled decay). ``metrics``: loss, ce,
+    aux, grad_norm and lr as 0-d tensors on the device; reading one waits
+    for the step. The given state is not modified."""
+    api = api or get_api(cfg)
+
+    def train_step(state: TrainState, batch: dict):
+        params = tree_map(lambda t: t.detach().requires_grad_(True),
+                          state.params)
+        loss, metrics = api.loss_and_metrics(params, cfg, batch)
+        grads = iter(torch.autograd.grad(loss, leaves(params)))
+        grads = tree_map(lambda _: next(grads), params)
+        new_params, opt, om = adamw_update(opt_cfg, grads, state.opt,
+                                           state.params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        return TrainState(params=new_params, opt=opt), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
+    """(params, batch) -> metrics (loss, ce, aux), without gradients."""
+    api = api or get_api(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = api.loss_and_metrics(params, cfg, batch)
+        return metrics
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import kernel as tflash_kernel
 from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.kernels.gcn_spmm import ops as tops
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -32,7 +33,7 @@ for m in mods:
 bad = [m for m in sys.modules
        if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -42,7 +43,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                           env=dict(os.environ, PYTHONPATH=SRC),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 50   # every module of slices 1 and 2
+    mods = proc.stdout.split()
+    assert len(mods) >= 53          # every module of the slices so far
+    for m in ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+              "repro_torch.launch.train", "repro_torch.training.train_step"):
+        assert m in mods, m
 
 
 def _tiny_cpu_setup():
@@ -73,6 +78,9 @@ ENTRY_POINTS = {
         _lm_cfg(), tdlm.init_params(_lm_cfg()),
         {"tokens": np.zeros((1, 4), np.int32)}, 2),
     "serve.main": lambda *_: tserve.main(["--arch", "gemma3-1b", "--smoke"]),
+    # a training run as a user starts one
+    "train_loop": lambda *_: ttrain_launch.train_loop(_lm_cfg(), 1, 1, 8),
+    "train.main": lambda *_: ttrain_launch.main(["--arch", "gemma3-1b", "--smoke"]),
 }
 
 
@@ -120,6 +128,8 @@ def test_attention_kernel_wrappers_refuse_cpu_tensors_without_a_launch():
     with pytest.raises(ValueError, match="CUDA device"):
         tflash_kernel.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="CUDA device"):
+        tflash_kernel.flash_attention_bwd(q, k, k, q, torch.zeros(1, 2, 8), q)
+    with pytest.raises(ValueError, match="CUDA device"):
         tdec_kernel.decode_attention(q[:, :1], k, k,
                                      torch.ones(8, dtype=torch.int32))
     assert (tflash_kernel.LAUNCHES, tdec_kernel.LAUNCHES) == before
@@ -130,6 +140,12 @@ def test_serve_runs_on_cpu_when_asked(capsys):
                  "--batch", "2", "--prompt-len", "12", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated shape (2, 3)" in out and "backend=cpu" in out
+
+
+def test_train_runs_on_cpu_when_asked(capsys):
+    ttrain_launch.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                        "--steps", "3", "--global-batch", "2", "--seq-len", "16"])
+    assert "loss " in capsys.readouterr().out
 
 
 def test_ops_refuse_devices_other_than_cuda_and_cpu():
