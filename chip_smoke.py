@@ -14,9 +14,11 @@ decode step; and training the same model (batch 4 x 1024 tokens, remat on,
 chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
 times every kernel beside its plain version, a one-call library yardstick
-and its bound, runs the card-only pytest files, and prints one JSON line
-per phase. Any failure exits non-zero before the last line, which is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+and its bound (the attention kernels also at phi3-mini's head_dim 96, the
+backward also split by kernel), runs the card-only pytest files, and prints
+one JSON line per phase. Any failure exits non-zero before the last line,
+which is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``repro``.
 
 Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
 Fig. 8) -> 1024-node plan -> gcn_spmm times and a bit-for-bit repeat at
@@ -756,11 +758,14 @@ def phase_serve(torch, device, FK, DK) -> dict:
 def _attn_time_cases(torch, F, FK, FR, DK, DR):
     """The serve shapes: prefill of a global (causal) and a local (window
     512) layer, and one decode step of the global cache (T 1088, valid up
-    to the middle of generation) and of a local ring (T 512, all valid)."""
+    to the middle of generation) and of a local ring (T 512, all valid);
+    and phi3-mini's attention (32 heads, 32 kv heads, head_dim 96, which
+    the wrappers pad to 128): a prefill of 1 x 1024 tokens and a decode
+    step at B 4 against T 1088."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE["arch"])
     spec_local = cfg.segments[0].layers[0].attn
-    h, kvh, d = spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim
+    phi3 = get_config("phi3-mini-3.8b").segments[0].layers[0].attn
     b, s = SERVE["batch"], SERVE["prompt"]
     max_len = s + SERVE["gen"]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -768,7 +773,12 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
         torch.bfloat16)
     elt = 2
     cases = {}
-    for label, window in (("global", None), ("local", spec_local.window)):
+    gemma = (spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim)
+    phi = (phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
+    for label, window, b, (h, kvh, d) in (
+            ("global", None, SERVE["batch"], gemma),
+            ("local", spec_local.window, SERVE["batch"], gemma),
+            ("phi3-mini", None, 1, phi)):
         q, k, v = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d)
         qpos = torch.arange(s, device="cuda")[:, None]
         kpos = torch.arange(s, device="cuda")[None, :]
@@ -785,8 +795,11 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
                 qt, kt, vt, attn_mask=m, enable_gqa=True),
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
             flops=4 * d * pairs * b * h)
-    for label, t, n_valid in (("global", max_len, s + SERVE["gen"] // 2),
-                              ("local", spec_local.window, spec_local.window)):
+    b = SERVE["batch"]
+    for label, t, n_valid, (h, kvh, d) in (
+            ("global", max_len, s + SERVE["gen"] // 2, gemma),
+            ("local", spec_local.window, spec_local.window, gemma),
+            ("phi3-mini", max_len, s + SERVE["gen"] // 2, phi)):
         q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
         valid = torch.arange(t, device="cuda") < n_valid
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -844,12 +857,13 @@ def phase_flash_bwd_check(torch, FK, FR) -> dict:
     """The backward kernel against the plain version's autograd (fp32
     math) on the sweep of ``tests/test_torch_flash_backward_gpu.py``: head
     dims, causal and window, GQA 1 / 4 / 8, ragged S and T, S 1, a window
-    wider than S, gemma3-1b's training shapes. Max abs error of dQ, dK, dV
-    per dtype."""
+    wider than S, gemma3-1b's training shapes, the bf16 body's edges
+    (``BWD_EDGE_CASES``) and phi3-mini's attention (head_dim 96). Max abs
+    error of dQ, dK, dV per dtype."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_flash_backward_gpu as FB
     errs = {}
-    for case in FB.BWD_CASES:
+    for case in FB.BWD_CASES + FB.BWD_EDGE_CASES + [FB.PHI3_CASE]:
         causal, window, dt = case[6], case[7], case[8]
         q, k, v, do = FB.bwd_inputs(case)
         got, _ = FB.kernel_grads(q, k, v, do, causal, window)
@@ -872,26 +886,57 @@ def phase_flash_bwd_check(torch, FK, FR) -> dict:
     return {"float32": max(errs["float32"]), "bfloat16": max(errs["bfloat16"])}
 
 
+# the bf16 backward's launches, in order
+BWD_KERNELS = ("bwd_prep_kernel", "bwd_wgmma_kernel", "dkv_reduce_kernel")
+
+
+def _kernel_split_ms(torch, fn, names, calls=5) -> dict:
+    """Device ms of one call of ``fn`` by kernel, from torch.profiler over
+    ``calls`` calls: the kernels whose names contain each of ``names``, and
+    the call's other device time under "other"."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    split = {n: sum(_dev_time(e) for e in kernels if n in e.key) / 1e3 / calls
+             for n in names}
+    total = sum(_dev_time(e) for e in kernels) / 1e3 / calls
+    split["other"] = total - sum(split.values())
+    return split
+
+
 def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
     """The backward at gemma3-1b's training shape (B 4, S 1024, H 4, KV 1,
-    D 256, bf16), global and window 512: kernel (one call: delta, dK/dV and
-    dQ), its plain version (``attention_bwd_ref``: the same function from
-    the same o and log-sum-exp), and one SDPA forward + backward as the
-    library yardstick (timed only, never used by the port; causal flag for
-    the global layer, a boolean mask for the window). Bound: bytes (q, k,
-    v, o, dO and the log-sum-exp read, dq, dk, dv written) / 3.35 TB/s
-    against the backward's five products over the visible pairs (S, dP,
-    dV, dK, dQ: 10 D flops a pair and head) / 989 TFLOP/s."""
+    D 256, bf16), global and window 512, and at phi3-mini's attention (B 1,
+    S 1024, H 32, KV 32, D 96 run at width 128, causal): kernel (one call:
+    prep, dK/dV, dQ and, when H > KV, the sum of the heads' partials), the
+    same call's device time by kernel from a profile (``split_ms``), its
+    plain version (``attention_bwd_ref``: the same function from the same o
+    and log-sum-exp), and one SDPA forward + backward as the library
+    yardstick (timed only, never used by the port; causal flag for the
+    global layers, a boolean mask for the window). Bound: bytes (q, k, v, o,
+    dO and the log-sum-exp read, dq, dk, dv written) / 3.35 TB/s against
+    the backward's five products over the visible pairs (S, dP, dV, dK, dQ:
+    10 D flops a pair and head, at the true D) / 989 TFLOP/s."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     spec = get_config(TRAIN["arch"]).segments[0].layers[0].attn
-    h, kvh, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    b, s = TRAIN["batch"], TRAIN["seq"]
+    phi3 = get_config("phi3-mini-3.8b").segments[0].layers[0].attn
+    gemma = (TRAIN["batch"], spec.n_heads, spec.n_kv_heads, spec.head_dim)
+    phi = (1, phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
+    s = TRAIN["seq"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(
         torch.bfloat16)
     out = {}
-    for label, window in (("global", None), ("local", spec.window)):
+    for label, window, (b, h, kvh, d) in (("global", None, gemma),
+                                          ("local", spec.window, gemma),
+                                          ("phi3-mini", None, phi)):
         q, k, v, do = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d), rn(b, s, h, d)
         o, lse = FK.flash_attention(q, k, v, window=window, return_lse=True)
         qpos = torch.arange(s, device="cuda")[:, None]
@@ -909,14 +954,16 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
                 is_causal=w is None, enable_gqa=True)
             torch.autograd.grad(y, (qt, kt, vt), dot)
 
+        kernel = lambda q=q, k=k, v=v, o=o, lse=lse, do=do, w=window: \
+            FK.flash_attention_bwd(q, k, v, o, lse, do, window=w)
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
         flops = 10 * d * pairs * b * h
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         row = {"layer": label, "B": b, "S": s, "H": h, "KV": kvh, "D": d,
                "window": window, "dtype": "bfloat16",
-               "ms": _time_ms(torch, lambda: FK.flash_attention_bwd(
-                   q, k, v, o, lse, do, window=window)),
+               "ms": _time_ms(torch, kernel),
+               "split_ms": _kernel_split_ms(torch, kernel, BWD_KERNELS),
                "plain_ms": _time_ms(torch, lambda: FR.attention_bwd_ref(
                    q, k, v, o, lse, do, window=window)),
                "library_ms": _time_ms(torch, library),
@@ -932,7 +979,8 @@ def _profile_train_step(torch, step_fn, state, batch) -> dict:
     """One train step (the last state, the next batch) unprofiled, then one
     under torch.profiler (CUDA activity): host wall time, device-busy time
     (kernels' own device time), the device's idle share, kernels per step,
-    the flash kernels' part and the largest kernels. The new states are
+    the flash kernels' part (the backward's also as a share of device-busy
+    time) and the largest kernels. The new states are
     dropped."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -960,7 +1008,8 @@ def _profile_train_step(torch, step_fn, state, batch) -> dict:
             "device_idle_share_unprofiled": 1.0 - busy_us / 1e6 / wall_unprofiled,
             "kernels_per_step": sum(e.count for e in kernels),
             "flash_fwd_ms": part("flash_tc_kernel"),
-            "flash_bwd_ms": part("dkv_tc_kernel", "dq_tc_kernel", "delta_kernel"),
+            "flash_bwd_ms": part(*BWD_KERNELS),
+            "flash_bwd_share": part(*BWD_KERNELS) / (busy_us / 1e3),
             "top_kernels": [[e.key[:100], _dev_time(e) / 1e3, e.count] for e in top]}
 
 

@@ -532,7 +532,7 @@ int setup_one() {
 
 template <typename T, int D, int GP>
 int launch_cfg(const void* q, const void* k, const void* v, const void* valid, void* out,
-               int B, int T_len, int H, int KV, int G, cudaStream_t stream) {
+               int B, int T_len, int H, int KV, int G, float scale, cudaStream_t stream) {
   using S = Shape<T, D, GP>;
   const int cap = max_cluster<T, D, GP>();
   if (cap == 0) return static_cast<int>(cudaErrorInitializationError);  // setup() not run
@@ -554,7 +554,7 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* valid, v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const float scale_log2 = kLog2e / sqrtf((float)D);
+  const float scale_log2 = kLog2e * scale;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_kernel<T, D, GP>, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), static_cast<T*>(out),
@@ -568,26 +568,26 @@ inline int group_pad(int G) { return G > 4 ? 8 : G > 2 ? 4 : G; }
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-             int T_len, int H, int KV, cudaStream_t s) {
+             int T_len, int H, int KV, float scale, cudaStream_t s) {
   const int G = H / KV;
   switch (group_pad(G)) {
-    case 1: return launch_cfg<T, D, 1>(q, k, v, valid, out, B, T_len, H, KV, G, s);
-    case 2: return launch_cfg<T, D, 2>(q, k, v, valid, out, B, T_len, H, KV, G, s);
-    case 4: return launch_cfg<T, D, 4>(q, k, v, valid, out, B, T_len, H, KV, G, s);
-    default: return launch_cfg<T, D, 8>(q, k, v, valid, out, B, T_len, H, KV, G, s);
+    case 1: return launch_cfg<T, D, 1>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
+    case 2: return launch_cfg<T, D, 2>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
+    case 4: return launch_cfg<T, D, 4>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
+    default: return launch_cfg<T, D, 8>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-           int T_len, int H, int KV, int D, void* stream) {
+           int T_len, int H, int KV, int D, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, valid, out, B, T_len, H, KV, s);
-    case 32: return launch_d<T, 32>(q, k, v, valid, out, B, T_len, H, KV, s);
-    case 64: return launch_d<T, 64>(q, k, v, valid, out, B, T_len, H, KV, s);
-    case 128: return launch_d<T, 128>(q, k, v, valid, out, B, T_len, H, KV, s);
-    case 256: return launch_d<T, 256>(q, k, v, valid, out, B, T_len, H, KV, s);
+    case 16: return launch_d<T, 16>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
+    case 32: return launch_d<T, 32>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
+    case 64: return launch_d<T, 64>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
+    case 128: return launch_d<T, 128>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
+    case 256: return launch_d<T, 256>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -625,16 +625,17 @@ extern "C" int decode_attention_setup(void) {
 // Plain C entry points for ctypes. q (B, 1, H, D), k/v (B, T, KV, D) and
 // out (B, 1, H, D) are contiguous, k and v 16-byte aligned; valid (T,) one
 // byte per slot, nonzero = attend; H % KV == 0; D in {16, 32, 64, 128,
-// 256}. Each is one launch on `stream` and returns the CUDA error code
-// (0 on success).
+// 256}; scores are scaled by `scale` (the wrapper passes the true head
+// dim's D^-0.5 when it has padded D). Each is one launch on `stream` and
+// returns the CUDA error code (0 on success).
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* valid, void* out, int B, int T, int H, int KV,
-                                    int D, void* stream) {
-  return launch<float>(q, k, v, valid, out, B, T, H, KV, D, stream);
+                                    int D, float scale, void* stream) {
+  return launch<float>(q, k, v, valid, out, B, T, H, KV, D, scale, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* valid, void* out, int B, int T, int H, int KV,
-                                     int D, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, valid, out, B, T, H, KV, D, stream);
+                                     int D, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, valid, out, B, T, H, KV, D, scale, stream);
 }

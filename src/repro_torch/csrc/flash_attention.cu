@@ -84,9 +84,12 @@
 // sit in 99 KB of dynamic shared memory. For the scores each lane owns one
 // key column and reads Q rows as broadcast float4s; for P.V each lane owns
 // the output columns lane + 32 c and takes p from its neighbours by shuffle.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -250,7 +253,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int S, int T_len, int H, int KV, int causal, int window, void* stream) {
+             int S, int T_len, int H, int KV, int causal, int window, float scale,
+             void* stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
@@ -262,7 +266,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, i
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, T_len, H, KV, causal, window, 1.0f / sqrtf((float)D));
+      static_cast<T*>(o), lse, S, T_len, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -543,7 +547,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-              int T_len, int H, int KV, int causal, int window, void* stream) {
+              int T_len, int H, int KV, int causal, int window, float scale, void* stream) {
   constexpr size_t smem = 2 * TcShape<D>::kGroupSmem;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
@@ -554,8 +558,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
   }
   const long long n_q = ((long long)S * (H / KV) + kTcRows - 1) / kTcRows;
   const dim3 grid((unsigned)((n_q + 1) / 2), KV, B);  // a query tile and its mirror
-  // 1/sqrt(D) and log2(e) in one multiply: exp(x * scale) = exp2(x * scale_log2)
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  // the scale and log2(e) in one multiply: exp(x * scale) = exp2(x * scale_log2)
+  const float scale_log2 = 1.4426950408889634f * scale;
   flash_tc_kernel<D><<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, S, T_len, H, KV, causal, window, scale_log2);
@@ -566,88 +570,128 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
 // the FMA pipe (see the note at the top).
 template <typename T, int D>
 int launch_body(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int S, int T_len, int H, int KV, int causal, int window, void* stream) {
+                int S, int T_len, int H, int KV, int causal, int window, float scale,
+                void* stream) {
   if constexpr (sizeof(T) == 2)
-    return launch_tc<D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
+    return launch_tc<D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
   else
-    return launch_d<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
+    return launch_d<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int T_len, int H, int KV, int D, int causal, int window, void* stream) {
+           int T_len, int H, int KV, int D, int causal, int window, float scale,
+           void* stream) {
+#define FA_FWD_CASE(DIM)                                                                       \
+  case DIM:                                                                                    \
+    return launch_body<T, DIM>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
   switch (D) {
-    case 16: return launch_body<T, 16>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
-    case 32: return launch_body<T, 32>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
-    case 64: return launch_body<T, 64>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
-    case 128: return launch_body<T, 128>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
-    case 256: return launch_body<T, 256>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, stream);
+    FA_FWD_CASE(16)
+    FA_FWD_CASE(32)
+    FA_FWD_CASE(64)
+    FA_FWD_CASE(128)
+    FA_FWD_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FA_FWD_CASE
 }
 
 // ---- backward --------------------------------------------------------------
 //
-// The gradient of the forward above, which replaces the
-// Pallas TPU kernel flash_attention_bhsd (src/repro/kernels/flash_attention/
-// kernel.py). The Pallas kernel has no backward of its own: the reference
-// differentiates its function (its plain oracle, ref.py::attention_ref,
-// under jax.grad). This is that gradient, FA2 style, from the forward's
-// saved per-row log-sum-exp (lse = m + log l, natural log, (B, H, S) fp32):
+// The gradient of the forward above. The Pallas TPU kernel this file
+// replaces, flash_attention_bhsd (src/repro/kernels/flash_attention/
+// kernel.py:71, pallas_call at :89), has no backward of its own: the
+// reference differentiates its plain oracle (ref.py::attention_ref) under
+// jax.grad. This is that gradient, FA2 style, from the forward's saved
+// per-row log-sum-exp (lse = m + log l, natural log, (B, H, S) fp32):
 //   P  = exp(s * scale - lse)          rebuilt, never stored
 //   dV = P^T dO                        summed over the G query heads of a kv head
 //   dP = dO V^T
-//   dS = P o (dP - delta),  delta = rowsum(dO o O)   (pre-pass, fp32)
+//   dS = P o (dP - delta),  delta = rowsum(dO o O)
 //   dQ = dS K * scale,  dK = dS^T Q * scale
 // The masks are the forward's: key position < T, kpos <= qpos if causal,
-// kpos > qpos - window if a window is set, positions from 0. A masked score
+// kpos > qpos - window if a window is set, positions from 0. A masked pair
 // gets P = 0: in a row that sees any key, the forward's p = exp(-1e30 - m)
-// was exactly 0 there too. (A row that sees no key has no gradient to give;
-// the wrapper refuses inputs with such rows.) Tiles that no row can see are
-// skipped, as in the forward.
+// was exactly 0 there too. (A row that sees no key has no gradient to
+// give; the wrapper refuses inputs with such rows.) Tiles that no pair of
+// which is visible are skipped.
 //
-// Three kernels per call, launched in order on one stream:
-//   1. delta_kernel: one warp per (b, s, h) row, delta = rowsum(dO o O) in fp32.
-//   2. dK/dV: one block per (batch, kv head, tile of keys). It loops over the
-//      group's query heads and the query tiles that see the tile, so the
-//      sum over the G heads is taken inside the block, in a fixed order:
-//      no atomics, no scratch, the same bits on every call.
-//   3. dQ: one block per (batch, head(s), tile of query rows), looping over
-//      the kv tiles its rows see.
+// What bounds it on an H100: operations. The function is five products
+// over the visible (query, key) pairs, 10 D flops a pair and head: at
+// gemma3-1b's training shape (B 4, S 1024, H 4, KV 1, D 256, causal)
+// ~2.2e10 flops, ~22 us at 989 TFLOP/s bf16, against ~27 MB of bf16
+// q/k/v/o/dO in and dq/dk/dv out (~8 us at 3.35 TB/s).
 //
-// What bounds it on an H100: at gemma3-1b's training shape (B 4, S 1024,
-// H 4, KV 1, D 256, causal) the backward's five products over the visible
-// pairs are ~2.1e10 flops (~22 us at 989 TFLOP/s bf16) against ~27 MB of
-// bf16 q/k/v/o/dO in and dq/dk/dv out (~8 us at 3.35 TB/s): operations, on
-// the tensor cores. This first version recomputes S in both kernels and dP
-// in both (and, at D 256, S once more), 7 to 8 products instead of 5, and
-// keeps one warp group per block: simple and right first.
+// bf16 (bwd_wgmma_kernel) runs at width 128 or 256. A narrower head dim
+// (96: phi3-mini) reads as zero columns past D, which the copies fill in
+// shared memory (zero q and k columns leave the scores as they are, zero v
+// and dO columns give gradient columns that are not written), so nothing
+// is padded in device memory. Three launches:
+//   1. bwd_prep_kernel: delta and lse * log2(e) into a scratch padded to
+//      whole 64-row tiles (+inf and 0 past S, so a padded row weighs
+//      nothing), which the TMA engine can copy.
+//   2. bwd_wgmma_kernel: dK/dV items and dQ items in one persistent,
+//      warp-specialised launch of three warp groups, one block per SM
+//      (223,792 bytes of shared memory at D 256, alignment slack included).
+//   3. dkv_reduce_kernel, when G > 1: the G heads' fp32 partial dK and dV
+//      summed in head order, dK times the scale, to bf16.
+// The design, against what bounds a plain mma.sync body with one warp group a
+// block, products recomputed per accumulator and an unbalanced causal grid:
+//   * Tensor cores the Hopper way. Every product is wgmma.mma_async
+//     m64n64k16 (bf16 in, fp32 accumulate) on 128-byte-swizzled shared
+//     memory. Tiles of 64 rows arrive by TMA (4-d tensor maps over the
+//     model layout, one 64 x 64 box per 128-byte panel, zero-filled past S
+//     and T) into a ring of stages guarded by mbarriers (full: the
+//     producer's arrival and expected bytes; empty: 256 consumer
+//     arrivals). One producer thread issues every copy; setmaxnreg moves
+//     registers from its warp group (24) to the two consumer groups (240).
+//     An MN-major B operand (dO, Q, K read along their rows) is read one
+//     64-column panel per instruction, so its descriptor never spans
+//     swizzle atoms. What bounds this shape: at D 256 the stages leave no
+//     room for tiles wider than 64 rows, and a 64 x 64 product from shared
+//     memory reads 4 KB in the 32 cycles the tensor cores take for it, the
+//     shared memory's whole bandwidth.
+//   * Each product once. In dK/dV, group 0 computes S^T = K Q^T, turns it
+//     into P^T and accumulates dV += P^T dO; group 1 computes dP^T = V dO^T,
+//     takes P^T in fp32 from group 0 through shared memory (named barriers
+//     1 and 2), forms dS^T and accumulates dK += dS^T Q. P^T and dS^T stay
+//     in registers as the bf16 A operand of their wgmma (the accumulator's
+//     layout is the A fragment's). So at D 256 the two 64 x 256 fp32
+//     accumulators (128 registers a thread each) live in two groups of one
+//     block and nothing is computed twice. dQ is its own kind of item, as
+//     in FA2 (7 products in all, no atomics), split the same way: group 0
+//     S = Q K^T and P, group 1 dP = dO V^T and dS, whose bf16 A fragments
+//     it also leaves in shared memory for group 0 (named barrier 3); each
+//     group then accumulates half of dQ's columns with dS from registers.
+//   * Fill and balance. A work item is one (batch, query head, 64-row
+//     tile), so the G heads of a kv head run apart: 256 dK/dV items and 256
+//     dQ items at the training shape, in one list on 132 blocks. Each kind
+//     is ordered heaviest first (key tiles ascending; query tiles
+//     descending under a causal mask), the two kinds alternate (their
+//     weights match), and the list is dealt in a snake (odd rounds take the
+//     blocks in reverse), so the block that drew a heavy item draws a light
+//     one next. At the training shape the busiest block carries 34 partner
+//     tiles against a mean of 33.0 (global) and 27 against 26.2 (window
+//     512); two launches, one per kind, would carry 17 + 17 in both.
+//   * The same bits every call. Each output element is written by one
+//     thread of one item, the G partials are summed in head order, and
+//     nothing uses atomics.
+//   * No stall between items: the producer issues an item's first tiles
+//     while the previous item's last ones are multiplied.
+// What still holds it back: shared memory's bandwidth (above) and, with
+// two stages, no room to issue a tile's scores before the last tile's
+// accumulation is done, so each group waits for its own products before
+// the exponentials; at G > 1 the fp32 partials make a round trip through
+// device memory (2 x 16.8 MB at the training shape); dQ recomputes S and
+// dP; head dims below 128 run at width 128.
 //
-// bf16 (dkv_tc_kernel, dq_tc_kernel): mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate) fed by ldmatrix from XOR-swizzled shared memory that 16-byte
-// cp.async fills, as the forward's tensor-core body. GQA heads are packed
-// into rows as in the forward: packed row p of (batch, kv head) is query
-// position p / G of head kvh * G + p % G.
-//   * dK/dV: 4 warps own 16 keys each (64 keys a block); K and V of the tile
-//     stay in shared memory; Q and dO tiles of 32 packed rows are double
-//     buffered. Per tile a warp computes S^T = K Q^T and dP^T = V dO^T as
-//     16 x 32 fp32 fragments, turns them into P^T and dS^T in registers and
-//     feeds them, rounded to bf16, as the A operand of dV += P^T dO and
-//     dK += dS^T Q (dO and Q read by ldmatrix.trans). At D 256 a warp
-//     cannot hold both 16 x 256 fp32 accumulators (256 registers), so the
-//     grid holds two blocks per key tile: one accumulates dV, the other dK.
-//   * dQ: 4 warps own 16 packed rows each (64 rows a block); Q and dO rows
-//     stay in shared memory, K/V tiles (64 keys, 32 at D 256) are double
-//     buffered. Per tile: S = Q K^T, dP = dO V^T, dS, then dQ += dS K (K
-//     read by ldmatrix.trans).
-//   * The outputs are staged through the warp's own rows of shared memory
-//     and written as 16-byte chunks in the model layout.
-//
-// fp32 (dkv_f32_kernel, dq_f32_kernel): fp32 FMAs outside the tensor cores,
-// which keeps the fp32 tolerance, laid out as the forward's fp32 body: a
-// lane owns one key (or query) column for the score-like products and
-// output columns lane + 32 c for the accumulations, taking the other
-// operand's values from its neighbours by shuffle.
+// fp32 (dkv_f32_kernel, dq_f32_kernel, after delta_kernel): fp32 FMAs
+// outside the tensor cores, which keeps the fp32 tolerance, laid out as
+// the forward's fp32 body: a lane owns one key (or query) column for the
+// score-like products and output columns lane + 32 c for the
+// accumulations, taking the other operand's values from its neighbours by
+// shuffle. One block per (batch, kv head, 32 keys) for dK/dV, summing the
+// G heads in a fixed order, and one per (batch, head, 32 queries) for dQ.
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -932,356 +976,662 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 }
-
-// ---- bf16 bodies on the tensor cores ---------------------------------------
-// one warp group of 4 warps a block, each warp 16 rows: a block owns kTcRows
-// = 64 rows (keys in dK/dV, packed query rows in dQ)
-constexpr int kBwdThreads = kTcGroupThreads;
-constexpr int kKvQ = 32;  // packed query rows per tile in dK/dV
+// ---- bf16 bodies: wgmma on TMA-fed, warp-specialised persistent blocks ------
+constexpr int kBwdRows = 64;                 // rows of every tile: keys or queries
+constexpr int kBwdThreads = 384;             // consumer groups 0 and 1, producer group 2
+constexpr int kPanelBytes = kBwdRows * 128;  // 64 rows of one 128-byte swizzle panel
 
 template <int D>
-struct BwdSmem {  // dynamic shared memory of the bf16 backward kernels
-  // dK/dV: K, V [64][D]; two stages of Q and of dO [32][D]; lse, delta [2][32]
-  static constexpr size_t kDkv =
-      sizeof(bf16) * (2 * kTcRows * D + 4 * kKvQ * D) + sizeof(float) * 4 * kKvQ;
-  // dQ: Q, dO [64][D]; two stages of K and of V [kKeys][D]
-  static constexpr size_t kDq = sizeof(bf16) * (2 * kTcRows * D + 4 * TcShape<D>::kKeys * D);
+struct BwdLayout {  // byte offsets into the (1024-aligned) dynamic shared memory
+  static constexpr int kPanels = D / 64;                 // 64-column panels of a row
+  static constexpr int kTile = kPanels * kPanelBytes;    // a 64 x D bf16 tile
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kStat = 2 * kBwdRows * 4;         // lse2, then delta, of 64 rows
+  static constexpr int kPbuf = kBwdRows * kBwdRows * 4;  // fp32 P, [register][thread]
+  // the item's two tiles (dK/dV: K, V; dQ: Q, dO), at 0; the stages of the
+  // streamed pairs (dK/dV: Q, dO; dQ: K, V); P; dS as bf16 A fragments
+  // ([register][thread], 8 KB); the dQ item's stats; each stage's stats
+  // (dK/dV); barriers
+  static constexpr int kStage0 = 2 * kTile;
+  static constexpr int kP = kStage0 + kStages * 2 * kTile;
+  static constexpr int kDs = kP + kPbuf;
+  static constexpr int kItemStat = kDs + kPanelBytes;
+  static constexpr int kStageStat = kItemStat + kStat;
+  static constexpr int kBar = kStageStat + kStages * kStat;
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "shared memory");
 };
 
-// acc (16 x NB*8) += A (the warp's 16 rows of a [rows][D] tile) . B^T, B =
-// NB*8 rows of another [rows][D] tile starting at row b0, over all of D
-template <int D, int NB>
-__device__ __forceinline__ void mma_rows_rows(float (&acc)[NB][4], const bf16* a_s, int a_row0,
-                                              const bf16* b_s, int b_row0, int lane) {
+struct BwdArgs {
+  const float* stats;  // [2][B H][S_pad]: lse * log2(e) (+inf past S), then delta (0 past S)
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  float* part;  // G > 1: [2][B][H][T][dh] fp32 partial dK (unscaled), then dV; else null
+  int B, S, T, H, KV, S_pad, causal, window;
+  int dh;  // the tensors' head dim: D, or less (the tiles' columns past dh are zeros)
+  float scale_log2, scale;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// -- mbarriers, TMA, named barriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// a 64-row x D tile of one head of a (B, rows, heads, D) tensor, one TMA
+// box (64 x 64, 128-byte swizzled) per panel, completing on `bar`
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row0, int b) {
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int p = 0; p < D / 64; ++p)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst + p * kPanelBytes)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(p * 64), "r"(head),
+        "r"(row0), "r"(b)
+        : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id) {  // the two consumer groups
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// -- wgmma
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of a wgmma accumulator across the
+// fence / wait that bracket the asynchronous product
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.0f;
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// descriptor of a 128-byte-swizzled operand: start address, leading and
+// stride byte offsets (in 16-byte units), layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major: k-step kk (16 elements) of a 64-row tile whose rows run along the
+// contraction dimension, in panels of 64 columns: 8-row groups 1024 B apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 0, 1024);
+}
+// MN-major: k-step kk (16 rows) of one 64-column panel whose rows are the
+// contraction dimension. One panel is exactly one swizzle atom wide, so
+// the product's N is 64 and both offsets are the 8-row stride.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t panel, int kk) {
+  return sw128_desc(panel + kk * 2048, 1024, 1024);
+}
+
+// d (64 x 64 fp32) = A . B (+ d if accumulate), A and B read K-major from
+// shared memory through their descriptors
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) = A . B (+ d if accumulate), A (64 x 16 bf16) from
+// registers in the mma.m16n8k16 fragment layout (warp w holds rows 16 w ..
+// 16 w + 15), B read MN-major from shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The accumulator of a 64 x 64 product holds, in thread (warp w, lane l),
+// rows 16 w + l / 4 + 8 i and columns 8 j + 2 (l % 4) + e at register
+// 4 j + 2 i + e: the A fragment layout, so it feeds the next product as
+// bf16 registers (k-step kk: columns 16 kk .. 16 kk + 15).
+__device__ __forceinline__ void to_a_frags(const float (&x)[32], uint32_t (&af)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_s + swz<D>(a_row0 + lane % 16, kk * 2 + lane / 16));
-#pragma unroll
-    for (int nb = 0; nb < NB / 2; ++nb) {
-      uint32_t bb[4];
-      ldsm_x4(bb, b_s + swz<D>(b_row0 + nb * 16 + lane % 8 + (lane / 16) * 8,
-                               kk * 2 + (lane / 8) % 2));
-      mma_bf16(acc[2 * nb], a, bb[0], bb[1]);
-      mma_bf16(acc[2 * nb + 1], a, bb[2], bb[3]);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    af[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    af[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    af[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    af[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// out (16 x D) += X (16 x NB*8, an fp32 score fragment, rounded to bf16 as
-// the A operand) . Y (NB*8 rows of a [rows][D] tile, read transposed)
-template <int D, int NB>
-__device__ __forceinline__ void mma_frag_rows(float (&out)[D / 8][4], const float (&x)[NB][4],
-                                              const bf16* y_s, int lane) {
+// -- work items: (batch, query head, 64-row tile), heaviest first
+struct BwdItem {
+  int dq;           // 0: dK, dV of 64 keys; 1: dQ of 64 query rows
+  int b, h, row0;   // the item's (batch, query head) and first row
+  int begin;        // the first row of its partner tiles
+  int n_tiles;      // its partner tiles: query tiles (dK/dV) or key tiles (dQ)
+};
+
+// dK/dV item u: key tile u / (B H), ascending (under a causal mask a tile
+// is seen by no fewer query tiles than the next), and the query tiles
+// that see its keys
+__device__ __forceinline__ BwdItem dkv_item(int u, const BwdArgs& a) {
+  const int bh = u % (a.B * a.H);
+  BwdItem it;
+  it.dq = 0;
+  it.b = bh / a.H;
+  it.h = bh % a.H;
+  it.row0 = (u / (a.B * a.H)) * kBwdRows;
+  const int k_last = min(a.T, it.row0 + kBwdRows) - 1;
+  it.begin = a.causal ? (min(it.row0, a.S) / kBwdRows) * kBwdRows : 0;
+  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  it.n_tiles = q_end > it.begin ? (q_end - it.begin + kBwdRows - 1) / kBwdRows : 0;
+  return it;
+}
+
+// dQ item u: query tile (descending under a causal mask: the last tile sees
+// the most keys) and the key tiles its rows see
+__device__ __forceinline__ BwdItem dq_item(int u, const BwdArgs& a) {
+  const int bh = u % (a.B * a.H);
+  const int n_q = (a.S + kBwdRows - 1) / kBwdRows;
+  const int i = u / (a.B * a.H);
+  BwdItem it;
+  it.dq = 1;
+  it.b = bh / a.H;
+  it.h = bh % a.H;
+  it.row0 = (a.causal ? n_q - 1 - i : i) * kBwdRows;
+  const int q_hi = min(a.S, it.row0 + kBwdRows) - 1;
+  const int k_end = a.causal ? min(a.T, q_hi + 1) : a.T;
+  it.begin = a.window > 0 ? (max(0, it.row0 - a.window + 1) / kBwdRows) * kBwdRows : 0;
+  it.n_tiles = k_end > it.begin ? (k_end - it.begin + kBwdRows - 1) / kBwdRows : 0;
+  return it;
+}
+
+// item c of one list: the u-th dK/dV and the u-th dQ item alternate (the
+// two lists are each heaviest first, and their weights match: key tile j
+// and query tile n - 1 - j see as many partner tiles under a causal mask),
+// then the rest of the longer list
+__device__ __forceinline__ BwdItem bwd_item(int c, int n_kv, int n_q, const BwdArgs& a) {
+  const int m = min(n_kv, n_q);
+  if (c < 2 * m) return (c & 1) ? dq_item(c >> 1, a) : dkv_item(c >> 1, a);
+  return n_kv > n_q ? dkv_item(c - m, a) : dq_item(c - m, a);
+}
+
+// round r of the snake: blocks in order when r is even, in reverse when odd,
+// so a block that drew a heavy item draws a light one next
+__device__ __forceinline__ int snake_item(int r) {
+  const int g = (int)gridDim.x, x = (int)blockIdx.x;
+  return r * g + ((r & 1) ? g - 1 - x : x);
+}
+
+// may some pair of query tile q0 and key tile k0 be masked (causal diagonal
+// or the window's lower edge)? Pairs past S or T need no mask: their
+// rows are zero-filled and their lse is +inf.
+__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, const BwdArgs& a) {
+  return (a.causal && q0 < k0 + kBwdRows - 1) ||
+         (a.window > 0 && q0 + kBwdRows - 1 - k0 >= a.window);
+}
+
+// 1. delta = rowsum(dO o O) and lse * log2(e), rows padded to whole tiles:
+// one warp a row, 16-byte loads
+__global__ void __launch_bounds__(32 * kDeltaWarps)
+bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ stats, int S, int H, int dh,
+                int S_pad, long long n_rows) {
+  const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;  // (b h, s)
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  const long long bh = row / S_pad;
+  const int s = (int)(row % S_pad);
+  float l2 = __int_as_float(0x7f800000), dl = 0.0f;  // +inf: a padded row weighs nothing
+  if (s < S) {
+    const size_t off = (((size_t)(bh / H) * S + s) * H + bh % H) * dh;
+    float acc = 0.0f;
+    for (int d = lane * 8; d < dh; d += 256) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + off + d);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + d);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
 #pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int db = 0; db < D / 16; ++db) {
-      uint32_t yb[4];
-      ldsm_x4_trans(yb, y_s + swz<D>(kk * 16 + lane % 8 + ((lane / 8) % 2) * 8,
-                                     db * 2 + lane / 16));
-      mma_bf16(out[2 * db], a, yb[0], yb[1]);
-      mma_bf16(out[2 * db + 1], a, yb[2], yb[3]);
+      for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(op[e]), __bfloat162float(gp[e]), acc);
     }
+    dl = warp_sum(acc);
+    l2 = lse[bh * S + s] * kLog2e;
+  }
+  if (lane == 0) {
+    stats[row] = l2;
+    stats[n_rows + row] = dl;
   }
 }
 
-// write a warp's 16 x D fp32 accumulator (times mul) as bf16 rows: staged
-// through the warp's own 16 rows of a swizzled tile, then 16-byte stores;
-// row r goes to dst + offset(r) for r with valid(r)
-template <int D, typename Off, typename Valid>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
-                                           bf16* stage, int row0, bf16* dst, Off offset,
-                                           Valid valid, int lane) {
-  constexpr int kChunks = D / 8;
-  const int r0 = row0 + lane / 4, kcol = (lane % 4) * 2;
-  __syncwarp();
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    *reinterpret_cast<uint32_t*>(stage + swz<D>(r0, db) + kcol) =
-        pack_bf16(acc[db][0] * mul, acc[db][1] * mul);
-    *reinterpret_cast<uint32_t*>(stage + swz<D>(r0 + 8, db) + kcol) =
-        pack_bf16(acc[db][2] * mul, acc[db][3] * mul);
+// The shared memory and barriers of one block. Barrier pair 0 guards the
+// item's two tiles, pair 1 + s stage s; in each pair the first is "full"
+// (the producer's arrival and its bytes), the second "empty" (256
+// consumer arrivals).
+template <int D>
+struct BwdSmem {
+  using L = BwdLayout<D>;
+  unsigned char* sm;
+  __device__ __forceinline__ explicit BwdSmem(unsigned char* base) : sm(base) {}
+  __device__ __forceinline__ uint64_t* bar(int i) const {
+    return reinterpret_cast<uint64_t*>(sm + L::kBar) + i;
   }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    if (valid(r))
-      *reinterpret_cast<uint4*>(dst + offset(r) + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + swz<D>(row0 + r, c));
+  __device__ __forceinline__ uint64_t* item_full() const { return bar(0); }
+  __device__ __forceinline__ uint64_t* item_empty() const { return bar(1); }
+  __device__ __forceinline__ uint64_t* stage_full(int s) const { return bar(2 + 2 * s); }
+  __device__ __forceinline__ uint64_t* stage_empty(int s) const { return bar(3 + 2 * s); }
+  __device__ __forceinline__ unsigned char* stage(int s) const {  // its second tile at + kTile
+    return sm + L::kStage0 + s * 2 * L::kTile;
   }
-}
-
-// dK / dV for 64 keys of one (batch, kv head). WANT_V / WANT_K pick the
-// accumulators (both for D <= 128; one each at D 256, see the top note).
-template <int D, bool WANT_V, bool WANT_K>
-__device__ __forceinline__ void dkv_tc_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v,
-                                            const bf16* __restrict__ dout,
-                                            const float* __restrict__ lse,
-                                            const float* __restrict__ delta, bf16* __restrict__ dk,
-                                            bf16* __restrict__ dv, int tile, int S, int T_len,
-                                            int H, int KV, int causal, int window,
-                                            float scale_log2, float scale,
-                                            unsigned char* smem) {
-  constexpr int kChunks = TcShape<D>::kChunks;
-  constexpr int kNB = kKvQ / 8;  // score n-blocks of 8 packed rows
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [64][D]
-  bf16* v_s = k_s + kTcRows * D;              // [64][D]
-  bf16* q_s = v_s + kTcRows * D;              // [2][kKvQ][D]
-  bf16* do_s = q_s + 2 * kKvQ * D;            // [2][kKvQ][D]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kKvQ * D);  // [2][kKvQ], base 2
-  float* dl_s = lse_s + 2 * kKvQ;                                 // [2][kKvQ]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = tile * kTcRows, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int rows = S * G;  // packed rows of (b, kvh)
-  auto q_off = [&](int p) {
-    return ((size_t)b * S + p / G) * H * D + (size_t)(kvh * G + p % G) * D;
-  };
-  auto kv_off = [&](int t) { return ((size_t)b * T_len + t) * KV * D + (size_t)kvh * D; };
-
-  for (int idx = tid; idx < kTcRows * kChunks; idx += kBwdThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool in = k0 + r < T_len;
-    const size_t off = in ? kv_off(k0 + r) + c * 8 : 0;
-    cp_async16(k_s + swz<D>(r, c), k + off, in);
-    cp_async16(v_s + swz<D>(r, c), v + off, in);
+  __device__ __forceinline__ float* stage_stat(int s) const {
+    return reinterpret_cast<float*>(sm + L::kStageStat + s * L::kStat);
   }
-  // packed rows whose query position can see a key of the tile
-  const int k_last = min(T_len, k0 + kTcRows) - 1;
-  int p_begin = 0, p_end = rows;
-  if (causal) p_begin = (min(k0, S) * G / kKvQ) * kKvQ;
-  if (window > 0) p_end = min(rows, (k_last + window) * G);
-  const int n_tiles = p_end > p_begin ? (p_end - p_begin + kKvQ - 1) / kKvQ : 0;
+  __device__ __forceinline__ float* item_stat() const {
+    return reinterpret_cast<float*>(sm + L::kItemStat);
+  }
+  __device__ __forceinline__ float* pbuf() const { return reinterpret_cast<float*>(sm + L::kP); }
+};
 
-  auto load_q = [&](int j) {
-    const int p0 = p_begin + j * kKvQ;
-    bf16* qs = q_s + (j & 1) * kKvQ * D;
-    bf16* ds = do_s + (j & 1) * kKvQ * D;
-    for (int idx = tid; idx < kKvQ * kChunks; idx += kBwdThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      const bool in = p0 + r < rows;
-      const size_t off = in ? q_off(p0 + r) + c * 8 : 0;
-      cp_async16(qs + swz<D>(r, c), q + off, in);
-      cp_async16(ds + swz<D>(r, c), dout + off, in);
-    }
-    if (tid < kKvQ) {
-      const int p = p0 + tid;
-      const size_t off = ((size_t)b * H + kvh * G + p % G) * S + p / G;
-      lse_s[(j & 1) * kKvQ + tid] = p < rows ? lse[off] * kLog2e : 0.0f;
-      dl_s[(j & 1) * kKvQ + tid] = p < rows ? delta[off] : 0.0f;
-    }
-  };
-  if (n_tiles > 0) load_q(0);
-  cp_async_commit();  // K, V and the first query tile
-
-  constexpr int kDB = D / 8;
-  float acc_v[WANT_V ? kDB : 1][4], acc_k[WANT_K ? kDB : 1][4];
-#pragma unroll
-  for (int db = 0; db < (WANT_V ? kDB : 1); ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_v[db][e] = 0.0f;
-#pragma unroll
-  for (int db = 0; db < (WANT_K ? kDB : 1); ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[db][e] = 0.0f;
-  const int wrow0 = warp * 16;
-  // this thread's keys: wrow0 + lane / 4 and + 8; its packed rows in a
-  // score n-block: nb * 8 + (lane % 4) * 2 + {0, 1}
-  const int kpos[2] = {k0 + wrow0 + lane / 4, k0 + wrow0 + lane / 4 + 8};
-  const int qcol = (lane % 4) * 2;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_q(j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qs = q_s + (j & 1) * kKvQ * D;
-    const bf16* ds_ = do_s + (j & 1) * kKvQ * D;
-    const float* lse2 = lse_s + (j & 1) * kKvQ;
-    const float* dl = dl_s + (j & 1) * kKvQ;
-    const int p0 = p_begin + j * kKvQ;
-
-    float st[kNB][4];  // S^T = K Q^T, then P^T
-    mma_rows_rows<D, kNB>(st, k_s, wrow0, qs, 0, lane);
-    float dpt[kNB][4];  // dP^T = V dO^T, then dS^T
-    if constexpr (WANT_K) mma_rows_rows<D, kNB>(dpt, v_s, wrow0, ds_, 0, lane);
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nb * 8 + qcol + (e & 1);
-        const int p = p0 + col;
-        const bool vis = p < rows && visible(p / G, kpos[e >> 1], T_len, causal, window);
-        const float pv = vis ? exp2f(st[nb][e] * scale_log2 - lse2[col]) : 0.0f;
-        st[nb][e] = pv;
-        if constexpr (WANT_K) dpt[nb][e] = pv * (dpt[nb][e] - dl[col]);
+// The producer thread: for each item, its first streamed tiles (while the
+// consumers finish the last item), then the item's own tiles once the last
+// item has released them, then the rest of the stream.
+template <int D>
+__device__ __forceinline__ void bwd_produce(const BwdSmem<D>& m, const CUtensorMap* tm_q,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            const CUtensorMap* tm_do, const BwdArgs& a,
+                                            int n_kv, int n_q) {
+  using L = BwdLayout<D>;
+  constexpr int NS = L::kStages;
+  const int G = a.H / a.KV;
+  const size_t n_stat = (size_t)a.B * a.H * a.S_pad;
+  int sc = 0, ic = 0;  // stage and item uses so far
+  for (int r = 0;; ++r) {
+    const int c = snake_item(r);
+    if (c >= n_kv + n_q) break;
+    const BwdItem it = bwd_item(c, n_kv, n_q, a);
+    if (it.n_tiles == 0) continue;
+    const int kvh = it.h / G;
+    auto load_stats = [&](float* dst, int row0, uint64_t* bar) {
+      const float* src = a.stats + ((size_t)it.b * a.H + it.h) * a.S_pad + row0;
+      bulk_copy(dst, src, 4 * kBwdRows, bar);
+      bulk_copy(dst + kBwdRows, src + n_stat, 4 * kBwdRows, bar);
+    };
+    auto load_stage = [&](int t) {
+      const int s = sc % NS;
+      mbar_wait(m.stage_empty(s), ((sc / NS) & 1) ^ 1);
+      const int r0 = it.begin + t * kBwdRows;
+      if (it.dq) {  // K and V
+        mbar_expect_tx(m.stage_full(s), 2 * L::kTile);
+        tma_tile<D>(m.stage(s), tm_k, m.stage_full(s), kvh, r0, it.b);
+        tma_tile<D>(m.stage(s) + L::kTile, tm_v, m.stage_full(s), kvh, r0, it.b);
+      } else {  // Q, dO and their rows' stats
+        mbar_expect_tx(m.stage_full(s), 2 * L::kTile + L::kStat);
+        tma_tile<D>(m.stage(s), tm_q, m.stage_full(s), it.h, r0, it.b);
+        tma_tile<D>(m.stage(s) + L::kTile, tm_do, m.stage_full(s), it.h, r0, it.b);
+        load_stats(m.stage_stat(s), r0, m.stage_full(s));
       }
-    if constexpr (WANT_V) mma_frag_rows<D, kNB>(acc_v, st, ds_, lane);
-    if constexpr (WANT_K) mma_frag_rows<D, kNB>(acc_k, dpt, qs, lane);
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-
-  if (n_tiles == 0) {  // K and V still in flight: land them before staging
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  auto offset = [&](int r) { return kv_off(k0 + wrow0 + r); };
-  auto valid = [&](int r) { return k0 + wrow0 + r < T_len; };
-  // stage through the warp's own K / V rows (no other warp reads them)
-  if constexpr (WANT_K) store_rows<D>(acc_k, scale, k_s, wrow0, dk, offset, valid, lane);
-  if constexpr (WANT_V) store_rows<D>(acc_v, 1.0f, v_s, wrow0, dv, offset, valid, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const bf16* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-              int S, int T_len, int H, int KV, int causal, int window, float scale_log2,
-              float scale) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  if constexpr (D <= 128) {
-    dkv_tc_body<D, true, true>(q, k, v, dout, lse, delta, dk, dv, blockIdx.x, S, T_len, H, KV,
-                               causal, window, scale_log2, scale, tc_smem);
-  } else {  // two blocks per key tile: even ones dV, odd ones dK
-    if (blockIdx.x & 1)
-      dkv_tc_body<D, false, true>(q, k, v, dout, lse, delta, dk, dv, blockIdx.x / 2, S, T_len,
-                                  H, KV, causal, window, scale_log2, scale, tc_smem);
-    else
-      dkv_tc_body<D, true, false>(q, k, v, dout, lse, delta, dk, dv, blockIdx.x / 2, S, T_len,
-                                  H, KV, causal, window, scale_log2, scale, tc_smem);
-  }
-}
-
-// dQ for 64 packed rows of one (batch, kv head)
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             const bf16* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, bf16* __restrict__ dq, int S, int T_len, int H,
-             int KV, int causal, int window, float scale_log2, float scale) {
-  constexpr int kKeys = TcShape<D>::kKeys;
-  constexpr int kChunks = TcShape<D>::kChunks;
-  constexpr int kNB = kKeys / 8;
-  constexpr int kDB = D / 8;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);  // [64][D]
-  bf16* do_s = q_s + kTcRows * D;                // [64][D]
-  bf16* k_s = do_s + kTcRows * D;                // [2][kKeys][D]
-  bf16* v_s = k_s + 2 * kKeys * D;               // [2][kKeys][D]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p0 = blockIdx.x * kTcRows, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int rows = S * G;
-  auto q_off = [&](int p) {
-    return ((size_t)b * S + p / G) * H * D + (size_t)(kvh * G + p % G) * D;
-  };
-
-  for (int idx = tid; idx < kTcRows * kChunks; idx += kBwdThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool in = p0 + r < rows;
-    const size_t off = in ? q_off(p0 + r) + c * 8 : 0;
-    cp_async16(q_s + swz<D>(r, c), q + off, in);
-    cp_async16(do_s + swz<D>(r, c), dout + off, in);
-  }
-  int k_begin = 0, k_end = T_len;
-  if (causal) {  // the forward's range
-    const int qpos_lo = p0 / G;
-    const int qpos_hi = min(S - 1, (p0 + kTcRows - 1) / G);
-    k_end = min(T_len, qpos_hi + 1);
-    if (window > 0) k_begin = (max(0, qpos_lo - window + 1) / kKeys) * kKeys;
-  }
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
-  auto load_kv = [&](int j) {
-    const int t0 = k_begin + j * kKeys;
-    bf16* ks = k_s + (j & 1) * kKeys * D;
-    bf16* vs = v_s + (j & 1) * kKeys * D;
-    for (int idx = tid; idx < kKeys * kChunks; idx += kBwdThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      const bool in = t0 + r < T_len;
-      const size_t off = in ? ((size_t)b * T_len + t0 + r) * KV * D + (size_t)kvh * D + c * 8 : 0;
-      cp_async16(ks + swz<D>(r, c), k + off, in);
-      cp_async16(vs + swz<D>(r, c), v + off, in);
+      ++sc;
+    };
+    const int first = min(NS, it.n_tiles);
+    for (int t = 0; t < first; ++t) load_stage(t);
+    mbar_wait(m.item_empty(), (ic & 1) ^ 1);
+    if (it.dq) {  // Q, dO and their rows' stats
+      mbar_expect_tx(m.item_full(), 2 * L::kTile + L::kStat);
+      tma_tile<D>(m.sm, tm_q, m.item_full(), it.h, it.row0, it.b);
+      tma_tile<D>(m.sm + L::kTile, tm_do, m.item_full(), it.h, it.row0, it.b);
+      load_stats(m.item_stat(), it.row0, m.item_full());
+    } else {  // K and V
+      mbar_expect_tx(m.item_full(), 2 * L::kTile);
+      tma_tile<D>(m.sm, tm_k, m.item_full(), kvh, it.row0, it.b);
+      tma_tile<D>(m.sm + L::kTile, tm_v, m.item_full(), kvh, it.row0, it.b);
     }
-  };
-  if (n_tiles > 0) load_kv(0);
-  cp_async_commit();  // Q, dO and the first kv tile
+    ++ic;
+    for (int t = first; t < it.n_tiles; ++t) load_stage(t);
+  }
+}
 
-  const int wrow0 = warp * 16;
-  const int pw = p0 + wrow0;
-  int qpos[2];
-  float lse2[2], dl[2];
+// 2a. dK, dV of a 64-key item: group 0 owns S^T, P^T and dV, group 1 dP^T,
+// dS^T and dK
+template <int D>
+__device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& it,
+                                            const BwdArgs& a, int role, int tid, int& sc,
+                                            int& ic) {
+  using L = BwdLayout<D>;
+  constexpr int NS = L::kStages;
+  const int warp = tid / 32, lane = tid % 32;
+  float* pbuf = m.pbuf();
+  const uint32_t kv_s = smem_addr(m.sm + role * L::kTile);  // S^T reads K, dP^T reads V
+  float acc[L::kPanels][32];
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  if (it.n_tiles > 0) {
+    mbar_wait(m.item_full(), ic & 1);
+    ++ic;
+  }
+  for (int t = 0; t < it.n_tiles; ++t) {
+    const int s = sc % NS;
+    mbar_wait(m.stage_full(s), (sc / NS) & 1);
+    ++sc;
+    const uint32_t q_s = smem_addr(m.stage(s));
+    const uint32_t x_s = q_s + role * L::kTile;        // S^T = K Q^T, dP^T = V dO^T
+    const uint32_t y_s = q_s + (1 - role) * L::kTile;  // dV += P^T dO, dK += dS^T Q
+    float st[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(st, desc_k(kv_s, kk), desc_k(x_s, kk), kk);
+    wg_commit();
+    wg_wait0();
+    fence_acc(st);
+    const int q0 = it.begin + t * kBwdRows;
+    const float* sv = m.stage_stat(s) + role * kBwdRows;  // lse2 (group 0) or delta (group 1)
+    if (role == 0) {  // P^T, shared with group 1 in fp32
+      const bool need = tile_needs_mask(q0, it.row0, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(sv + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int key = it.row0 + 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = st[4 * j + 2 * i + e];
+            const float p = exp2f(x * a.scale_log2 - (e ? l2.y : l2.x));
+            x = need && !visible(q0 + col + e, key, a.T, a.causal, a.window) ? 0.0f : p;
+          }
+        }
+      }
+      if (t > 0) named_sync(2);  // group 1 has read the last P^T
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pbuf[i * 128 + tid] = st[i];
+      named_arrive(1);
+    } else {  // dS^T = P^T o (dP^T - delta)
+      named_sync(1);
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pbuf[i * 128 + tid];
+      named_arrive(2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(sv + 8 * j + 2 * (lane % 4));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          st[4 * j + 2 * i] = p[4 * j + 2 * i] * (st[4 * j + 2 * i] - dl.x);
+          st[4 * j + 2 * i + 1] = p[4 * j + 2 * i + 1] * (st[4 * j + 2 * i + 1] - dl.y);
+        }
+      }
+    }
+    uint32_t af[4][4];
+    to_a_frags(st, af);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        wgmma_rs(acc[p], af[kk], desc_mn(y_s + p * kPanelBytes, kk), 1);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) fence_acc(acc[p]);
+    mbar_arrive(m.stage_empty(s));
+  }
+  if (it.n_tiles > 0) {
+    mbar_arrive(m.item_empty());
+    if (role == 0) named_sync(2);  // group 1's last read of P^T: P is free
+  }
+  // group 0 writes dV, group 1 dK (rows past T and columns past dh are not
+  // written)
+  const int kvh = it.h / (a.H / a.KV);
+  const float mul = role == 1 && a.part == nullptr ? a.scale : 1.0f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int p = pw + lane / 4 + 8 * i;
-    qpos[i] = p / G;
-    const size_t off = ((size_t)b * H + kvh * G + p % G) * S + p / G;
-    lse2[i] = p < rows ? lse[off] * kLog2e : 0.0f;
-    dl[i] = p < rows ? delta[off] : 0.0f;
-  }
-  const bool row_in[2] = {pw + lane / 4 < rows, pw + lane / 4 + 8 < rows};
-  const int kcol = (lane % 4) * 2;
-
-  float acc[kDB][4];
+    const int key = it.row0 + 16 * warp + lane / 4 + 8 * i;
+    if (key >= a.T) continue;
 #pragma unroll
-  for (int db = 0; db < kDB; ++db)
+    for (int p = 0; p < L::kPanels; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[db][e] = 0.0f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_kv(j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = k_s + (j & 1) * kKeys * D;
-    const bf16* vs = v_s + (j & 1) * kKeys * D;
-    const int t0 = k_begin + j * kKeys;
-
-    float s[kNB][4], dp[kNB][4];
-    mma_rows_rows<D, kNB>(s, q_s, wrow0, ks, 0, lane);
-    mma_rows_rows<D, kNB>(dp, do_s, wrow0, vs, 0, lane);
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int kp = t0 + nb * 8 + kcol + (e & 1);
-        const bool vis = row_in[i] && visible(qpos[i], kp, T_len, causal, window);
-        const float pv = vis ? exp2f(s[nb][e] * scale_log2 - lse2[i]) : 0.0f;
-        s[nb][e] = pv * (dp[nb][e] - dl[i]);  // dS
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * 64 + 8 * j + 2 * (lane % 4);
+        if (col >= a.dh) continue;
+        const float x0 = acc[p][4 * j + 2 * i], x1 = acc[p][4 * j + 2 * i + 1];
+        if (a.part != nullptr)
+          *reinterpret_cast<float2*>(
+              a.part + ((((size_t)(1 - role) * a.B + it.b) * a.H + it.h) * a.T + key) * a.dh +
+              col) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>((role ? a.dk : a.dv) +
+                                       (((size_t)it.b * a.T + key) * a.KV + kvh) * a.dh + col) =
+              pack_bf16(x0 * mul, x1 * mul);
       }
-    mma_frag_rows<D, kNB>(acc, s, ks, lane);
-    __syncthreads();  // this stage is refilled by the next iteration's load
   }
+}
 
-  if (n_tiles == 0) {  // Q and dO still in flight: land them before staging
-    cp_async_wait<0>();
-    __syncthreads();
+// 2b. dQ of a 64-row item: group 0 owns S and P, group 1 dP and dS; each
+// accumulates half of dQ's columns
+template <int D>
+__device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& it,
+                                           const BwdArgs& a, int role, int tid, int& sc,
+                                           int& ic) {
+  using L = BwdLayout<D>;
+  constexpr int NS = L::kStages;
+  constexpr int kHalf = L::kPanels / 2;  // dQ panels of one group
+  const int warp = tid / 32, lane = tid % 32;
+  float* pbuf = m.pbuf();
+  uint32_t* dsf = reinterpret_cast<uint32_t*>(m.sm + L::kDs);  // dS fragments [register][thread]
+  const uint32_t x_s = smem_addr(m.sm + role * L::kTile);  // S = Q K^T, dP = dO V^T
+  uint32_t af[4][4];
+  float acc[kHalf][32];
+#pragma unroll
+  for (int p = 0; p < kHalf; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  float rs[2] = {0.0f, 0.0f};  // this thread's rows' lse2 (group 0) or delta (group 1)
+  if (it.n_tiles > 0) {
+    mbar_wait(m.item_full(), ic & 1);
+    ++ic;
+    rs[0] = m.item_stat()[role * kBwdRows + 16 * warp + lane / 4];
+    rs[1] = m.item_stat()[role * kBwdRows + 16 * warp + lane / 4 + 8];
   }
-  auto offset = [&](int r) { return q_off(pw + r); };
-  auto valid = [&](int r) { return pw + r < rows; };
-  // stage through the warp's own dO rows (no other warp reads them)
-  store_rows<D>(acc, scale, do_s, wrow0, dq, offset, valid, lane);
+  for (int t = 0; t < it.n_tiles; ++t) {
+    const int s = sc % NS;
+    mbar_wait(m.stage_full(s), (sc / NS) & 1);
+    ++sc;
+    const uint32_t k_s = smem_addr(m.stage(s));
+    float sc_[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc_, desc_k(x_s, kk), desc_k(k_s + role * L::kTile, kk), kk);
+    wg_commit();
+    wg_wait0();
+    fence_acc(sc_);
+    const int t0 = it.begin + t * kBwdRows;
+    if (role == 0) {  // P, shared with group 1 in fp32
+      const bool need = tile_needs_mask(it.row0, t0, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qpos = it.row0 + 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc_[4 * j + 2 * i + e];
+            const float p = exp2f(x * a.scale_log2 - rs[i]);
+            const int key = t0 + 8 * j + 2 * (lane % 4) + e;
+            x = need && !visible(qpos, key, a.T, a.causal, a.window) ? 0.0f : p;
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pbuf[i * 128 + tid] = sc_[i];
+      named_arrive(1);
+    } else {  // dS = P o (dP - delta), once, as the bf16 A operand of dS K
+      named_sync(1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i;
+          sc_[x] = pbuf[x * 128 + tid] * (sc_[x] - rs[i]);
+          sc_[x + 1] = pbuf[(x + 1) * 128 + tid] * (sc_[x + 1] - rs[i]);
+        }
+      to_a_frags(sc_, af);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsf[(kk * 4 + e) * 128 + tid] = af[kk][e];
+    }
+    named_sync(3);  // group 1 has read P and written dS
+    if (role == 0) {  // group 1's fragments: the same rows as this thread's
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[kk][e] = dsf[(kk * 4 + e) * 128 + tid];
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < kHalf; ++p)
+        wgmma_rs(acc[p], af[kk], desc_mn(k_s + (role * kHalf + p) * kPanelBytes, kk), 1);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < kHalf; ++p) fence_acc(acc[p]);
+    mbar_arrive(m.stage_empty(s));
+  }
+  if (it.n_tiles > 0) mbar_arrive(m.item_empty());
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = it.row0 + 16 * warp + lane / 4 + 8 * i;
+    if (qpos >= a.S) continue;
+    bf16* row = a.dq + (((size_t)it.b * a.S + qpos) * a.H + it.h) * a.dh;
+#pragma unroll
+    for (int p = 0; p < kHalf; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = role * (D / 2) + p * 64 + 8 * j + 2 * (lane % 4);
+        if (col < a.dh)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack_bf16(acc[p][4 * j + 2 * i] * a.scale, acc[p][4 * j + 2 * i + 1] * a.scale);
+      }
+  }
+}
+
+// 2. dK/dV and dQ items in one persistent launch, one block per SM
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const BwdArgs a) {
+  extern __shared__ unsigned char bwd_smem[];
+  const BwdSmem<D> m(align1024(bwd_smem));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + BwdLayout<D>::kStages; ++i) {
+      mbar_init(m.bar(2 * i), 1);
+      mbar_init(m.bar(2 * i + 1), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_kv = a.B * a.H * ((a.T + kBwdRows - 1) / kBwdRows);
+  const int n_q = a.B * a.H * ((a.S + kBwdRows - 1) / kBwdRows);
+  if (threadIdx.x >= 256) {  // producer group: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) bwd_produce<D>(m, &tm_q, &tm_k, &tm_v, &tm_do, a, n_kv, n_q);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int role = threadIdx.x / 128, tid = threadIdx.x % 128;
+    int sc = 0, ic = 0;  // stage and item uses so far, as the producer counts them
+    for (int r = 0;; ++r) {
+      const int c = snake_item(r);
+      if (c >= n_kv + n_q) break;
+      const BwdItem it = bwd_item(c, n_kv, n_q, a);
+      if (it.dq)
+        dq_consume<D>(m, it, a, role, tid, sc, ic);
+      else
+        dkv_consume<D>(m, it, a, role, tid, sc, ic);
+    }
+  }
+}
+
+// 3. G > 1: dK = scale * sum_g partial dK, dV = sum_g partial dV, heads in
+// order, 4 columns a thread
+__global__ void __launch_bounds__(256)
+dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  int B, int T, int H, int KV, int D, float scale, long long n4) {
+  const int G = H / KV;
+  const size_t half = (size_t)B * H * T * D;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = i * 4;  // element of (B, T, KV, D)
+    const int d = (int)(e % D);
+    const long long bt_kv = e / D;
+    const int kvh = (int)(bt_kv % KV);
+    const long long bt = bt_kv / KV;
+    const int t = (int)(bt % T), b = (int)(bt / T);
+    float4 sk = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sv = sk;
+    for (int g = 0; g < G; ++g) {
+      const size_t off = (((size_t)b * H + kvh * G + g) * T + t) * D + d;
+      const float4 x = *reinterpret_cast<const float4*>(part + off);
+      const float4 y = *reinterpret_cast<const float4*>(part + half + off);
+      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+    }
+    *reinterpret_cast<uint2*>(dk + e) =
+        make_uint2(pack_bf16(sk.x * scale, sk.y * scale), pack_bf16(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  }
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -1294,69 +1644,127 @@ cudaError_t set_smem(Kernel kernel, size_t bytes, bool& configured) {
   return err;
 }
 
-template <typename T, int D>
-int launch_bwd_body(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* delta, void* dq, void* dk, void* dv, int B, int S, int T_len,
-                int H, int KV, int causal, int window, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if constexpr (sizeof(T) == 2) {
-    static bool cfg_kv = false, cfg_q = false;  // one attribute call per instantiation
-    cudaError_t err = set_smem(dkv_tc_kernel<D>, BwdSmem<D>::kDkv, cfg_kv);
-    if (err == cudaSuccess) err = set_smem(dq_tc_kernel<D>, BwdSmem<D>::kDq, cfg_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int kv_tiles = (T_len + kTcRows - 1) / kTcRows;
-    const dim3 grid_kv(kv_tiles * (D <= 128 ? 1 : 2), KV, B);
-    dkv_tc_kernel<D><<<grid_kv, kBwdThreads, BwdSmem<D>::kDkv, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, T_len, H, KV, causal, window, scale * kLog2e, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long q_tiles = ((long long)S * (H / KV) + kTcRows - 1) / kTcRows;
-    dq_tc_kernel<D><<<dim3((unsigned)q_tiles, KV, B), kBwdThreads, BwdSmem<D>::kDq,
-                      stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, T_len, H, KV,
-        causal, window, scale * kLog2e, scale);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    constexpr size_t smem = bwd_f32_smem_bytes<D>();
-    static bool cfg_kv = false, cfg_q = false;
-    cudaError_t err = set_smem(dkv_f32_kernel<D>, smem, cfg_kv);
-    if (err == cudaSuccess) err = set_smem(dq_f32_kernel<D>, smem, cfg_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dkv_f32_kernel<D><<<dim3((T_len + kBK - 1) / kBK, KV, B), kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, T_len, H, KV, causal, window,
-        scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dq_f32_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dq), S, T_len, H, KV, causal, window, scale);
-    return static_cast<int>(cudaGetLastError());
+// cuTensorMapEncodeTiled through the runtime, so the library needs no link
+// against the driver library
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S, int T_len,
-           int H, int KV, int D, int causal, int window, void* stream_ptr) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// a contiguous (B, rows, heads, D) bf16 tensor as TMA boxes of 64 rows x 64
+// columns of one head, 128-byte swizzled, zero-filled past the edges (so a
+// head dim below the kernel's width reads as zero columns)
+bool make_tile_map(CUtensorMap* map, const void* base, int B, int rows, int heads, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBwdRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const float* lse, float* stats, float* part, void* dq, void* dk, void* dv, int B,
+                  int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  using L = BwdLayout<D>;
+  static bool configured = false;  // one attribute call per instantiation
+  cudaError_t err = set_smem(bwd_wgmma_kernel<D>, L::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_tile_map(&mq, q, B, S, H, dh) || !make_tile_map(&mdo, dout, B, S, H, dh) ||
+      !make_tile_map(&mk, k, B, T_len, KV, dh) || !make_tile_map(&mv, v, B, T_len, KV, dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, n_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int S_pad = (S + kBwdRows - 1) / kBwdRows * kBwdRows;
+  const long long n_rows = (long long)B * H * S_pad;
+  bwd_prep_kernel<<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
+                    stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+                              stats, S, H, dh, S_pad, n_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = H / KV;
+  const BwdArgs args{stats, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv), G > 1 ? part : nullptr, B, S, T_len, H, KV, S_pad,
+                     causal, window, dh, scale * kLog2e, scale};
+  const int units = B * H * ((T_len + kBwdRows - 1) / kBwdRows + (S + kBwdRows - 1) / kBwdRows);
+  bwd_wgmma_kernel<D><<<std::min(units, n_sm), kBwdThreads, L::kBytes, stream>>>(mq, mk, mv, mdo,
+                                                                               args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return static_cast<int>(err);
+  const long long n4 = (long long)B * T_len * KV * dh / 4;
+  const long long blocks = std::min<long long>((n4 + 255) / 256, 16LL * n_sm);
+  dkv_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, static_cast<bf16*>(dk),
+                                                          static_cast<bf16*>(dv), B, T_len, H, KV,
+                                                          dh, scale, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                   int S, int T_len, int H, int KV, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = bwd_f32_smem_bytes<D>();
+  static bool cfg_kv = false, cfg_q = false;
+  cudaError_t err = set_smem(dkv_f32_kernel<D>, smem, cfg_kv);
+  if (err == cudaSuccess) err = set_smem(dq_f32_kernel<D>, smem, cfg_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv_f32_kernel<D><<<dim3((T_len + kBK - 1) / kBK, KV, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, T_len, H, KV, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_f32_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, T_len, H, KV,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_f32_all(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int S, int T_len, int H, int KV, int D, int causal,
+                       int window, float scale, cudaStream_t stream) {
   const long long n_rows = (long long)B * S * H;
-  delta_kernel<T><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
-                    stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
-                              static_cast<float*>(delta), S, H, D, n_rows);
+  delta_kernel<float><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps,
+                        0, stream>>>(static_cast<const float*>(o),
+                                     static_cast<const float*>(dout), delta, S, H, D, n_rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define FA_BWD_CASE(DIM)                                                                  \
-  case DIM:                                                                               \
-    return launch_bwd_body<T, DIM>(q, k, v, dout, l, dl, dq, dk, dv, B, S, T_len, H, KV, causal, \
-                               window, stream);
+#define FA_BWD_CASE(DIM)                                                                       \
+  case DIM:                                                                                    \
+    return launch_bwd_f32<DIM>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_len, H, KV,      \
+                               causal, window, scale, stream);
   switch (D) {
     FA_BWD_CASE(16)
     FA_BWD_CASE(32)
@@ -1372,49 +1780,68 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 // Plain C entry points for ctypes. q (B, S, H, D), k/v (B, T, KV, D) and
 // o (B, S, H, D) are contiguous; lse is null or an fp32 (B, H, S) buffer;
-// H % KV == 0; D in {16, 32, 64, 128, 256}; causal is 0/1, window <= 0 means none. The bf16 entry also needs each
+// H % KV == 0; D in {16, 32, 64, 128, 256}; causal is 0/1, window <= 0
+// means none; scores are scaled by `scale` (the wrapper passes the true
+// head dim's D^-0.5 when it has padded D). The bf16 entry also needs each
 // pointer 16-byte aligned (its tiles move by 16-byte cp.async). Each
 // launches on `stream` and returns the CUDA error code (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        void* o, void* lse, int B, int S, int T, int H, int KV,
-                                       int D, int causal, int window, void* stream) {
+                                       int D, int causal, int window, float scale,
+                                       void* stream) {
   return launch<float>(q, k, v, o, static_cast<float*>(lse), B, S, T, H, KV, D, causal,
-                       window, stream);
+                       window, scale, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int B, int S, int T, int H, int KV,
-                                        int D, int causal, int window, void* stream) {
+                                        int D, int causal, int window, float scale,
+                                        void* stream) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, S, T, H, KV, D,
-                               causal, window, stream);
+                               causal, window, scale, stream);
 }
 
 // Plain C entry points for ctypes. q, o, dout, dq (B, S, H, D) and k, v, dk,
 // dv (B, T, KV, D) are contiguous and of one type; lse is the forward's
-// (B, H, S) fp32 log-sum-exp; delta is an fp32 (B, H, S) scratch buffer the
-// call fills. H % KV == 0; D in {16, 32, 64, 128, 256}; causal 0/1, window
-// <= 0 means none. The bf16 entry also needs 16-byte aligned q, k, v, dout,
-// dq, dk and dv. Each launches its kernels on `stream` and returns the CUDA
-// error code (0 on success).
+// (B, H, S) fp32 log-sum-exp; causal 0/1, window <= 0 means none; `scale`
+// as in the forward. Each launches its kernels on `stream` and returns the
+// CUDA error code (0 on success).
+//   fp32: D in {16, 32, 64, 128, 256}; stats is an fp32 (B, H, S) scratch
+//   buffer the call fills with delta; part is unused.
+//   bf16: D a multiple of 8 up to 256 (run at width 128 or 256); every
+//   pointer 16-byte aligned; stats is an fp32 scratch of 2 B H S_pad (S_pad:
+//   S rounded up to 64); part, when H > KV, an fp32 scratch of 2 B H T D for
+//   the per-head partial dK and dV.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
-                                       void* delta, void* dq, void* dk, void* dv, int B, int S,
-                                       int T, int H, int KV, int D, int causal, int window,
-                                       void* stream) {
-  return launch_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, T, H, KV, D, causal,
-                       window, stream);
+                                       void* stats, void* part, void* dq, void* dk, void* dv,
+                                       int B, int S, int T, int H, int KV, int D, int causal,
+                                       int window, float scale, void* stream) {
+  (void)part;
+  return launch_bwd_f32_all(q, k, v, o, dout, static_cast<const float*>(lse),
+                            static_cast<float*>(stats), dq, dk, dv, B, S, T, H, KV, D, causal,
+                            window, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
-                                        void* delta, void* dq, void* dk, void* dv, int B, int S,
-                                        int T, int H, int KV, int D, int causal, int window,
-                                        void* stream) {
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
-       (uintptr_t)dk | (uintptr_t)dv) % 16)
+                                        void* stats, void* part, void* dq, void* dk, void* dv,
+                                        int B, int S, int T, int H, int KV, int D, int causal,
+                                        int window, float scale, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)stats | (uintptr_t)part) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, T, H, KV, D,
-                               causal, window, stream);
+  if (H > KV && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* st = static_cast<float*>(stats);
+  float* pt = static_cast<float*>(part);
+  if (D % 8 != 0 || D < 8 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 128)  // the tiles' columns past D are zero-filled by the copies
+    return launch_bwd_tc<128>(q, k, v, o, dout, l, st, pt, dq, dk, dv, B, S, T, H, KV, D, causal,
+                              window, scale, s);
+  return launch_bwd_tc<256>(q, k, v, o, dout, l, st, pt, dq, dk, dv, B, S, T, H, KV, D, causal,
+                            window, scale, s);
 }

@@ -5,8 +5,12 @@ Port of the Pallas TPU kernel ``decode_attention_grouped``
 flash-decoding whose chunks are combined inside a thread-block cluster: no
 scratch, no atomics, and nothing kept between calls, so a call can be
 captured in a CUDA graph. The wrapper allocates only the output; nothing is
-transposed or padded, and the boolean slot mask is read as it is, one byte a
-slot. Every argument is checked before a pointer is handed over.
+transposed, and the boolean slot mask is read as it is, one byte a slot.
+Every argument is checked before a pointer is handed over. Head_dim 96
+(phi3-mini), which the kernel has no instantiation for, is padded here with
+zero columns to 128, and the kernel gets the true D^-0.5: zero q and k
+columns leave the scores as they are, zero v columns give output columns
+that are sliced off.
 
 Launch counting: ``LAUNCHES["decode_attention"]`` counts launches that ran
 on the card. A call made while the current stream is capturing a CUDA graph
@@ -30,7 +34,7 @@ CAPTURED = {"decode_attention": 0}
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 _UNITS_MAX = 65535   # gridDim.y: B * KV * ceil(G / 8)
 _READY: set = set()  # CUDA device indices whose kernel attributes are set
@@ -60,7 +64,7 @@ def _lib(device: torch.device) -> ctypes.CDLL:
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-                + [ctypes.c_void_p]
+                + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.decode_attention_setup.argtypes = []
         lib.decode_attention_setup.restype = ctypes.c_int
@@ -120,11 +124,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t, kvh = k.shape[1], k.shape[2]
     if out.numel() == 0 or t == 0:
         return out.zero_()
+    dp = 128 if d == 96 else d
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v))
+    res = out if dp == d else torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = getattr(_lib(q.device), _ENTRY[q.dtype])
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), b, t, h, kvh, d, stream)
+                 res.data_ptr(), b, t, h, kvh, dp, d ** -0.5, stream)
+    if res is not out:
+        out.copy_(res[..., :d])
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
     if torch.cuda.is_current_stream_capturing():

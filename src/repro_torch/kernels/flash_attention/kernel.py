@@ -9,8 +9,16 @@ launch adds one to ``LAUNCHES["flash_attention"]``. The source holds two
 bodies: bf16 runs on the tensor cores, fp32 on the FMA pipe (which keeps the
 fp32 tolerance); the C entry point picks one by type. The forward can also
 return the per-row log-sum-exp (fp32, (B, H, S)) that ``flash_attention_bwd``
-reads; each backward call (three kernels: the delta pre-pass, dK/dV, dQ) adds
-one to ``LAUNCHES["flash_attention_bwd"]``.
+reads; each backward call (bf16: a prep pass, dK/dV, dQ and, when H > KV, the
+sum of the heads' partials; fp32: delta, dK/dV, dQ) adds one to
+``LAUNCHES["flash_attention_bwd"]``.
+
+Head dim 96 (phi3-mini), which the forward and the fp32 backward have no
+instantiation for, is padded here with zero columns to 128, and the kernels
+get the true D^-0.5: zero q and k columns leave the scores as they are, zero
+v and dO columns give output and gradient columns that are sliced off. The
+bf16 backward takes the unpadded tensors: its copies fill the columns past
+D with zeros in shared memory.
 
 These wrappers are not differentiable: an input that requires grad is
 refused instead of silently dropping its gradient. ``ops.flash_attention``
@@ -31,7 +39,7 @@ _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
 
@@ -43,15 +51,28 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    # forward: q, k, v, o, lse; backward: q, k, v, o, do, lse, delta, dq, dk, dv
-    for entries, n_ptr in ((_ENTRY, 5), (_BWD_ENTRY, 10)):
+    # forward: q, k, v, o, lse; backward: q, k, v, o, do, lse, stats, part,
+    # dq, dk, dv; then 8 ints, the scale and the stream
+    for entries, n_ptr in ((_ENTRY, 5), (_BWD_ENTRY, 11)):
         for name in entries.values():
             fn = getattr(lib, name)
             if fn.argtypes is None:
                 fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
-                    + [ctypes.c_void_p]
+                    + [ctypes.c_float, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
     return lib
+
+
+def _fwd_width(d: int) -> int:
+    """The head dim the kernels run ``d`` at: 96 pads to 128."""
+    return 128 if d == 96 else d
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns up to ``width`` on its last axis."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1])).contiguous()
 
 
 def _check(q, k, v, causal: bool, window) -> None:
@@ -108,15 +129,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out.zero_()
         return (out, lse.fill_(-1e30)) if return_lse else out
     fn = getattr(_lib(), _ENTRY[q.dtype])
+    dp = _fwd_width(d)
+    q, k, v = (_pad(x, dp) for x in (q, k, v))
+    res = out if dp == d else torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, s, t, h, kvh, d, int(causal),
-                 -1 if window is None else int(window), stream)
+                 b, s, t, h, kvh, dp, int(causal),
+                 -1 if window is None else int(window), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
+    if res is not out:
+        out.copy_(res[..., :d])
     return (out, lse) if return_lse else out
 
 
@@ -149,18 +175,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not causal and window is not None and s >= t + window:
         raise ValueError(f"with window {window} and no causal mask, rows from "
                          f"{t + window - 1} on see no key (S {s}, T {t})")
+    if q.numel() == 0 or t == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dp = d if q.dtype == torch.bfloat16 else _fwd_width(d)
+    q, k, v, o, do = (_pad(x, dp) for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dq.numel() == 0 or t == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        # lse * log2(e) and delta, rows padded to whole 64-row tiles; the
+        # heads' fp32 partial dK and dV when a kv head serves several
+        stats = torch.empty(2 * b * h * -(-s // 64) * 64, **f32)
+        part = torch.empty(2 * b * h * t * dp, **f32) if h > kvh else None
+    else:
+        stats, part = torch.empty((b, h, s), **f32), None
     fn = getattr(_lib(), _BWD_ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-                 b, s, t, h, kvh, d, int(causal),
-                 -1 if window is None else int(window), stream)
+        err = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats)),
+                 None if part is None else part.data_ptr(),
+                 *(x.data_ptr() for x in (dq, dk, dv)),
+                 b, s, t, h, kvh, dp, int(causal),
+                 -1 if window is None else int(window), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES["flash_attention_bwd"] += 1
+    if dp != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

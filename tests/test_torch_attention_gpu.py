@@ -39,6 +39,9 @@ FLASH_CASES = [
     (1, 100, 8, 1, 16, None, "bfloat16"),
     (2, 72, 16, 2, 32, 5, "bfloat16"),
     (1, 256, 8, 1, 128, None, "bfloat16"),
+    # phi3-mini's prefill: 32 heads, 32 kv heads, head_dim 96 (padded to 128)
+    (1, 1024, 32, 32, 96, None, "bfloat16"),
+    (1, 200, 4, 2, 96, 64, "float32"),
 ]
 # tests/test_kernels.py::DEC_CASES, then gemma3-1b's decode shapes: the
 # window-512 ring (a non-prefix mask) and the global cache at max_len 1088
@@ -52,6 +55,9 @@ DEC_CASES = [
     (4, 1088, 4, 1, 256, 1050, "float32"),
     (4, 512, 4, 1, 256, "ring", "bfloat16"),
     (4, 1088, 4, 1, 256, 1050, "bfloat16"),
+    # phi3-mini's decode: B 4, T 1088, 32 heads, 32 kv heads, head_dim 96
+    (4, 1088, 32, 32, 96, 1050, "bfloat16"),
+    (4, 1088, 32, 32, 96, 1050, "float32"),
 ]
 # the redesigned kernel's edges: T = 1, T off the 8-row chunk, a whole
 # chunk invalid ("hole"), one valid slot at the end ("last"), no valid slot

@@ -28,6 +28,7 @@ FLASH_CASES = [
     (1, 128, 8, 8, 64, None, "bfloat16"),
     (1, 64, 2, 2, 32, 16, "bfloat16"),        # small dims + window
     (1, 40, 4, 1, 256, 16, "float32"),        # gemma3-1b: D 256, KV 1, window
+    (1, 100, 4, 4, 96, None, "float32"),      # phi3-mini: D 96, MHA
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
 
@@ -76,3 +77,35 @@ def test_ops_refuse_devices_other_than_cuda_and_cpu():
     k = torch.empty(1, 8, 1, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tflash.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("d", [96, 32])
+def test_zero_padding_the_head_dim_keeps_the_function(d):
+    """What the wrappers do for head_dim 96, which the forward kernels lack,
+    and what the bf16 backward's copies do for any head dim below its width
+    of 128: zero columns up to 128, the true D^-0.5. Zero q and k columns
+    leave the scores as they are, zero v and dO columns give output and
+    gradient columns of zeros. The plain version at width 128 stands in for
+    the kernel, with q scaled by (128 / d)^0.5 so that its 128^-0.5 becomes
+    d^-0.5."""
+    width = 128
+    assert tkernel._fwd_width(d) == (width if d == 96 else d)
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 40, 4, 2, d, seed=2)
+                   + [np.random.default_rng(3).standard_normal(
+                       (2, 40, 4, d)).astype(np.float32)])
+    lse = tref.attention_lse_ref(q, k, window=16)
+    o = tref.attention_ref(q, k, v, window=16)
+    want = tref.attention_bwd_ref(q, k, v, o, lse, do, window=16)
+    r = (width / d) ** 0.5
+    qp, kp, vp, op, dop = (tkernel._pad(x, width) for x in (q * r, k, v, o, do))
+    assert tkernel._pad(q, d) is q and qp.is_contiguous()
+    assert torch.equal(qp[..., d:], torch.zeros_like(qp[..., d:]))
+    torch.testing.assert_close(tref.attention_ref(qp, kp, vp, window=16)[..., :d],
+                               o, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(tref.attention_lse_ref(qp, kp, window=16), lse,
+                               rtol=1e-5, atol=1e-5)
+    got = tref.attention_bwd_ref(qp, kp, vp, op, lse, dop, window=16)
+    for name, g, w, scale in zip("qkv", got, want, (r, 1.0, 1.0)):
+        torch.testing.assert_close(g[..., :d] * scale, w, rtol=1e-4, atol=1e-5,
+                                   msg=f"d{name}")
+        assert float(g[..., d:].abs().max()) == 0.0, f"d{name} padding"

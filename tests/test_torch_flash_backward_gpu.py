@@ -7,7 +7,10 @@ installed:
 
 Covers every head dim, causal and sliding-window masks, GQA groups 1, 4 and
 8, ragged S and T off the tiles, S 1, a window wider than S, T != S, the
-training shapes of gemma3-1b; repeat calls (same bits); the autograd
+training shapes of gemma3-1b; the bf16 body's edges (S and T off its 64-row
+tiles, the cross-head sum at G 1, 2, 4 and 8, a grid with fewer items than
+SMs and one with several items a block, head dims below its width) and
+phi3-mini's attention (head_dim 96); repeat calls (same bits); the autograd
 Function under ``torch.utils.checkpoint``; and one full training step of a
 full-width, two-layer gemma3-1b with the kernels against the same step on
 the plain path. Tolerances: fp32 1e-4 (atol and rtol), bf16 2e-2
@@ -57,6 +60,26 @@ BWD_CASES = [
     (4, 1024, 1024, 4, 1, 256, True, 512, "bfloat16"),   # gemma3-1b training:
     (4, 1024, 1024, 4, 1, 256, True, None, "bfloat16"),  # local and global
 ]
+# the bf16 body's edges: 64-row tiles of keys and queries, per-head items
+# summed over the G heads of a kv head, a persistent grid of one block per SM
+BWD_EDGE_CASES = [
+    (1, 100, 100, 8, 2, 128, True, None, "bfloat16"),     # S, T off the tile
+    (2, 200, 200, 4, 1, 256, True, 48, "bfloat16"),
+    (1, 192, 192, 4, 4, 128, True, None, "bfloat16"),     # G 1: no partials
+    (1, 130, 130, 4, 2, 256, True, None, "bfloat16"),     # G 2
+    (1, 128, 128, 8, 1, 256, True, None, "bfloat16"),     # G 8
+    (1, 256, 256, 2, 1, 128, True, None, "bfloat16"),     # 8 items: B KV 1
+    (8, 512, 512, 8, 2, 128, True, None, "bfloat16"),     # 512 items a pass
+    (1, 1, 1, 4, 1, 256, True, None, "bfloat16"),         # S 1
+    (1, 100, 100, 4, 2, 256, True, 300, "bfloat16"),      # window wider than S
+    (1, 70, 200, 4, 2, 128, True, None, "bfloat16"),      # T > S
+    (1, 70, 200, 4, 2, 128, False, None, "bfloat16"),
+    (1, 100, 150, 4, 1, 256, False, 64, "bfloat16"),      # window, no causal
+    (1, 90, 90, 4, 2, 32, True, 20, "bfloat16"),          # D 32 at width 128
+    (1, 96, 96, 4, 4, 96, True, None, "float32"),         # head_dim 96, fp32
+]
+# phi3-mini's attention: 32 heads, 32 kv heads, head_dim 96 (run at width 128)
+PHI3_CASE = (1, 1024, 1024, 32, 32, 96, True, None, "bfloat16")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -91,7 +114,7 @@ def kernel_grads(q, k, v, do, causal, window):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("case", BWD_CASES + BWD_EDGE_CASES + [PHI3_CASE])
 def test_backward_kernel_matches_plain_autograd(case):
     _need_cuda()
     causal, window, dtype = case[6], case[7], case[8]
@@ -111,7 +134,8 @@ def test_backward_kernel_matches_plain_autograd(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [BWD_CASES[9], BWD_CASES[-1], BWD_CASES[-3]])
+@pytest.mark.parametrize("case", [BWD_CASES[9], BWD_CASES[-1], BWD_CASES[-2],
+                                  BWD_CASES[-3], BWD_EDGE_CASES[4]])
 def test_backward_repeat_calls_give_the_same_bits(case):
     _need_cuda()
     causal, window = case[6], case[7]

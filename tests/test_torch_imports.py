@@ -46,7 +46,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = proc.stdout.split()
     assert len(mods) >= 53          # every module of the slices so far
     for m in ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-              "repro_torch.launch.train", "repro_torch.training.train_step"):
+              "repro_torch.launch.train", "repro_torch.training.train_step",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.decode_attention.kernel"):
         assert m in mods, m
 
 
