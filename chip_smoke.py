@@ -7,7 +7,9 @@ with its backward ``flash_attention_bwd``, ``decode_attention``) from
 ``src/repro_torch/csrc`` with nvcc, one process per source, and checks each
 against its plain PyTorch version. Then it drives the three main paths
 through the port's entry points at full width: the planner (hidden 213, two
-GCN layers) on fleet46 and a 1024-node fleet; serving gemma3-1b (26 layers,
+GCN layers) on fleet46 and a 1024-node fleet, then recovers that fleet
+through the elastic runtime (a join, a failure, a leave) and runs the
+simulator's network core on the survivors; serving gemma3-1b (26 layers,
 d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
 decode step; and training the same model (batch 4 x 1024 tokens, remat on,
@@ -21,8 +23,12 @@ which is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``repro``.
 
 Phases: build -> kernel check (gcn_spmm) -> fleet46 plan (paper Table 2 /
-Fig. 8) -> 1024-node plan -> gcn_spmm times and a bit-for-bit repeat at
-bucket 1024 -> kernel check (attention) -> gemma3-1b serve (launch counts,
+Fig. 8) -> 1024-node plan -> elastic recovery of that fleet (join to 1025
+nodes, i.e. bucket 2048; a failure that forces a re-plan through the GNN; a
+leave; launches per event, fused against plain logits at 1025 nodes) ->
+the network model on the survivors (both flow solvers, one ring all-reduce
+per task) -> gcn_spmm times and a bit-for-bit repeat at buckets 1024 and
+2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
 attention times (decode also per call inside a graph and from HBM) ->
@@ -62,9 +68,10 @@ SOURCES = ("gcn_spmm", "flash_attention", "decode_attention")
 
 CHECK_SHAPES = [(8, 22, "float32"), (46, 15, "float32"), (64, 213, "float32"),
                 (128, 213, "float32"), (200, 64, "float32"),
-                (1024, 213, "float32"), (46, 12, "bfloat16")]
+                (1024, 213, "float32"), (2048, 213, "float32"),
+                (46, 12, "bfloat16")]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
-TIMED_BUCKETS = (64, 1024)
+TIMED_BUCKETS = (64, 1024, 2048)
 N_TIMED = 60
 
 
@@ -132,6 +139,18 @@ def phase_kernel_check(torch, K, R) -> dict:
     return errs
 
 
+def _logits_agree(gnn_train, params, kcfg, graph, device) -> float:
+    """Fused (``use_pallas``) and plain logits on ``graph`` within
+    1e-5 + 1e-5 |plain|; returns their largest difference."""
+    plain_cfg = dataclasses.replace(kcfg, use_pallas=False)
+    plain = gnn_train.predict_logits(params, plain_cfg, graph, device=device)
+    fused = gnn_train.predict_logits(params, kcfg, graph, device=device)
+    check(plain.shape == (graph.n, kcfg.n_classes), "logits have the wrong shape")
+    check(bool((abs(fused - plain) <= 1e-5 + 1e-5 * abs(plain)).all()),
+          f"use_pallas logits disagree with the plain path on {graph.n} nodes")
+    return float(abs(fused - plain).max())
+
+
 def phase_fleet46(torch, device):
     """Paper Table 2 / Fig. 8: train as benchmarks/paper_artifacts._trained,
     then plan and compare with Systems A/B/C through the kernel."""
@@ -155,11 +174,7 @@ def phase_fleet46(torch, device):
 
     kcfg = dataclasses.replace(cfg, use_pallas=True)
     # end-to-end agreement of the two aggregation paths on the trained model
-    plain = gnn_train.predict_logits(params, cfg, fleet, device=device)
-    fused = gnn_train.predict_logits(params, kcfg, fleet, device=device)
-    check(plain.shape == (fleet.n, cfg.n_classes), "logits have the wrong shape")
-    check(bool((abs(fused - plain) <= 1e-5 + 1e-5 * abs(plain)).all()),
-          "use_pallas logits disagree with the plain path")
+    logits_diff = _logits_agree(gnn_train, params, kcfg, fleet, device)
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -172,7 +187,7 @@ def phase_fleet46(torch, device):
           f"scaled_spmm launches {launches['scaled_spmm']} in the fleet46 plan")
     emit("fleet46_plan", labels_s=t_labels, train_s=t_train, plan_s=t_plan,
          final_loss=hist[-1]["loss"], final_accuracy=hist[-1]["accuracy"],
-         logits_max_abs_diff_fused_vs_plain=float(abs(fused - plain).max()),
+         logits_max_abs_diff_fused_vs_plain=logits_diff,
          groups=a.groups, deferred=a.deferred,
          totals_s={k: float(rows[k]["total"])
                    for k in ("Hulk", "SystemA", "SystemB", "SystemC")},
@@ -210,7 +225,186 @@ def phase_1024(torch, device):
     emit("plan_1024", final_accuracy=hist[-1]["accuracy"],
          graph_build_s=t_build, assign_s=t_assign, machines_placed=placed,
          deferred=a.deferred, launches=launches)
-    return fleet, launches
+    return fleet, launches, params, kcfg
+
+
+def phase_recover_1024(torch, device, params, kcfg, fleet):
+    """Elastic recovery (``runtime/elastic.py``, paper §1.1 and §5.2) on the
+    1024-node fleet with plan_1024's trained GNN: one machine joins (1025
+    nodes: the GNN runs at bucket 2048), then every machine of the largest
+    task's group but one fails, so that task drops below its memory floor
+    and the spare pool is re-planned through the GNN, then three spare
+    machines leave. Each event's launches are zeroed before it and read
+    after it, and its host seconds taken around it (the GNN's logits come
+    back to the host, which waits for the card)."""
+    from repro_torch import obs
+    from repro_torch.core import assign as assign_mod
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import train as gnn_train
+    from repro_torch.core.graph import Machine
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.runtime import ElasticRuntime, FailureEvent
+
+    tasks = cm.SIX_TASKS
+    by_name = {t.name: t for t in tasks}
+    launches, seconds, metrics, reports = {}, {}, {}, {}
+
+    def event(name, fn):
+        rec = obs.Recorder()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with obs.recording(rec):
+            out = fn()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = K.LAUNCHES["scaled_spmm"]
+        metrics[name] = rec.metrics.snapshot()
+        return out
+
+    rt = event("init", lambda: ElasticRuntime(fleet, tasks, params, kcfg))
+    plan_invariants(rt.graph, rt.assignment, tasks)
+    epochs = [rt.state.epoch]
+
+    reports["join"] = event("join", lambda: rt.on_join(Machine("Tokyo", "A100", 8)))
+    joined = rt.graph
+    check(joined.n == fleet.n + 1 and gnn_train.bucket_for(joined.n) == 2048,
+          f"the joined fleet has {joined.n} nodes")
+    check(metrics["join"]["counters"].get("plan.jit.bucket2048.calls", 0) > 0,
+          "the join ran no GNN forward at bucket 2048")
+    plan_invariants(rt.graph, rt.assignment, tasks)
+    epochs.append(rt.state.epoch)
+    check(epochs[-1] == epochs[-2] + int(reports["join"]["rebalanced"]),
+          f"epochs {epochs} after the join")
+
+    before = {k: list(v) for k, v in rt.assignment.groups.items()}
+    n_before = rt.graph.n
+    largest = max(before, key=lambda k: by_name[k].params)
+    failed = before[largest][1:]
+    check(sum(rt.graph.memory_gb()[before[largest][:1]])
+          < by_name[largest].min_memory_gb,
+          f"one machine of {largest}'s group still holds it")
+    reports["recover"] = event("recover", lambda: rt.on_failure(
+        FailureEvent(failed_ids=failed, at_step=100)))
+    recovered = (rt.graph, rt.assignment)
+    plan_invariants(rt.graph, rt.assignment, tasks)
+    keep = [i for i in range(n_before) if i not in set(failed)]
+    remap = {old: new for new, old in enumerate(keep)}
+    check(rt.graph.n == len(keep), "the survivors' graph has the wrong size")
+    for name, ids in rt.assignment.groups.items():
+        check(all(0 <= i < len(keep) for i in ids)
+              and not set(keep[i] for i in ids) & set(failed),
+              f"{name}'s group holds a failed machine")
+    check(largest in reports["recover"]["affected_tasks"]
+          and largest not in rt.assignment.deferred,
+          f"{largest} was not re-placed")
+    kept = all(rt.assignment.groups.get(name) == sorted(remap[i] for i in ids)
+               for name, ids in before.items()
+               if name not in reports["recover"]["affected_tasks"])
+    if not kept:   # recover fell back to a full re-plan of the survivors
+        full = assign_mod.replan_with_deferral(rt.graph, tasks, params, kcfg)
+        check((full.groups, full.deferred)
+              == (rt.assignment.groups, rt.assignment.deferred),
+              "unaffected tasks lost their machines outside a full re-plan")
+    epochs.append(rt.state.epoch)
+    check(epochs[-1] == epochs[-2] + 1, f"epochs {epochs} after the failure")
+
+    used = {i for ids in rt.assignment.groups.values() for i in ids}
+    spare = [i for i in range(rt.graph.n) if i not in used][:3]
+    check(len(spare) == 3, "no spare machines left to leave")
+    n_before, groups = rt.graph.n, dict(rt.assignment.groups)
+    reports["leave"] = event("leave", lambda: rt.on_leave(spare, at_step=200))
+    plan_invariants(rt.graph, rt.assignment, tasks)
+    epochs.append(rt.state.epoch)
+    check(epochs[-1] == epochs[-2] + 1, f"epochs {epochs} after the leave")
+    remap = {old: new for new, old in
+             enumerate(i for i in range(n_before) if i not in set(spare))}
+    check(reports["leave"]["affected_tasks"] == [] and rt.assignment.groups
+          == {k: sorted(remap[i] for i in v) for k, v in groups.items()},
+          "a leave of spare machines moved a task")
+
+    for name in ("join", "recover"):
+        check(launches[name] > 0 and launches[name] % 3 == 0,
+              f"scaled_spmm launches {launches[name]} in the {name}")
+    logits_diff = _logits_agree(gnn_train, params, kcfg, joined, device)
+    # where the join's host time goes: on_join prices the old and the new
+    # placement, each through one all-pairs shortest path of the cost model
+    t0 = time.perf_counter()
+    cm.routed_latency(joined.latency)
+    routed_s = time.perf_counter() - t0
+    emit("recover_1024", nodes={"init": fleet.n, "joined": joined.n,
+                                "survivors": recovered[0].n, "final": rt.graph.n},
+         init_s=seconds["init"], join_s=seconds["join"],
+         recover_s=seconds["recover"], leave_s=seconds["leave"],
+         routed_latency_1025_s=routed_s, launches=launches,
+         failed=len(failed), failed_task=largest, unaffected_kept=kept,
+         reports=reports, epochs=epochs,
+         metrics={k: m["counters"] for k, m in metrics.items()},
+         spare_pool={k: m["gauges"].get("plan.assign.spare_pool")
+                     for k, m in metrics.items()},
+         logits_max_abs_diff_fused_vs_plain_1025=logits_diff,
+         deferred=rt.assignment.deferred)
+    return launches, joined, recovered
+
+
+def phase_net_1024(graph, assignment) -> None:
+    """The simulator's core at fleet scale, on the host (numpy and scipy):
+    on the survivors of recover_1024, each task of the recovered assignment
+    (SIX_TASKS)
+    starts one ring all-reduce step at t = 0 (each machine of its
+    ``stage_order`` sends param_bytes / n to the next), once under each flow
+    solver with its own Simulator and Recorder. The two solvers' completion
+    times must agree at rel 1e-9 (tests/test_fleet_fast_path.py), their
+    metrics outside the solver-specific names exactly, and both traces must
+    pass the trace schema."""
+    from repro_torch import obs
+    from repro_torch.core import cost_model as cm
+    from repro_torch.obs import schema
+    from repro_torch.sim import NetworkModel, Simulator
+
+    by_name = {t.name: t for t in cm.SIX_TASKS}
+    rings = {name: ids for name, ids in sorted(assignment.stage_order.items())
+             if len(ids) > 1}
+    runs = {}
+    for solver in ("fast", "reference"):
+        rec = obs.Recorder()
+        sim = Simulator(obs=rec)
+        t0 = time.perf_counter()
+        net = NetworkModel(graph, "alphabeta", solver=solver, obs=rec)
+        build_s = time.perf_counter() - t0
+        done = {}
+        for name, order in rings.items():
+            nbytes = by_name[name].param_bytes / len(order)
+            for k, src in enumerate(order):
+                dst = order[(k + 1) % len(order)]
+                sim.schedule(0.0, net.transfer, sim, src, dst, nbytes,
+                             (lambda key: lambda: done.__setitem__(
+                                 key, sim.now))((name, k)))
+        t0 = time.perf_counter()
+        makespan = sim.run()
+        run_s = time.perf_counter() - t0
+        doc = schema.validate_bytes(rec.trace.json_bytes())
+        runs[solver] = dict(
+            topology_build_s=build_s, run_s=run_s, makespan_s=makespan,
+            transfers=len(done), solves=net.n_solves,
+            events_dispatched=sim.events_dispatched,
+            events_scheduled=sim.events_scheduled,
+            trace_events=len(doc["traceEvents"]),
+            step_s={name: max(t for (n, _), t in done.items() if n == name)
+                    for name in rings},
+            done=done, flat=rec.metrics.flat())
+    fast, ref = runs["fast"], runs["reference"]
+    n_flows = sum(len(v) for v in rings.values())
+    check(len(fast["done"]) == len(ref["done"]) == n_flows,
+          "a ring transfer did not complete")
+    err = max(abs(fast["done"][k] - t) / t for k, t in ref["done"].items())
+    check(err <= 1e-9, f"fast and reference completion times differ by {err}")
+    semantic = lambda flat: {k: v for k, v in flat.items()
+                             if not obs.is_solver_specific(k)}
+    check(semantic(fast["flat"]) == semantic(ref["flat"]),
+          "the solvers' metrics differ outside the solver-specific names")
+    for r in runs.values():
+        del r["done"], r["flat"]
+    emit("net_1024", nodes=graph.n, rings=len(rings), flows=n_flows,
+         max_rel_err=err, rtol=1e-9, **runs)
 
 
 def _gcn_inputs(torch, params, cfg, graph, device):
@@ -304,9 +498,10 @@ def card_identity() -> str:
 
 def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
     """Kernel, plain version, one-library-call yardstick and bound, at the
-    main path's buckets 64 (paper_fleet46) and 1024 (random_fleet(1024)).
-    At bucket 1024 (split-K over a cluster) two kernel calls must agree bit
-    for bit."""
+    main path's buckets 64 (paper_fleet46), 1024 (random_fleet(1024)) and
+    2048 (that fleet after recover_1024's join, 1025 nodes). At buckets 1024
+    (split-K over a cluster) and 2048 two kernel calls must agree bit for
+    bit."""
     out = {}
     for b in TIMED_BUCKETS:
         a, h, s = _gcn_inputs(torch, params, cfg, graphs[b], device)
@@ -344,7 +539,7 @@ def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
                    "bytes": c["nbytes"], "flops": c["flops"]}
             emit("times", kernel=name, card=card, **_shares(row))
             out.setdefault(name, {})[b] = row
-            if b == 1024:   # split-K over a cluster: no atomics, same bits
+            if b >= 1024:   # split-K over a cluster: no atomics, same bits
                 first, second = c["kernel"](), c["kernel"]()
                 torch.cuda.synchronize()
                 same = torch.equal(first, second)
@@ -1162,12 +1357,18 @@ def main() -> None:
     # 3. + 4. the planner's main path, counts zeroed before and read after
     # each plan
     params46, cfg46, fleet46, l46 = phase_fleet46(torch, device)
-    fleet1024, l1024 = phase_1024(torch, device)
+    fleet1024, l1024, params1024, kcfg1024 = phase_1024(torch, device)
     launches = {k: l46[k] + l1024[k] for k in l46}
+    # 4b. elastic recovery on the 1024-node fleet, counts zeroed before and
+    # read after each event; then the simulator's core on its survivors
+    l_recover, joined, (survivors, recovered) = phase_recover_1024(
+        torch, device, params1024, kcfg1024, fleet1024)
+    phase_net_1024(survivors, recovered)
     # 5. gcn_spmm times
     card = card_identity()
     times = phase_times(torch, K, R, params46, cfg46,
-                        {64: fleet46, 1024: fleet1024}, device, card)
+                        {64: fleet46, 1024: fleet1024, 2048: joined}, device,
+                        card)
     # 6. attention kernel check
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
     # 7. the serving main path, counts zeroed before and read after
@@ -1182,8 +1383,9 @@ def main() -> None:
     # 11. the card-only pytest files
     phase_gpu_pytest()
     # 12. kernels summary. gcn_spmm: headline at bucket 1024, the largest
-    # the planner runs. Attention: headline at the global layer (the most
-    # work per launch), every serve shape in by_case.
+    # a plan of the 1024-node fleet runs (the join's 2048 is in by_bucket).
+    # Attention: headline at the global layer (the most work per launch),
+    # every serve shape in by_case.
     replaces = {"scaled_spmm": "src/repro/kernels/gcn_spmm/kernel.py:87",
                 "spmm": "src/repro/kernels/gcn_spmm/kernel.py:43"}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -1191,10 +1393,12 @@ def main() -> None:
     kernels = []
     for name in ("scaled_spmm", "spmm"):
         top = times[name][1024]
+        recover = sum(l_recover.values()) if name == "scaled_spmm" else 0
         kernels.append({
             "name": f"gcn_spmm.{name}", "route": "cuda",
             "source": "src/repro_torch/csrc/gcn_spmm.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": launches[name] + recover,
+            "launches_by_path": {"plan": launches[name], "recover": recover},
             "on_main_path": name == "scaled_spmm",
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],

@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch import _device
+from repro_torch import obs as obs_mod
 from repro_torch.core import cost_model as cm
 from repro_torch.core import gnn
 from repro_torch.core import train as gnn_train
@@ -110,6 +111,7 @@ def task_assignments(graph: ClusterGraph, tasks: Sequence[cm.ModelTask],
     if carry:
         remaining = sorted(set(remaining) | set(carry))
 
+    n_deferred_pre_repair = len(deferred)
     if repair:
         groups, deferred, remaining = _repair(graph, tasks, groups, deferred,
                                               remaining)
@@ -117,6 +119,13 @@ def task_assignments(graph: ClusterGraph, tasks: Sequence[cm.ModelTask],
     # pool for disaster recovery (paper Table 2 leaves 7 of 46 nodes idle).
     stage_order = {name: cm.greedy_chain_order(graph, ids)
                    for name, ids in groups.items()}
+    rec = obs_mod.current()
+    if rec.enabled:
+        rec.metrics.inc("plan.assign.calls")
+        rec.metrics.inc("plan.assign.deferred_pre_repair",
+                        n_deferred_pre_repair)
+        rec.metrics.inc("plan.assign.deferred", len(deferred))
+        rec.metrics.gauge("plan.assign.spare_pool", float(len(remaining)))
     return Assignment(groups=groups, deferred=deferred, stage_order=stage_order)
 
 

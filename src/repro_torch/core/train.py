@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch import obs as obs_mod
 from repro_torch._tree import leaves, tree_map
 from repro_torch.core import cost_model as cm
 from repro_torch.core import gnn
@@ -122,6 +123,11 @@ def predict_logits(params, cfg: gnn.GNNConfig, graph: ClusterGraph, *,
     feats, lat, node_mask = _pad_graph(graph, version_for_dim(gnn.d_in_of(params)))
     t = lambda a: torch.from_numpy(a).to(dev)
     logits = gnn.apply(params, cfg, t(feats), t(lat), node_mask=t(node_mask))
+    rec = obs_mod.current()
+    if rec.enabled:
+        # the reference also counts .compiles / .cache_hits of its per-bucket
+        # jit; an eager forward compiles nothing, so only calls are counted
+        rec.metrics.inc(f"plan.jit.bucket{node_mask.shape[0]}.calls")
     return logits[:graph.n].cpu().numpy()
 
 

@@ -10,6 +10,7 @@ import torch
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.core import cost_model as tcm
 from repro_torch.core import gnn as tgnn
 from repro_torch.core import train as ttrain
 from repro_torch.core.graph import paper_fig1_graph
@@ -20,6 +21,7 @@ from repro_torch.kernels.gcn_spmm import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
+from repro_torch.runtime import ElasticRuntime
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -44,12 +46,19 @@ def test_every_port_module_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = proc.stdout.split()
-    assert len(mods) >= 53          # every module of the slices so far
+    assert len(mods) >= 67          # every module of the slices so far
     for m in ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
               "repro_torch.launch.train", "repro_torch.training.train_step",
               "repro_torch.kernels.flash_attention.kernel",
               "repro_torch.kernels.flash_attention.ops",
-              "repro_torch.kernels.decode_attention.kernel"):
+              "repro_torch.kernels.decode_attention.kernel",
+              "repro_torch.runtime", "repro_torch.runtime.elastic",
+              "repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.obs.trace", "repro_torch.obs.schema",
+              "repro_torch.obs.analysis", "repro_torch.obs.monitors",
+              "repro_torch.obs.report", "repro_torch.sim",
+              "repro_torch.sim.engine", "repro_torch.sim.compute",
+              "repro_torch.sim.network", "repro_torch.sim.faults"):
         assert m in mods, m
 
 
@@ -70,6 +79,9 @@ ENTRY_POINTS = {
         tgnn.init(cfg, ex.feats.shape[1], device="cpu"), cfg, g),
     "predict": lambda cfg, g, ex: ttrain.predict(
         tgnn.init(cfg, ex.feats.shape[1], device="cpu"), cfg, g),
+    # a recovery runtime as a user starts one: params at their default device
+    "ElasticRuntime": lambda cfg, g, ex: ElasticRuntime(
+        g, tcm.FOUR_TASKS[1:], tgnn.init(cfg, ex.feats.shape[1]), cfg),
     "params_from_numpy": lambda cfg, g, ex: tgnn.params_from_numpy(
         tgnn.params_to_numpy(tgnn.init(cfg, ex.feats.shape[1], device="cpu"))),
     "lm.init_params": lambda *_: tdlm.init_params(_lm_cfg()),
