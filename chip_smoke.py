@@ -9,7 +9,11 @@ against its plain PyTorch version. Then it drives the three main paths
 through the port's entry points at full width: the planner (hidden 213, two
 GCN layers) on fleet46 and a 1024-node fleet, then recovers that fleet
 through the elastic runtime (a join, a failure, a leave) and runs the
-simulator's network core on the survivors; serving gemma3-1b (26 layers,
+simulator's network core on the survivors, then scores Hulk against Systems
+A/B/C on the simulated fleet's six scenarios, runs the three drift scenarios
+under the online re-planning controller, and simulates the 1024-node fleet
+for 2 steps through a crash that re-plans it, the Hulk GNN aggregating
+through ``gcn_spmm`` in each; serving gemma3-1b (26 layers,
 d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
 decode step; and training the same model (batch 4 x 1024 tokens, remat on,
@@ -27,7 +31,12 @@ Fig. 8) -> 1024-node plan -> elastic recovery of that fleet (join to 1025
 nodes, i.e. bucket 2048; a failure that forces a re-plan through the GNN; a
 leave; launches per event, fused against plain logits at 1025 nodes) ->
 the network model on the survivors (both flow solvers, one ring all-reduce
-per task) -> gcn_spmm times and a bit-for-bit repeat at buckets 1024 and
+per task) -> the fleet evaluation (``evaluate_all`` twice, launches per
+scenario, fused against plain logits on each fleet) -> the drift scenarios
+under each controller mode (the sim-labeled GNN trained on the card, a
+guarded replay, launches after the initial placement) -> the 1024-node
+fleet simulation (launches before, during and after the crash's re-plan) ->
+gcn_spmm times and a bit-for-bit repeat at buckets 1024 and
 2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
@@ -71,7 +80,7 @@ CHECK_SHAPES = [(8, 22, "float32"), (46, 15, "float32"), (64, 213, "float32"),
                 (1024, 213, "float32"), (2048, 213, "float32"),
                 (46, 12, "bfloat16")]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
-TIMED_BUCKETS = (64, 1024, 2048)
+TIMED_BUCKETS = (8, 16, 64, 1024, 2048)
 N_TIMED = 60
 
 
@@ -407,6 +416,254 @@ def phase_net_1024(graph, assignment) -> None:
          max_rel_err=err, rtol=1e-9, **runs)
 
 
+# -- fleet evaluation and the online controller --------------------------------
+def _canonical_fleet(res, controller=None) -> str:
+    """Byte-comparable projection of a fleet run and the controller's
+    decisions: the reference's ``sim/chaos.py::canonical_fleet``, carried
+    here because this script imports nothing of ``repro``."""
+    rows = {
+        "makespan": float(res.makespan),
+        "per_task": {n: {"step_times": [float(t) for t in d["step_times"]],
+                         "finish_s": float(d["finish_s"])
+                         if d["finish_s"] is not None else None,
+                         "failed": bool(d["failed"])}
+                     for n, d in sorted(res.per_task.items())},
+        "replans": [{"at_s": float(r["at_s"]),
+                     "reason": r.get("reason",
+                                     "killed" if "killed" in r
+                                     else "rejoined")}
+                    for r in res.replans],
+    }
+    if controller is not None:
+        rows["log"] = json.loads(json.dumps(controller.summary()["log"],
+                                            default=float))
+    return json.dumps(rows, sort_keys=True)
+
+
+def _seed_fused(ev, key):
+    """Put the cached GNN of ``key`` back with ``use_pallas=True``, so every
+    placement made through it aggregates on the kernel; returns that cfg."""
+    params, cfg = ev._GNN_CACHE[key]
+    kcfg = dataclasses.replace(cfg, use_pallas=True)
+    ev._GNN_CACHE[key] = (params, kcfg)
+    return kcfg
+
+
+def phase_sim_scenarios(device) -> int:
+    """The paper's evaluation loop (``sim/evaluate.py::evaluate_all``): Hulk
+    against Systems A/B/C on the six ``SCENARIOS`` of the simulated fleet.
+    The Hulk arm's GNN is trained on the card (``trained_gnn``), then its
+    cache entry is seeded with ``use_pallas=True``, so every Hulk placement
+    and fault re-plan aggregates through ``scaled_spmm``. Run 1 evaluates
+    one scenario at a time (launches zeroed before each, read after), run 2
+    all six in one ``evaluate_all``; they must be equal. Each scenario's
+    fleet also checks the fused logits against the plain ones, and one more
+    pass with the plain cfg says whether the Hulk makespans agree."""
+    from repro_torch.core import train as gnn_train
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.sim import evaluate as ev
+    from repro_torch.sim import scenarios as sc
+
+    names = sorted(sc.SCENARIOS)
+    tasks = list(sc.get_scenario(names[0]).tasks)
+    check(all([t.name for t in sc.get_scenario(n).tasks]
+              == [t.name for t in tasks] for n in names),
+          "the scenarios do not share one task set")
+    key = (tuple(t.name for t in tasks), 0, "analytic")
+    t0 = time.perf_counter()
+    params, cfg = ev.trained_gnn(tasks, seed=0)
+    train_s = time.perf_counter() - t0
+    kcfg = _seed_fused(ev, key)
+
+    per, first, launches = {}, {}, 0
+    for name in names:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        first.update(ev.evaluate_all(seed=0, names=[name]))
+        wall = time.perf_counter() - t0
+        n = K.LAUNCHES["scaled_spmm"]
+        launches += n
+        row = first[name]
+        check(n > 0 and n % 3 == 0,
+              f"scaled_spmm launches {n} in {name}'s Hulk arm")
+        check(math.isfinite(row["Hulk"]["makespan_s"]),
+              f"{name}: the Hulk arm did not finish")
+        per[name] = dict(
+            makespan_s={s: row[s]["makespan_s"]
+                        for s in ("Hulk", "SystemA", "SystemB", "SystemC")},
+            improvement_vs_best_baseline=row["improvement_vs_best_baseline"],
+            replans={s: row[s].get("replans")
+                     for s in ("Hulk", "SystemA", "SystemB", "SystemC")},
+            wall_s=wall, launches=n,
+            logits_max_abs_diff_fused_vs_plain=_logits_agree(
+                gnn_train, params, kcfg, sc.get_scenario(name).fleet(0),
+                device))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    second = ev.evaluate_all(seed=0)
+    all_s = time.perf_counter() - t0
+    check(K.LAUNCHES["scaled_spmm"] == launches,
+          f"evaluate_all launched {K.LAUNCHES['scaled_spmm']}, "
+          f"the scenarios one by one {launches}")
+    same = json.dumps(first, sort_keys=True) == json.dumps(second, sort_keys=True)
+    check(same, "two evaluate_all runs of the scenarios differ")
+    ev._GNN_CACHE[key] = (params, cfg)
+    plain = ev.evaluate_all(seed=0)
+    for name in names:
+        per[name]["hulk_makespan_equal_plain"] = (
+            plain[name]["Hulk"]["makespan_s"] == first[name]["Hulk"]["makespan_s"])
+    ev._GNN_CACHE[key] = (params, kcfg)
+    wins = {n: first[n]["improvement_vs_best_baseline"] > 0 for n in names}
+    emit("sim_scenarios", train_s=train_s, evaluate_all_s=all_s,
+         runs_equal=same, launches=launches, scenarios=per,
+         hulk_wins=wins, hulk_wins_count=sum(wins.values()),
+         table=ev.comparison_table(second))
+    return launches
+
+
+def phase_drift_controller() -> int:
+    """The online re-planning controller (``runtime/controller.py``) on the
+    three ``DRIFT_SCENARIOS`` under each mode. ``drift_gray_creep`` places
+    with the sim-labeled GNN, trained here on the card (sim-refined labels,
+    v2 features, 120 steps); both GNNs are seeded with ``use_pallas=True``.
+    Each run's launches are zeroed before it and read after it, and split at
+    the end of its initial placement: a guarded run that launches after it
+    shows the controller's proposals reached the card."""
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.sim import evaluate as ev
+    from repro_torch.sim import scenarios as sc
+
+    gray = sc.get_drift_scenario("drift_gray_creep")
+    tasks = list(gray.tasks)
+    t0 = time.perf_counter()
+    ev.trained_gnn(tasks, seed=0, label_mode="sim", jitter=gray.jitter,
+                   traffic=gray.traffic, comm_model=gray.comm_model)
+    sim_train_s = time.perf_counter() - t0
+    _seed_fused(ev, (tuple(t.name for t in tasks), 0, "sim", gray.jitter,
+                     gray.traffic, gray.comm_model))
+    analytic = (tuple(t.name for t in tasks), 0, "analytic")
+    check(ev._GNN_CACHE[analytic][1].use_pallas,
+          "the analytic GNN is not seeded with use_pallas")
+
+    marks = {}
+    orig_place = ev.HulkPlacer.place
+
+    def place(self, graph):
+        out = orig_place(self, graph)
+        marks["placed"] = K.LAUNCHES["scaled_spmm"]
+        return out
+
+    ev.HulkPlacer.place = place
+    runs, projections = {}, {}
+    try:
+        for name in sorted(sc.DRIFT_SCENARIOS):
+            for mode in ("static", "guarded", "unguarded"):
+                marks.clear()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                res, ctl = ev.run_drift_scenario(sc.get_drift_scenario(name),
+                                                 mode)
+                wall = time.perf_counter() - t0
+                n = K.LAUNCHES["scaled_spmm"]
+                s = ctl.summary() if ctl is not None else {}
+                check(math.isfinite(res.makespan),
+                      f"{name} under {mode} did not finish")
+                check("placed" in marks,
+                      f"{name} under {mode} never placed through HulkPlacer")
+                runs[f"{name}/{mode}"] = dict(
+                    makespan_s=res.makespan, replans=len(res.replans),
+                    controller={k: s[k] for k in (
+                        "alerts", "suppressed", "replans", "rollbacks",
+                        "errors", "gate_rejects")} if s else None,
+                    wall_s=wall, launches=n,
+                    launches_after_placement=n - marks["placed"])
+                projections[name, mode] = _canonical_fleet(res, ctl)
+        res2, ctl2 = ev.run_drift_scenario(gray, "guarded")
+    finally:
+        ev.HulkPlacer.place = orig_place
+    replay_same = (_canonical_fleet(res2, ctl2)
+                   == projections["drift_gray_creep", "guarded"])
+    launches = sum(r["launches"] for r in runs.values())
+    emit("drift_controller", sim_label_train_s=sim_train_s, runs=runs,
+         guarded_replay_identical=replay_same, launches=launches)
+    check(replay_same, "the guarded drift_gray_creep replay differs")
+    g, st = runs["drift_gray_creep/guarded"], runs["drift_gray_creep/static"]
+    check(g["controller"]["replans"] >= 1 and g["makespan_s"] < st["makespan_s"],
+          f"guarded ({g['makespan_s']}) does not beat static "
+          f"({st['makespan_s']}) under gray creep")
+    check(any(r["launches_after_placement"] > 0 for k, r in runs.items()
+              if k.endswith("/guarded")),
+          "no guarded run launched scaled_spmm after its initial placement")
+    for k, r in runs.items():
+        check(r["launches"] > 0 and r["launches"] % 3 == 0,
+              f"scaled_spmm launches {r['launches']} in {k}")
+    return launches
+
+
+def phase_sim_1024(params, kcfg) -> int:
+    """``FleetSimulation`` at the paper's thousand-node scale:
+    ``random_fleet(1024, seed=7)`` with ``SIX_TASKS``, the Hulk arm only
+    (``HulkPlacer`` with plan_1024's GNN, ``use_pallas=True``), all tasks
+    concurrent, 2 steps. Midway, every machine of the largest task's group
+    but one crashes (a ``MachineCrash`` plan), so that task drops below its
+    memory floor and ``ElasticRuntime`` re-plans it through the GNN.
+    Launches are split at the fault."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.graph import random_fleet
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.runtime import ElasticRuntime
+    from repro_torch.sim import FaultPlan, MachineCrash
+    from repro_torch.sim import evaluate as ev
+
+    tasks = cm.SIX_TASKS
+    by_name = {t.name: t for t in tasks}
+    fleet = random_fleet(1024, seed=7)
+    groups = ElasticRuntime(fleet, tasks, params, kcfg).assignment.groups
+    largest = max(groups, key=lambda k: by_name[k].params)
+    victims = tuple(groups[largest][1:])
+    check(sum(fleet.memory_gb()[groups[largest][:1]])
+          < by_name[largest].min_memory_gb,
+          f"one machine of {largest}'s group still holds it")
+    placer = ev.HulkPlacer(tasks, params, kcfg)
+    marks = {}
+    on_failure = placer.on_failure
+
+    def failure(failed_ids, at_step):
+        marks["before_fault"] = K.LAUNCHES["scaled_spmm"]
+        out = on_failure(failed_ids, at_step)
+        marks["fault"] = K.LAUNCHES["scaled_spmm"] - marks["before_fault"]
+        return out
+
+    placer.on_failure = failure
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = ev.FleetSimulation(
+        fleet, tasks, placer, steps=2, seed=0, concurrent=True,
+        fault_plan=FaultPlan((MachineCrash(at=0.5, machines=victims),))).run()
+    wall = time.perf_counter() - t0
+    launches = K.LAUNCHES["scaled_spmm"]
+    check("fault" in marks, "the crash never reached the placer")
+    emit("sim_1024", nodes=fleet.n, steps=2, wall_s=wall,
+         events=res.n_events, events_per_s=res.n_events / wall,
+         makespan_s=res.makespan,
+         mean_step_s={t: res.mean_step_s(t) for t in res.per_task},
+         failed=sorted(t for t, d in res.per_task.items() if d["failed"]),
+         replans=len(res.replans), crashed=len(victims), crashed_task=largest,
+         survivors=placer.rt.graph.n, deferred=placer.rt.assignment.deferred,
+         launches=launches,
+         launches_split={"before_fault": marks["before_fault"],
+                         "fault_replan": marks["fault"],
+                         "after_fault": (launches - marks["before_fault"]
+                                         - marks["fault"])})
+    check(math.isfinite(res.makespan), "the 1024-node run did not finish")
+    check(len(res.replans) == 1 and placer.rt.state.epoch >= 1,
+          f"{len(res.replans)} re-plans at 1024 nodes")
+    check(marks["before_fault"] > 0 and marks["before_fault"] % 3 == 0
+          and marks["fault"] > 0 and marks["fault"] % 3 == 0,
+          f"scaled_spmm launches {marks} around the crash")
+    return launches
+
+
 def _gcn_inputs(torch, params, cfg, graph, device):
     """The first GCN layer's aggregation inputs for ``graph`` as the planner
     builds them: A + I of the bucket-padded mask, its (deg)^-1/2, and the
@@ -498,8 +755,10 @@ def card_identity() -> str:
 
 def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
     """Kernel, plain version, one-library-call yardstick and bound, at the
-    main path's buckets 64 (paper_fleet46), 1024 (random_fleet(1024)) and
-    2048 (that fleet after recover_1024's join, 1025 nodes). At buckets 1024
+    main path's buckets 8 (cross_region_wan's fleet) and 16
+    (preemption_storm's), where the fleet evaluation and the controller
+    place, 64 (paper_fleet46), 1024 (random_fleet(1024)) and 2048 (that
+    fleet after recover_1024's join, 1025 nodes). At buckets 1024
     (split-K over a cluster) and 2048 two kernel calls must agree bit for
     bit."""
     out = {}
@@ -1309,7 +1568,8 @@ def phase_train(torch, device, FK, card) -> dict:
 def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
-             "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py"]
+             "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py",
+             "tests/test_torch_sim_eval_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -1364,10 +1624,19 @@ def main() -> None:
     l_recover, joined, (survivors, recovered) = phase_recover_1024(
         torch, device, params1024, kcfg1024, fleet1024)
     phase_net_1024(survivors, recovered)
+    # 4c. the fleet evaluation, the online controller and the 1024-node
+    # simulation, their Hulk GNNs aggregating through scaled_spmm; counts
+    # zeroed before and read after each run
+    l_sim = {"sim_scenarios": phase_sim_scenarios(device),
+             "drift_controller": phase_drift_controller(),
+             "sim_1024": phase_sim_1024(params1024, kcfg1024)}
     # 5. gcn_spmm times
     card = card_identity()
+    from repro_torch.sim import scenarios as sc
     times = phase_times(torch, K, R, params46, cfg46,
-                        {64: fleet46, 1024: fleet1024, 2048: joined}, device,
+                        {8: sc.get_scenario("cross_region_wan").fleet(0),
+                         16: sc.get_scenario("preemption_storm").fleet(0),
+                         64: fleet46, 1024: fleet1024, 2048: joined}, device,
                         card)
     # 6. attention kernel check
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
@@ -1394,11 +1663,14 @@ def main() -> None:
     for name in ("scaled_spmm", "spmm"):
         top = times[name][1024]
         recover = sum(l_recover.values()) if name == "scaled_spmm" else 0
+        by_path = {"plan": launches[name], "recover": recover,
+                   **{k: n if name == "scaled_spmm" else 0
+                      for k, n in l_sim.items()}}
         kernels.append({
             "name": f"gcn_spmm.{name}", "route": "cuda",
             "source": "src/repro_torch/csrc/gcn_spmm.cu",
-            "replaces": replaces[name], "launches": launches[name] + recover,
-            "launches_by_path": {"plan": launches[name], "recover": recover},
+            "replaces": replaces[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "on_main_path": name == "scaled_spmm",
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],

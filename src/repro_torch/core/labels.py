@@ -1,22 +1,43 @@
-"""Oracle labelers: cost-model-guided partitions used as sparse supervision
-(port of ``repro.core.labels``, analytic half).
+"""Oracle labelers: cost-model- and simulator-guided partitions used as
+sparse supervision.
 
 The paper trains its GCN on sparsely labeled subgraphs (§3: "we then sparsely
 label this subgraph to enable the neural network to learn the contents of the
 graph in a supervised manner"). The labels come from the operators' own
 placements; we regenerate them with a greedy + local-search partitioner that
-minimizes the closed-form ``core.cost_model`` makespan under Algorithm 1's
-memory thresholds.
+minimizes the cost-model makespan under Algorithm 1's memory thresholds.
 
-This is a numpy copy of the reference's analytic labeler and gives
-bit-identical labels. The simulator-refined labels (``sim_refined_labels``,
-``sim_local_search`` and its reference twin) need the simulator, which is not
-ported yet.
+Label provenance — two supervision sources
+------------------------------------------
+* **Analytic** (``oracle_labels``, the default everywhere): minimize the
+  closed-form ``core.cost_model`` makespan. Deterministic, cheap, and
+  exactly what the paper describes — but *straggler-blind*: the analytic
+  model prices every machine at its catalog TFLOP/s.
+* **Sim-refined** (``sim_refined_labels``): start from the analytic
+  partition, then local-search on the makespan *simulated* by ``repro.sim``
+  (fast data plane) under a scenario's straggler / jitter / contention
+  config. The simulator observes persistent slowdowns, per-op jitter, and
+  relay-hub contention that the closed form cannot see, so these labels
+  learn to route work around measured-slow resources. Selected via
+  ``core.train.make_dataset(label_mode="sim")``; datasets built this way
+  pair the labels with v2 (telemetry-carrying) node features so the GNN
+  can actually observe the signal the labels respond to.
 
-The production entry points (``greedy_partition`` / ``local_search``) keep an
-incremental min-latency-to-group row and cache per-group step times; both
-produce bit-identical labels to the readable ``*_reference``
-implementations kept below.
+The production entry points (``greedy_partition`` / ``local_search`` /
+``sim_local_search``) are optimized so ``core.train.make_dataset`` stops
+being the dominant cost at scale: the greedy grower keeps an incremental
+min-latency-to-group row (one ``np.minimum`` per accepted node instead of a
+Python min over the group x pool product), the analytic local search caches
+per-group step times and re-costs only the two groups a move touches, and
+the sim-driven local search memoizes simulated makespans per visited
+labeling (the simulator is deterministic, so a revisited state never
+re-simulates). All produce bit-identical labels to the readable
+``*_reference`` implementations kept below (asserted in
+tests/test_fast_path.py and tests/test_sim_labels.py).
+
+Port of ``repro/core/labels.py``: a numpy copy that gives the reference's
+labels bit for bit, the simulated ones included (the port's ``sim`` package
+is itself a copy of the reference's).
 """
 from __future__ import annotations
 
@@ -24,8 +45,10 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import cost_model as cm
 from repro_torch.core.graph import ClusterGraph
+
 
 def _group_cost(graph: ClusterGraph, ids: list[int], task: cm.ModelTask,
                 comm) -> float:
@@ -162,6 +185,149 @@ def oracle_labels(graph: ClusterGraph, tasks: Sequence[cm.ModelTask],
     return lab
 
 
+# ---------------------------------------------------------------------------
+# Simulator-in-the-loop labels (the ROADMAP "feeding back" loop): candidate
+# partitions are scored by the discrete-event simulator instead of the
+# closed-form cost model, so the labels see stragglers, jitter, and link
+# contention. Imports of repro.sim stay inside the functions — core must not
+# depend on sim at import time (sim imports core).
+# ---------------------------------------------------------------------------
+def simulated_makespan(graph: ClusterGraph, labels: np.ndarray,
+                       tasks: Sequence[cm.ModelTask], *, jitter=None,
+                       traffic=None, comm_model: str = "alphabeta",
+                       seed: int = 0, steps: int = 1) -> float:
+    """Makespan of the partition ``labels`` as measured by ``repro.sim``:
+    every task runs concurrently as a GPipe chain over its group while the
+    scenario's jitter / straggler / traffic config is active. ``np.inf``
+    for infeasible partitions (empty or memory-short groups).
+
+    GPipe is the labeling objective by convention, mirroring the analytic
+    oracle's ``_group_cost`` (which also scores groups as gpipe chains):
+    labels rank *partitions*, while the per-group parallelism strategy is
+    chosen later by ``core.placement.plan_runtime``. Deterministic in
+    ``seed``."""
+    from repro_torch.sim.evaluate import FleetSimulation, Placement, StaticPlacer
+
+    placements = {}
+    for ti, task in enumerate(tasks):
+        ids = [int(j) for j in np.flatnonzero(labels == ti)]
+        if not ids:
+            return np.inf
+        order = cm.greedy_chain_order(graph, ids)
+        placements[task.name] = Placement(ids, "gpipe", order)
+    fs = FleetSimulation(graph, list(tasks), StaticPlacer(placements),
+                         comm_model=comm_model, jitter=jitter,
+                         traffic=traffic, steps=steps, seed=seed,
+                         concurrent=True)
+    return float(fs.run().makespan)
+
+
+def _observed_slowdowns(graph: ClusterGraph, jitter, seed: int) -> np.ndarray:
+    """Persistent per-machine slowdown multipliers the simulator would
+    observe (pure function of (graph, jitter, seed) — the same draw the
+    simulation itself uses)."""
+    from repro_torch.sim.compute import ComputeModel
+    return ComputeModel(graph, jitter, seed=seed).slow_factor
+
+
+def sim_local_search(graph: ClusterGraph, labels: np.ndarray,
+                     tasks: Sequence[cm.ModelTask], *, iters: int = 40,
+                     seed: int = 0, jitter=None, traffic=None,
+                     comm_model: str = "alphabeta", steps: int = 1,
+                     sweep: bool = True) -> np.ndarray:
+    """Local search on *simulated* makespan (production path).
+
+    Two phases, both deterministic in ``seed``:
+
+    1. a targeted sweep over machines in descending observed-slowdown order,
+       trying each alternative class (idle first) — this is what moves a
+       3x straggler out of a pipeline's critical path;
+    2. ``iters`` random single-node moves, the same proposal distribution as
+       the analytic ``local_search``.
+
+    Simulated makespans are memoized per visited labeling (the simulator is
+    deterministic), so revisited states cost a dict lookup instead of a
+    simulation. Bit-identical to ``sim_local_search_reference`` (asserted
+    in tests/test_sim_labels.py).
+    """
+    rng = np.random.default_rng(seed)
+    labels = labels.copy()
+    mem = graph.memory_gb()
+    idle = idle_class(tasks)
+    cache: dict[bytes, float] = {}
+    rec = obs_mod.current()
+    metrics = rec.metrics  # counting only — never steers the search
+
+    def cost(lab: np.ndarray) -> float:
+        key = lab.tobytes()
+        hit = cache.get(key)
+        if hit is None:
+            metrics.inc("plan.sim_search.sims")
+            hit = cache[key] = simulated_makespan(
+                graph, lab, tasks, jitter=jitter, traffic=traffic,
+                comm_model=comm_model, seed=seed, steps=steps)
+        return hit
+
+    def donor_ok(i: int, old: int) -> bool:
+        if old == idle:
+            return True
+        donor_ids = np.flatnonzero(labels == old)
+        donor_mem = sum(mem[j] for j in donor_ids if j != i)
+        return donor_mem >= tasks[old].min_memory_gb
+
+    cur = cost(labels)
+    if sweep:
+        slow = _observed_slowdowns(graph, jitter, seed)
+        order = sorted(range(graph.n), key=lambda i: (-slow[i], i))
+        for i in order:
+            old = int(labels[i])
+            # idle first: evicting a straggler beats reassigning it
+            for new in [idle] + [t for t in range(len(tasks)) if t != old]:
+                if new == old or not donor_ok(i, old):
+                    continue
+                metrics.inc("plan.sim_search.proposals")
+                labels[i] = new
+                nxt = cost(labels)
+                if nxt < cur:
+                    cur = nxt
+                    old = new
+                    metrics.inc("plan.sim_search.accepts")
+                else:
+                    labels[i] = old
+    for _ in range(iters):
+        i = int(rng.integers(0, graph.n))
+        old = int(labels[i])
+        new = int(rng.integers(0, len(tasks) + 1))  # idle allowed
+        if new == old or not donor_ok(i, old):
+            continue
+        metrics.inc("plan.sim_search.proposals")
+        labels[i] = new
+        nxt = cost(labels)
+        if nxt < cur:
+            cur = nxt
+            metrics.inc("plan.sim_search.accepts")
+        else:
+            labels[i] = old
+    if rec.enabled:
+        rec.metrics.gauge("plan.sim_search.makespan_s", cur)
+    return labels
+
+
+def sim_refined_labels(graph: ClusterGraph, tasks: Sequence[cm.ModelTask],
+                       comm=None, seed: int = 0, refine_iters: int = 150, *,
+                       jitter=None, traffic=None,
+                       comm_model: str = "alphabeta", sim_iters: int = 40,
+                       sim_steps: int = 1) -> np.ndarray:
+    """Sim-refined oracle labels: the analytic ``oracle_labels`` partition,
+    then ``sim_local_search`` on simulated makespan under the scenario's
+    jitter / traffic config. This is ``make_dataset(label_mode="sim")``'s
+    labeler — the analytic labeler stays the default everywhere else."""
+    lab = oracle_labels(graph, tasks, comm, seed, refine_iters)
+    return sim_local_search(graph, lab, tasks, iters=sim_iters, seed=seed,
+                            jitter=jitter, traffic=traffic,
+                            comm_model=comm_model, steps=sim_steps)
+
+
 def sparse_mask(n: int, frac: float = 0.6, seed: int = 0) -> np.ndarray:
     """Sparse supervision mask (paper §3)."""
     rng = np.random.default_rng(seed)
@@ -173,7 +339,8 @@ def sparse_mask(n: int, frac: float = 0.6, seed: int = 0) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # Readable reference implementations (the pre-vectorization Python loops).
-# The equivalence tests assert the fast paths reproduce these bit-identically.
+# The equivalence tests assert the fast paths reproduce these bit-identically;
+# benchmarks/plan_bench.py times them as the labeler's "before" numbers.
 # ---------------------------------------------------------------------------
 def greedy_partition_reference(graph: ClusterGraph,
                                tasks: Sequence[cm.ModelTask],
@@ -214,6 +381,64 @@ def greedy_partition_reference(graph: ClusterGraph,
             unassigned.remove(nxt)
             cur = cand
         labels[group] = ti
+    return labels
+
+
+def sim_local_search_reference(graph: ClusterGraph, labels: np.ndarray,
+                               tasks: Sequence[cm.ModelTask], *,
+                               iters: int = 40, seed: int = 0, jitter=None,
+                               traffic=None, comm_model: str = "alphabeta",
+                               steps: int = 1,
+                               sweep: bool = True) -> np.ndarray:
+    """The readable sim-driven local search: every candidate labeling is
+    re-simulated from scratch, no memoization. Same proposal sequence as
+    ``sim_local_search`` (the simulator is deterministic, so caching cannot
+    change any accept/reject decision) — bit-identical outputs asserted in
+    tests/test_sim_labels.py."""
+    rng = np.random.default_rng(seed)
+    labels = labels.copy()
+    mem = graph.memory_gb()
+    idle = idle_class(tasks)
+
+    def cost(lab):
+        return simulated_makespan(graph, lab, tasks, jitter=jitter,
+                                  traffic=traffic, comm_model=comm_model,
+                                  seed=seed, steps=steps)
+
+    def donor_ok(i, old):
+        if old == idle:
+            return True
+        donor_ids = [j for j in range(graph.n) if labels[j] == old and j != i]
+        return sum(mem[j] for j in donor_ids) >= tasks[old].min_memory_gb
+
+    cur = cost(labels)
+    if sweep:
+        slow = _observed_slowdowns(graph, jitter, seed)
+        order = sorted(range(graph.n), key=lambda i: (-slow[i], i))
+        for i in order:
+            old = int(labels[i])
+            for new in [idle] + [t for t in range(len(tasks)) if t != old]:
+                if new == old or not donor_ok(i, old):
+                    continue
+                labels[i] = new
+                nxt = cost(labels)
+                if nxt < cur:
+                    cur = nxt
+                    old = new
+                else:
+                    labels[i] = old
+    for _ in range(iters):
+        i = int(rng.integers(0, graph.n))
+        old = int(labels[i])
+        new = int(rng.integers(0, len(tasks) + 1))
+        if new == old or not donor_ok(i, old):
+            continue
+        labels[i] = new
+        nxt = cost(labels)
+        if nxt < cur:
+            cur = nxt
+        else:
+            labels[i] = old
     return labels
 
 

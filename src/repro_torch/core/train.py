@@ -17,10 +17,14 @@ accuracy on the running example).
   bucket for ragged datasets; ``sequential`` is the per-example loop on the
   unpadded graphs. Metrics stay on the device until the run ends.
 
-Label provenance: only ``label_mode="analytic"`` (the closed-form oracle) is
-ported; ``"sim"`` needs the simulator port. The feature-version shim is kept:
-``predict`` derives the node-feature schema from the params
-(``gnn.d_in_of`` -> ``graph.version_for_dim``).
+Label provenance and the feature-version shim:
+
+* ``make_dataset(label_mode=...)`` selects the supervision source:
+  ``"analytic"`` (default, the closed-form oracle) or ``"sim"``
+  (simulator-refined labels paired with v2 telemetry features; see
+  ``core.labels``). Both give the reference's examples bit for bit.
+* ``predict`` / ``predict_logits`` derive the node-feature schema from the
+  params (``gnn.d_in_of`` -> ``graph.version_for_dim``).
 """
 from __future__ import annotations
 
@@ -57,31 +61,55 @@ class GraphExample:
 
 def make_example(graph: ClusterGraph, tasks: Sequence[cm.ModelTask],
                  seed: int = 0, label_frac: float = 1.0,
-                 label_mode: str = "analytic",
+                 label_mode: str = "analytic", jitter=None, traffic=None,
+                 comm_model: str = "alphabeta",
                  feature_version: int | None = None) -> GraphExample:
-    """One supervised example with ``labels.oracle_labels`` (the closed-form
-    cost-model partition) and v1 features by default."""
-    if label_mode == "sim":
-        raise NotImplementedError(
-            "label_mode='sim' needs the simulator, which repro_torch has not "
-            "ported yet (repro.sim); use label_mode='analytic'")
-    if label_mode != "analytic":
+    """One supervised example. Label provenance (``label_mode``):
+
+    * ``"analytic"`` (default) — ``labels.oracle_labels``, the closed-form
+      cost-model partition; features default to v1 (the paper's static
+      machine description). Bit-identical to the historical behaviour.
+    * ``"sim"`` — ``labels.sim_refined_labels``: the analytic partition
+      refined by local search on *simulated* makespan under ``jitter`` /
+      ``traffic``; features default to v2 with the simulator's observed
+      telemetry (slowdowns, jitter sigma, relay hubs) attached, so the GNN
+      sees the same signals the labels respond to.
+    """
+    if label_mode not in ("analytic", "sim"):
         raise ValueError(f"unknown label_mode {label_mode!r}")
-    lab = labels_mod.oracle_labels(graph, tasks, seed=seed)
+    if feature_version is None:
+        feature_version = 2 if label_mode == "sim" else 1
+    if label_mode == "sim":
+        from repro_torch.sim.evaluate import observed_telemetry
+        graph = graph.with_telemetry(observed_telemetry(
+            graph, jitter=jitter, seed=seed, comm_model=comm_model))
+        lab = labels_mod.sim_refined_labels(
+            graph, tasks, seed=seed, jitter=jitter, traffic=traffic,
+            comm_model=comm_model)
+    else:
+        lab = labels_mod.oracle_labels(graph, tasks, seed=seed)
     mask = labels_mod.sparse_mask(graph.n, label_frac, seed)
-    return GraphExample(graph.node_features(feature_version or 1),
+    return GraphExample(graph.node_features(feature_version),
                         graph.latency.astype(np.float32), lab, mask)
 
 
 def make_dataset(n_graphs: int, tasks: Sequence[cm.ModelTask], n_nodes: int = 24,
                  seed: int = 0, label_frac: float = 0.7,
-                 label_mode: str = "analytic",
+                 label_mode: str = "analytic", jitter=None, traffic=None,
+                 comm_model: str = "alphabeta",
                  feature_version: int | None = None) -> list[GraphExample]:
-    """Random-fleet training set (analytic labels)."""
-    return [make_example(random_fleet(n_nodes, seed=seed + g), tasks,
-                         seed=seed + g, label_frac=label_frac,
-                         label_mode=label_mode, feature_version=feature_version)
-            for g in range(n_graphs)]
+    """Random-fleet training set. ``label_mode="sim"`` selects sim-refined
+    labels + v2 telemetry features (see ``make_example``); the default stays
+    the analytic oracle with v1 features."""
+    out = []
+    for g in range(n_graphs):
+        fleet = random_fleet(n_nodes, seed=seed + g)
+        out.append(make_example(fleet, tasks, seed=seed + g,
+                                label_frac=label_frac, label_mode=label_mode,
+                                jitter=jitter, traffic=traffic,
+                                comm_model=comm_model,
+                                feature_version=feature_version))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 from repro_torch.runtime.elastic import ElasticRuntime, FailureEvent
+from repro_torch.runtime.controller import ControllerConfig, ReplanController
 
-# The reference also exports ControllerConfig and ReplanController
-# (runtime/controller.py); they join this package with the simulator's
-# evaluation layer, which the controller calls back into.
-__all__ = ["ElasticRuntime", "FailureEvent"]
+__all__ = ["ElasticRuntime", "FailureEvent", "ControllerConfig",
+           "ReplanController"]

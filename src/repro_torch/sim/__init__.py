@@ -1,25 +1,62 @@
 """repro_torch.sim — deterministic discrete-event geo-fleet simulator (port
-of ``repro/sim``): the event engine, the compute model with straggler
-jitter, the fair-share network model with both solvers, and the declarative
-fault plans. Pure numpy/scipy, copied verbatim, so a run gives the same
-numbers, events and traces as the reference.
+of ``repro/sim``).
 
-Not ported yet, so not exported: the workload executors (``workload.py``),
-the scenario registry (``scenarios.py``), the fleet evaluation
-(``evaluate.py``), chaos (``chaos.py``), colocation (``colocate.py``) and the
-scenario generator (``generate.py``), in the order of ROADMAP.md's queue 1.
+Replays training schedules produced by ``core.assign`` /
+``core.placement.plan_runtime`` over a ``ClusterGraph``, modeling per-link
+bandwidth with fair-share contention, per-machine compute with straggler
+jitter, pipeline bubbles, DP parameter-server sync, TP all-reduce rings, and
+fault events that trigger ``runtime.elastic`` re-planning mid-run; scores
+Hulk against Systems A/B/C on the scenario registry and runs the drift
+scenarios under the online re-planning controller. Pure numpy/scipy, copied
+from the reference, so a run gives the same numbers, events and traces; the
+Hulk arm's GNN runs on whatever device its params lie.
+
+Not ported yet, so not exported: the serving request executor
+(``workload.ServeExecutor``, with the rest of ``serve/``), chaos
+(``chaos.py``), colocation (``colocate.py``) and the scenario generator
+(``generate.py``). The serving and colocated scenarios register their data
+here, but running them needs those modules.
 """
 from repro_torch.sim.compute import ComputeModel, JitterConfig
 from repro_torch.sim.engine import Simulator
+from repro_torch.sim.evaluate import (FleetSimulation, SimResult,
+                                      comparison_table, evaluate_all,
+                                      evaluate_scenario, observed_telemetry,
+                                      observed_telemetry_live,
+                                      run_drift_scenario, simulate_single)
 from repro_torch.sim.faults import (FaultPlan, GrayFailure, LinkDegradation,
                                     MachineCrash, MachineFlap, RegionPartition,
                                     RegionPreemption, compile_plan,
                                     plan_from_fracs)
 from repro_torch.sim.network import NetworkModel
+from repro_torch.sim.scenarios import (COLOCATED_SCENARIOS, DRIFT_SCENARIOS,
+                                       SCENARIOS, SERVE_SCENARIOS,
+                                       ColocatedScenario, DriftScenario,
+                                       Scenario, ServeScenario,
+                                       get_colocated_scenario,
+                                       get_drift_scenario, get_scenario,
+                                       get_serve_scenario, register,
+                                       register_colocated, register_drift,
+                                       register_scenario, register_serve,
+                                       temporary_registration, unregister,
+                                       unregister_colocated, unregister_drift,
+                                       unregister_scenario, unregister_serve)
 
 __all__ = [
     "Simulator", "NetworkModel", "ComputeModel", "JitterConfig",
+    "Scenario", "SCENARIOS", "register", "get_scenario",
+    "ServeScenario", "SERVE_SCENARIOS", "register_serve",
+    "get_serve_scenario",
+    "DriftScenario", "DRIFT_SCENARIOS", "register_drift",
+    "get_drift_scenario", "unregister_drift", "run_drift_scenario",
+    "ColocatedScenario", "COLOCATED_SCENARIOS", "register_colocated",
+    "get_colocated_scenario", "unregister_colocated",
+    "register_scenario", "unregister_scenario",
+    "unregister", "unregister_serve", "temporary_registration",
     "FaultPlan", "MachineCrash", "RegionPreemption", "LinkDegradation",
     "RegionPartition", "GrayFailure", "MachineFlap",
     "compile_plan", "plan_from_fracs",
+    "FleetSimulation", "SimResult", "simulate_single",
+    "evaluate_scenario", "evaluate_all", "comparison_table",
+    "observed_telemetry", "observed_telemetry_live",
 ]

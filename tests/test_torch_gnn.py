@@ -225,8 +225,8 @@ def test_train_gnn_modes_and_labels_refuse_what_is_not_ported(small_dataset):
                          device="cpu")
     from repro_torch.core import cost_model as tcm
     from repro_torch.core.graph import random_fleet
-    with pytest.raises(NotImplementedError, match="simulator"):
-        ttrain.make_example(random_fleet(8), tcm.FOUR_TASKS, label_mode="sim")
+    with pytest.raises(ValueError, match="label_mode"):
+        ttrain.make_example(random_fleet(8), tcm.FOUR_TASKS, label_mode="psychic")
 
 
 def test_make_dataset_and_buckets_match_reference():

@@ -22,6 +22,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
 from repro_torch.runtime import ElasticRuntime
+from repro_torch.sim import evaluate as tev
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -46,7 +47,7 @@ def test_every_port_module_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = proc.stdout.split()
-    assert len(mods) >= 67          # every module of the slices so far
+    assert len(mods) >= 75          # every module of the slices so far
     for m in ("repro_torch.checkpoint", "repro_torch.checkpoint.manager",
               "repro_torch.launch.train", "repro_torch.training.train_step",
               "repro_torch.kernels.flash_attention.kernel",
@@ -58,8 +59,50 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.obs.analysis", "repro_torch.obs.monitors",
               "repro_torch.obs.report", "repro_torch.sim",
               "repro_torch.sim.engine", "repro_torch.sim.compute",
-              "repro_torch.sim.network", "repro_torch.sim.faults"):
+              "repro_torch.sim.network", "repro_torch.sim.faults",
+              "repro_torch.runtime.controller", "repro_torch.sim.workload",
+              "repro_torch.sim.scenarios", "repro_torch.sim.evaluate",
+              "repro_torch.serve", "repro_torch.serve.traffic",
+              "repro_torch.serve.costs", "repro_torch.serve.autoscale"):
         assert m in mods, m
+
+
+# The lazy imports inside function bodies (sim/evaluate.py's labels import,
+# the controller's observed_telemetry_live, labels.py's simulator imports,
+# make_example's observed_telemetry) load only when their path runs, so
+# drive every one of them before looking at sys.modules.
+_DRIVE_LAZY_PATHS = """
+import sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.sim import evaluate as ev, scenarios as sc
+drift = sc.get_drift_scenario("drift_gray_creep")
+for scn, mode in ((drift, drift.label_mode), (sc.get_scenario("cross_region_wan"), "analytic")):
+    ev.trained_gnn(list(scn.tasks), seed=0, label_mode=mode, jitter=scn.jitter,
+                   traffic=scn.traffic, comm_model=scn.comm_model, device="cpu")
+res, ctl = ev.run_drift_scenario(drift, "guarded")
+assert ctl.summary()["replans"] >= 1, ctl.summary()
+row = ev.evaluate_scenario(sc.get_scenario("cross_region_wan"))
+assert row["Hulk"]["makespan_s"] < float("inf"), row
+for name in ("repro_torch.core.labels", "repro_torch.runtime.controller",
+             "repro_torch.serve.costs", "repro_torch.serve.traffic",
+             "repro_torch.serve.autoscale"):
+    assert name in sys.modules, name
+bad = [m for m in sys.modules
+       if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+assert not bad, bad
+print(res.makespan, row["Hulk"]["makespan_s"])
+"""
+
+
+def test_sim_paths_run_on_cpu_without_jax_or_repro():
+    proc = subprocess.run([sys.executable, "-c", _DRIVE_LAZY_PATHS],
+                          env=dict(os.environ, PYTHONPATH=SRC,
+                                   OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    drift_s, hulk_s = map(float, proc.stdout.split())
+    assert drift_s > 0 and hulk_s > 0
 
 
 def _tiny_cpu_setup():
@@ -84,6 +127,8 @@ ENTRY_POINTS = {
         g, tcm.FOUR_TASKS[1:], tgnn.init(cfg, ex.feats.shape[1]), cfg),
     "params_from_numpy": lambda cfg, g, ex: tgnn.params_from_numpy(
         tgnn.params_to_numpy(tgnn.init(cfg, ex.feats.shape[1], device="cpu"))),
+    # the evaluator's GNN as a user trains one (a seed no test caches)
+    "trained_gnn": lambda *_: tev.trained_gnn(tcm.FOUR_TASKS[1:3], seed=97),
     "lm.init_params": lambda *_: tdlm.init_params(_lm_cfg()),
     "lm.params_from_numpy": lambda *_: tdlm.params_from_numpy(
         tdlm.params_to_numpy(tdlm.init_params(_lm_cfg(), device="cpu"))),
