@@ -11,8 +11,12 @@ GCN layers) on fleet46 and a 1024-node fleet, then recovers that fleet
 through the elastic runtime (a join, a failure, a leave) and runs the
 simulator's network core on the survivors, then scores Hulk against Systems
 A/B/C on the simulated fleet's six scenarios, runs the three drift scenarios
-under the online re-planning controller, and simulates the 1024-node fleet
-for 2 steps through a crash that re-plans it, the Hulk GNN aggregating
+under the online re-planning controller, simulates the 1024-node fleet
+for 2 steps through a crash that re-plans it, compares nearest /
+least-loaded / Hulk routing on the three serving scenarios, runs the
+colocated scenarios (a training and a serving tenant on one fabric), the
+chaos, controller and generator suites, and serves the 1024-node fleet at
+20 requests/s through a replica failure, the Hulk GNN aggregating
 through ``gcn_spmm`` in each; serving gemma3-1b (26 layers,
 d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
@@ -36,8 +40,13 @@ scenario, fused against plain logits on each fleet) -> the drift scenarios
 under each controller mode (the sim-labeled GNN trained on the card, a
 guarded replay, launches after the initial placement) -> the 1024-node
 fleet simulation (launches before, during and after the crash's re-plan) ->
-gcn_spmm times and a bit-for-bit repeat at buckets 1024 and
-2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
+the serving comparison (``evaluate_all_serve`` twice, launches per
+placement and per host failure, the plain cfg's Hulk rows) -> the
+colocated scenarios x policies (both tenants' GNNs on the card) -> chaos
+(``fuzz`` 25 seeds, ``fuzz_controller``, ``generate.fuzz_one`` 0-2) ->
+serving at 1024 nodes (launches at the placement, the failure and after;
+fused against plain hosts) -> gcn_spmm times and a bit-for-bit repeat at
+buckets 1024 and 2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
 attention times (decode also per call inside a graph and from HBM) ->
@@ -56,6 +65,7 @@ and 26 x 6 = 156 ``flash_attention_bwd``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -661,6 +671,394 @@ def phase_sim_1024(params, kcfg) -> int:
     check(marks["before_fault"] > 0 and marks["before_fault"] % 3 == 0
           and marks["fault"] > 0 and marks["fault"] % 3 == 0,
           f"scaled_spmm launches {marks} around the crash")
+    return launches
+
+
+# -- GNN-placed serving, colocation and chaos ---------------------------------
+SERVE_POLICIES = ("nearest", "least_loaded", "hulk")
+SERVE_METRICS = ("p50_s", "p95_s", "p99_s", "goodput_rps",
+                 "slo_violation_rate", "n_completed", "n_dropped")
+
+
+def _serve_key(model, n_replicas: int) -> tuple:
+    """``trained_gnn``'s cache key of ``serve_gnn(model, n_replicas)``."""
+    from repro_torch.serve.costs import serve_task_for
+    return ((serve_task_for(model, n_replicas).name,), 0, "analytic")
+
+
+def _serve_gnn_fused(device, model, n_replicas: int) -> tuple:
+    """The serve GNN trained on the card (``serve_gnn``), its cache entry
+    seeded with ``use_pallas=True``; returns (params, plain cfg, fused cfg,
+    seconds of ``serve_gnn``, near 0 on a cache hit)."""
+    from repro_torch.serve import evaluate as se
+    from repro_torch.sim import evaluate as ev
+
+    key = _serve_key(model, n_replicas)
+    t0 = time.perf_counter()
+    params, cfg = se.serve_gnn(model, n_replicas, seed=0, device=device)
+    train_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg, use_pallas=False)
+    return params, cfg, _seed_fused(ev, key), train_s
+
+
+def _serve_scores(model, params, cfg, graph):
+    """``HulkPlacement``'s per-machine scores of ``graph`` under ``cfg``,
+    without building the placement's runtime."""
+    import types
+
+    from repro_torch.serve.router import HulkPlacement
+    me = types.SimpleNamespace(params=params, cfg=cfg, model=model,
+                               external_load=None)
+    return HulkPlacement._gnn_scores(me, graph)
+
+
+def _score_gap(model, params, kcfg, graph) -> dict:
+    """Fused against plain serving scores on ``graph``: their largest
+    difference, and the smallest gap between two distinct plain scores (a
+    pair closer than the difference could swap places in the ranking)."""
+    import numpy as np
+    plain = _serve_scores(model, params,
+                          dataclasses.replace(kcfg, use_pallas=False), graph)
+    fused = _serve_scores(model, params, kcfg, graph)
+    ranked = np.unique(plain)
+    return {"scores_max_abs_diff": float(np.abs(fused - plain).max()),
+            "smallest_score_gap": (float(np.diff(ranked).min())
+                                   if ranked.size > 1 else None)}
+
+
+def _first_diff(a, b, path: str = "") -> str | None:
+    """The first field (by sorted key) where two JSON-like rows differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b)):
+            d = _first_diff(a.get(k), b.get(k), f"{path}/{k}")
+            if d is not None:
+                return d
+        return None
+    if json.dumps(a, default=float) != json.dumps(b, default=float):
+        return f"{path}: {a!r} != {b!r}"
+    return None
+
+
+def _serve_summary(res: dict) -> dict:
+    return {k: res[k] for k in SERVE_METRICS}
+
+
+def _must_replan(placement, machine_id: int) -> bool:
+    """Whether losing ``machine_id`` leaves the serve group of
+    ``placement``'s runtime below its memory floor, so that
+    ``core.assign.recover`` re-plans it through the GNN (a group that stays
+    above its floor only loses the machine)."""
+    if machine_id not in placement.rt2fleet:
+        return False
+    rt_id = placement.rt2fleet.index(machine_id)
+    ids = placement.runtime.assignment.groups.get(placement.task.name, [])
+    if rt_id not in ids:
+        return False
+    mem = placement.runtime.graph.memory_gb()
+    return (sum(float(mem[i]) for i in ids if i != rt_id)
+            < placement.task.min_memory_gb)
+
+
+@contextlib.contextmanager
+def _placement_marks(K):
+    """Splits ``scaled_spmm``'s launches at ``HulkPlacement``'s events: each
+    construction (the runtime's plan and the first scores, with the hosts
+    it chose) and each host failure (its recovery, with whether it had to
+    re-plan through the GNN)."""
+    from repro_torch.serve import router
+
+    marks = {"placements": [], "failures": []}
+    orig_init = router.HulkPlacement.__init__
+    orig_failed = router.HulkPlacement.on_machine_failed
+
+    def init(self, *args, **kwargs):
+        before = K.LAUNCHES["scaled_spmm"]
+        orig_init(self, *args, **kwargs)
+        marks["placements"].append(dict(
+            launches=K.LAUNCHES["scaled_spmm"] - before,
+            hosts=list(self.active)))
+
+    def failed(self, machine_id):
+        must = _must_replan(self, machine_id)
+        before = K.LAUNCHES["scaled_spmm"]
+        orig_failed(self, machine_id)
+        marks["failures"].append(dict(
+            machine=machine_id, must_replan=must,
+            launches=K.LAUNCHES["scaled_spmm"] - before))
+
+    router.HulkPlacement.__init__ = init
+    router.HulkPlacement.on_machine_failed = failed
+    try:
+        yield marks
+    finally:
+        router.HulkPlacement.__init__ = orig_init
+        router.HulkPlacement.on_machine_failed = orig_failed
+
+
+def _check_failures(marks, where: str) -> None:
+    """A host failure launches the kernel exactly when its recovery must
+    re-plan through the GNN, and in whole forwards (3 launches each)."""
+    for f in marks["failures"]:
+        check(f["launches"] % 3 == 0
+              and (f["launches"] > 0) == f["must_replan"],
+              f"{where}: the failure of host {f['machine']} launched "
+              f"{f['launches']} (must re-plan: {f['must_replan']})")
+
+
+def phase_serve_scenarios(device) -> int:
+    """The serving comparison (``serve/evaluate.py::evaluate_all_serve``):
+    nearest, least_loaded and Hulk on the three ``SERVE_SCENARIOS``. The
+    serve GNN is trained on the card by ``serve_gnn``, then its cache entry
+    is seeded with ``use_pallas=True``, so ``HulkPlacement``'s runtime and
+    scores aggregate through ``scaled_spmm``. Run 1 evaluates one scenario
+    at a time (launches zeroed before each, read after), run 2 all three in
+    one ``evaluate_all_serve``; they must be equal. One more pass with the
+    plain cfg says whether the Hulk rows agree, and where they do not, the
+    first field that differs and the score gap behind it."""
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.serve import evaluate as se
+    from repro_torch.sim import evaluate as ev
+    from repro_torch.sim import scenarios as sc
+
+    names = sorted(sc.SERVE_SCENARIOS)
+    gnns, train_s = {}, {}
+    for name in names:
+        scn = sc.get_serve_scenario(name)
+        key = _serve_key(scn.model, scn.n_replicas)
+        if key not in gnns:
+            params, cfg, kcfg, train_s[key[0][0]] = _serve_gnn_fused(
+                device, scn.model, scn.n_replicas)
+            gnns[key] = (params, cfg, kcfg)
+
+    per, first, launches = {}, {}, 0
+    for name in names:
+        scn = sc.get_serve_scenario(name)
+        K.reset_launches()
+        with _placement_marks(K) as marks:
+            t0 = time.perf_counter()
+            first[name] = se.evaluate_serve_scenario(scn, seed=0)
+            wall = time.perf_counter() - t0
+        n = K.LAUNCHES["scaled_spmm"]
+        launches += n
+        row = first[name]
+        check(n > 0 and n % 3 == 0,
+              f"scaled_spmm launches {n} in {name}'s Hulk run")
+        _check_failures(marks, name)
+        check(all(row[p]["n_completed"] > 0 for p in SERVE_POLICIES),
+              f"{name}: a policy completed no request")
+        params, _, kcfg = gnns[_serve_key(scn.model, scn.n_replicas)]
+        per[name] = dict(
+            wall_s=wall, launches=n,
+            launches_placement=[m["launches"] for m in marks["placements"]],
+            failures=marks["failures"], n_requests=row["n_requests"],
+            slo_s=row["slo_s"],
+            policies={p: _serve_summary(row[p]) for p in SERVE_POLICIES},
+            hulk_vs_nearest=row["hulk_vs_nearest"],
+            **_score_gap(scn.model, params, kcfg, scn.fleet(0)))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    second = se.evaluate_all_serve(seed=0)
+    all_s = time.perf_counter() - t0
+    check(K.LAUNCHES["scaled_spmm"] == launches,
+          f"evaluate_all_serve launched {K.LAUNCHES['scaled_spmm']}, "
+          f"the scenarios one by one {launches}")
+    same = (json.dumps(first, sort_keys=True, default=float)
+            == json.dumps(second, sort_keys=True, default=float))
+    check(same, "two evaluate_all_serve runs differ")
+    for key, (params, cfg, _) in gnns.items():
+        ev._GNN_CACHE[key] = (params, cfg)
+    plain = se.evaluate_all_serve(seed=0)
+    for key, (params, _, kcfg) in gnns.items():
+        ev._GNN_CACHE[key] = (params, kcfg)
+    for name in names:
+        diff = _first_diff(plain[name]["hulk"], first[name]["hulk"])
+        per[name]["hulk_equal_plain"] = diff is None
+        if diff is not None:
+            per[name]["hulk_first_diff_plain"] = diff
+    emit("serve_scenarios", serve_gnn_train_s=train_s,
+         evaluate_all_serve_s=all_s, runs_equal=same, launches=launches,
+         scenarios=per, table=se.serve_comparison_table(second))
+    return launches
+
+
+def phase_colocated(device) -> int:
+    """Both tenants on one fabric (``sim/colocate.py::run_colocated``): the
+    three ``COLOCATED_SCENARIOS`` under each serve policy, the training
+    tenant placed by ``HulkPlacer`` (``train_placer="hulk"``), the serving
+    tenant by ``HulkPlacement`` under the hulk policy. Both GNNs are trained
+    on the card and seeded with ``use_pallas=True``; launches are zeroed
+    before each run and read after it."""
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.sim import colocate as co
+    from repro_torch.sim import evaluate as ev
+    from repro_torch.sim import scenarios as sc
+
+    runs, train_s, launches = {}, {}, 0
+    for name in sorted(sc.COLOCATED_SCENARIOS):
+        scn = sc.get_colocated_scenario(name)
+        _serve_gnn_fused(device, scn.model, scn.n_replicas)
+        tasks = list(scn.tasks)
+        t0 = time.perf_counter()
+        ev.trained_gnn(tasks, seed=0, label_mode=scn.label_mode,
+                       jitter=scn.jitter, comm_model=scn.comm_model,
+                       device=device)
+        train_s[name] = time.perf_counter() - t0
+        names = tuple(t.name for t in tasks)
+        _seed_fused(ev, (names, 0, "sim", scn.jitter, None, scn.comm_model)
+                    if scn.label_mode == "sim" else (names, 0, "analytic"))
+        for policy in SERVE_POLICIES:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = co.run_colocated(scn, policy, seed=0, train_placer="hulk")
+            wall = time.perf_counter() - t0
+            n = K.LAUNCHES["scaled_spmm"]
+            launches += n
+            co.check_colocated_invariants(res, scn)
+            check(n > 0 and n % 3 == 0,
+                  f"scaled_spmm launches {n} in {name}/{policy}")
+            runs[f"{name}/{policy}"] = dict(
+                wall_s=wall, launches=n, invariants_hold=True,
+                serve=_serve_summary(res["serve"].as_dict()),
+                train_makespan_s=res["train"].makespan,
+                train_hosts=res["train_hosts"], serve_hosts=res["serve_hosts"],
+                overlap=len(res["overlap"]))
+    emit("colocated", label_modes={n: sc.get_colocated_scenario(n).label_mode
+                                   for n in sorted(sc.COLOCATED_SCENARIOS)},
+         train_gnn_s=train_s, runs=runs, launches=launches)
+    return launches
+
+
+def phase_chaos() -> int:
+    """The robustness suites: ``chaos.fuzz`` over 25 random fault plans (host
+    only: both serving paths, determinism, fast == reference plane,
+    exactly-once), the controller suite ``chaos.fuzz_controller`` over the
+    drift scenarios (its GNNs, from the ``sim_scenarios`` and
+    ``drift_controller`` phases, seeded with ``use_pallas=True``; launches
+    zeroed before and read after), and ``generate.fuzz_one`` on seeds 0-2
+    (each generated scenario's declared invariants). Every suite raises on
+    its first violation."""
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.sim import chaos
+    from repro_torch.sim import evaluate as ev
+    from repro_torch.sim import generate
+    from repro_torch.sim import scenarios as sc
+
+    t0 = time.perf_counter()
+    fz = chaos.fuzz(n_seeds=25, log=lambda line: None)
+    fuzz_s = time.perf_counter() - t0
+    check(fz["violations"] == 0 and len(fz["cases"]) == 25,
+          f"chaos.fuzz: {fz['violations']} violations")
+    for name in sorted(sc.DRIFT_SCENARIOS):
+        scn = sc.get_drift_scenario(name)
+        names = tuple(t.name for t in scn.tasks)
+        key = ((names, 0, "sim", scn.jitter, scn.traffic, scn.comm_model)
+               if scn.label_mode == "sim" else (names, 0, "analytic"))
+        check(key in ev._GNN_CACHE and ev._GNN_CACHE[key][1].use_pallas,
+              f"{name}'s GNN is not cached with use_pallas")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ctl = chaos.fuzz_controller(seed=0, log=lambda line: None)
+    controller_s = time.perf_counter() - t0
+    launches = K.LAUNCHES["scaled_spmm"]
+    check(ctl["violations"] == 0, "chaos.fuzz_controller found a violation")
+    check(launches > 0 and launches % 3 == 0,
+          f"scaled_spmm launches {launches} in fuzz_controller")
+    generated = {}
+    for seed in range(3):
+        t0 = time.perf_counter()
+        out = generate.fuzz_one(seed)
+        check(bool(out["invariants"]), f"generated seed {seed} declares none")
+        generated[out["name"]] = dict(kind=out["kind"],
+                                      invariants=out["invariants"],
+                                      wall_s=time.perf_counter() - t0)
+    naive = [c["naive"] for c in fz["cases"]]
+    resil = [c["resilient"] for c in fz["cases"]]
+    emit("chaos", fuzz_seeds=len(fz["cases"]), fuzz_s=fuzz_s,
+         violations=fz["violations"],
+         offered=sum(c["offered"] for c in naive),
+         completed_naive=sum(c["completed"] for c in naive),
+         completed_resilient=sum(c["completed"] for c in resil),
+         controller_s=controller_s, controller_cases=ctl["cases"],
+         launches=launches, generated=generated)
+    return launches
+
+
+SERVE_1024 = dict(nodes=1024, fleet_seed=7, scenario="serve_replica_failure",
+                  rate_rps=20.0, n_replicas=8, max_replicas=12,
+                  fault_fracs=(0.4,), seed=0)
+
+
+def phase_serve_1024(device) -> int:
+    """GNN-placed serving at fleet scale: ``random_fleet(1024, seed=7)`` with
+    ``serve_replica_failure``'s model (chat-34b), traffic builder and SLO at
+    20 requests/s over its 300 s horizon, 8 replicas, its autoscaler up to
+    12 within the fleet (no spare machines: a join prices two 1025-node
+    all-pairs Dijkstras), one replica killed at 40% of the run; the hulk
+    policy only, through ``run_serve``. The serve GNN is trained on the card
+    and seeded with ``use_pallas=True``. Launches are split into the
+    placement (the runtime's plan and the first scores), the fault's
+    recovery (which re-plans through the GNN exactly when the lost host
+    leaves the serve group below its memory floor), and the rest; the hosts
+    the fused scores choose must equal those the plain scores choose."""
+    import numpy as np
+
+    from repro_torch.core.graph import random_fleet
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    from repro_torch.serve import evaluate as se
+    from repro_torch.serve import router
+    from repro_torch.sim import scenarios as sc
+
+    c = SERVE_1024
+    base = sc.get_serve_scenario(c["scenario"])
+    fleet = random_fleet(c["nodes"], seed=c["fleet_seed"])
+    traffic = dataclasses.replace(base.traffic(fleet), rate_rps=c["rate_rps"])
+    scn = dataclasses.replace(
+        base, name="serve_1024", fleet=lambda seed: fleet,
+        traffic=lambda graph: traffic, n_replicas=c["n_replicas"],
+        autoscale=dataclasses.replace(base.autoscale,
+                                      max_replicas=c["max_replicas"]),
+        fault_fracs=c["fault_fracs"], spares=())
+    params, cfg, kcfg, train_s = _serve_gnn_fused(device, scn.model,
+                                                  scn.n_replicas)
+
+    K.reset_launches()
+    with _placement_marks(K) as marks:
+        t0 = time.perf_counter()
+        res, _ = se.run_serve(scn, "hulk", seed=c["seed"])
+        wall = time.perf_counter() - t0
+    launches = K.LAUNCHES["scaled_spmm"]
+    check(len(marks["placements"]) == 1,
+          f"{len(marks['placements'])} Hulk placements")
+    fused_hosts = marks["placements"][0]["hosts"]
+    fault = sum(f["launches"] for f in marks["failures"])
+    split = {"placement": marks["placements"][0]["launches"],
+             "fault_replan": fault,
+             "rest": launches - marks["placements"][0]["launches"] - fault}
+
+    plain = _serve_scores(scn.model, params, cfg, fleet)
+    fused = _serve_scores(scn.model, params, kcfg, fleet)
+    elig = router._eligible(fleet, scn.model)
+    plain_hosts = sorted(elig, key=lambda i: (-float(plain[i]), i))
+    plain_hosts = plain_hosts[:c["n_replicas"]]
+    ranked = np.sort(plain[elig])[::-1]
+    emit("serve_1024", **c, requests=res.n_requests, wall_s=wall,
+         serve_gnn_train_s=train_s, events=res.n_events,
+         events_per_s=res.n_events / wall,
+         **_serve_summary(res.as_dict()), n_incomplete=res.n_incomplete,
+         scale_events=res.scale_events, final_replicas=res.final_replicas,
+         failures=marks["failures"], launches=launches, launches_split=split,
+         hosts_fused=fused_hosts, hosts_plain=plain_hosts,
+         scores_max_abs_diff=float(np.abs(fused - plain).max()),
+         host_margin=float(ranked[c["n_replicas"] - 1]
+                           - ranked[c["n_replicas"]]))
+    check(res.n_completed > 0 and math.isfinite(res.p95_s),
+          "the 1024-node serving run completed nothing")
+    check(marks["failures"], "the fault never reached the placement")
+    _check_failures(marks, "serve_1024")
+    check(all(n % 3 == 0 for n in split.values()) and split["placement"] > 0,
+          f"scaled_spmm launches {split} around the fault")
+    check(fused_hosts == plain_hosts,
+          f"fused hosts {fused_hosts} != plain hosts {plain_hosts}")
     return launches
 
 
@@ -1569,7 +1967,8 @@ def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
              "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py",
-             "tests/test_torch_sim_eval_gpu.py"]
+             "tests/test_torch_sim_eval_gpu.py",
+             "tests/test_torch_serve_sim_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -1630,6 +2029,12 @@ def main() -> None:
     l_sim = {"sim_scenarios": phase_sim_scenarios(device),
              "drift_controller": phase_drift_controller(),
              "sim_1024": phase_sim_1024(params1024, kcfg1024)}
+    # 4d. GNN-placed serving, colocation, the chaos suites and serving at
+    # 1024 nodes; counts zeroed before and read after each run
+    l_sim.update(serve_scenarios=phase_serve_scenarios(device),
+                 colocated=phase_colocated(device),
+                 chaos=phase_chaos(),
+                 serve_1024=phase_serve_1024(device))
     # 5. gcn_spmm times
     card = card_identity()
     from repro_torch.sim import scenarios as sc

@@ -5,18 +5,22 @@ Replays training schedules produced by ``core.assign`` /
 ``core.placement.plan_runtime`` over a ``ClusterGraph``, modeling per-link
 bandwidth with fair-share contention, per-machine compute with straggler
 jitter, pipeline bubbles, DP parameter-server sync, TP all-reduce rings, and
-fault events that trigger ``runtime.elastic`` re-planning mid-run; scores
-Hulk against Systems A/B/C on the scenario registry and runs the drift
-scenarios under the online re-planning controller. Pure numpy/scipy, copied
+fault events that trigger ``runtime.elastic`` re-planning mid-run; serves
+requests through ``workload.ServeExecutor``; scores Hulk against Systems
+A/B/C on the scenario registry, runs the drift scenarios under the online
+re-planning controller, colocates a training and a serving tenant
+(``colocate``), and fuzzes fault plans (``chaos``) and generated scenarios
+(``generate``) against the simulator's invariants. Pure numpy/scipy, copied
 from the reference, so a run gives the same numbers, events and traces; the
-Hulk arm's GNN runs on whatever device its params lie.
+Hulk GNNs run on whatever device their params lie.
 
-Not ported yet, so not exported: the serving request executor
-(``workload.ServeExecutor``, with the rest of ``serve/``), chaos
-(``chaos.py``), colocation (``colocate.py``) and the scenario generator
-(``generate.py``). The serving and colocated scenarios register their data
-here, but running them needs those modules.
+Calibration contract: with no contention, no jitter and no faults, the
+simulated per-step time of each parallelism strategy equals the analytic
+``core.cost_model`` prediction.
 """
+from repro_torch.sim.colocate import (TenantCompute, canonical_colocated,
+                                      check_colocated_invariants,
+                                      run_colocated)
 from repro_torch.sim.compute import ComputeModel, JitterConfig
 from repro_torch.sim.engine import Simulator
 from repro_torch.sim.evaluate import (FleetSimulation, SimResult,
@@ -24,6 +28,9 @@ from repro_torch.sim.evaluate import (FleetSimulation, SimResult,
                                       evaluate_scenario, observed_telemetry,
                                       observed_telemetry_live,
                                       run_drift_scenario, simulate_single)
+from repro_torch.sim.generate import (ENVELOPE, approx_params,
+                                      check_scenario, declared_invariants,
+                                      generate_scenario, generated_scenarios)
 from repro_torch.sim.faults import (FaultPlan, GrayFailure, LinkDegradation,
                                     MachineCrash, MachineFlap, RegionPartition,
                                     RegionPreemption, compile_plan,
@@ -41,17 +48,22 @@ from repro_torch.sim.scenarios import (COLOCATED_SCENARIOS, DRIFT_SCENARIOS,
                                        temporary_registration, unregister,
                                        unregister_colocated, unregister_drift,
                                        unregister_scenario, unregister_serve)
+from repro_torch.sim.workload import ServeExecutor
 
 __all__ = [
     "Simulator", "NetworkModel", "ComputeModel", "JitterConfig",
     "Scenario", "SCENARIOS", "register", "get_scenario",
     "ServeScenario", "SERVE_SCENARIOS", "register_serve",
-    "get_serve_scenario",
+    "get_serve_scenario", "ServeExecutor",
     "DriftScenario", "DRIFT_SCENARIOS", "register_drift",
     "get_drift_scenario", "unregister_drift", "run_drift_scenario",
     "ColocatedScenario", "COLOCATED_SCENARIOS", "register_colocated",
     "get_colocated_scenario", "unregister_colocated",
     "register_scenario", "unregister_scenario",
+    "run_colocated", "canonical_colocated", "check_colocated_invariants",
+    "TenantCompute",
+    "generate_scenario", "generated_scenarios", "check_scenario",
+    "declared_invariants", "approx_params", "ENVELOPE",
     "unregister", "unregister_serve", "temporary_registration",
     "FaultPlan", "MachineCrash", "RegionPreemption", "LinkDegradation",
     "RegionPartition", "GrayFailure", "MachineFlap",

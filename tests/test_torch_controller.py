@@ -18,21 +18,18 @@ import dataclasses
 import functools
 import json
 import math
-import re
 
-import jax
-import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
+from _torch_parity import PORT_UNCOUNTED, port_metrics, seed_scenario_gnn
 from repro import obs as jobs
 from repro.sim import evaluate as jev
 from repro.sim import scenarios as jsc
 from repro.sim.chaos import canonical_fleet
 from repro_torch import obs as tobs
-from repro_torch.core import gnn as tgnn
 from repro_torch.obs import NULL
 from repro_torch.obs.monitors import Alert, DriftConfig
 from repro_torch.runtime.controller import ControllerConfig, ReplanController
@@ -42,29 +39,11 @@ from repro_torch.sim import scenarios as tsc
 DRIFT = DriftConfig(min_samples=2, cooldown_s=0.0, slowdown_threshold=2.0,
                     latency_metric="sim.step_s")
 MODES = ("static", "guarded", "unguarded")
-_PORT_UNCOUNTED = re.compile(r"plan\.jit\.bucket\d+\.(compiles|cache_hits)$")
-
-
-def _seed_port_gnn(name: str) -> None:
-    """The reference's GNN for a drift scenario, under the port's key."""
-    ref_scn, port_scn = jsc.get_drift_scenario(name), tsc.get_drift_scenario(name)
-    mode = ref_scn.label_mode
-    params, cfg = jev.trained_gnn(list(ref_scn.tasks), seed=0, label_mode=mode,
-                                  jitter=ref_scn.jitter,
-                                  traffic=ref_scn.traffic,
-                                  comm_model=ref_scn.comm_model)
-    names = tuple(t.name for t in port_scn.tasks)
-    key = ((names, 0, mode, port_scn.jitter, port_scn.traffic,
-            port_scn.comm_model) if mode == "sim" else (names, 0, mode))
-    tev._GNN_CACHE[key] = (
-        tgnn.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
-        tgnn.GNNConfig(**dataclasses.asdict(cfg)))
-
-
 @pytest.fixture(scope="module", autouse=True)
 def seeded():
     for name in sorted(jsc.DRIFT_SCENARIOS):
-        _seed_port_gnn(name)
+        ref = jsc.get_drift_scenario(name)
+        seed_scenario_gnn(ref, tsc.get_drift_scenario(name), ref.label_mode)
 
 
 def _alert(t: float = 0.0) -> Alert:
@@ -318,11 +297,9 @@ def test_drift_run_matches_reference(name, mode):
     assert (tctl is None) == (jctl is None)
     if tctl is not None:
         assert tctl.summary() == jctl.summary()
-    assert not any(_PORT_UNCOUNTED.match(k) for k in tres.metrics)
-    want = {k: v for k, v in jres.metrics.items()
-            if not _PORT_UNCOUNTED.match(k)}
+    assert not any(PORT_UNCOUNTED.match(k) for k in tres.metrics)
     assert json.dumps(tres.metrics, sort_keys=True) \
-        == json.dumps(want, sort_keys=True)
+        == json.dumps(port_metrics(jres.metrics), sort_keys=True)
     assert tres.n_events == jres.n_events
     assert tres.bytes_moved == jres.bytes_moved
 

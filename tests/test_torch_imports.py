@@ -22,6 +22,9 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
 from repro_torch.runtime import ElasticRuntime
+from repro_torch.serve import evaluate as tse
+from repro_torch.serve.costs import serve_model_from_task
+from repro_torch.serve.router import HulkPlacement
 from repro_torch.sim import evaluate as tev
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -63,8 +66,42 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.runtime.controller", "repro_torch.sim.workload",
               "repro_torch.sim.scenarios", "repro_torch.sim.evaluate",
               "repro_torch.serve", "repro_torch.serve.traffic",
-              "repro_torch.serve.costs", "repro_torch.serve.autoscale"):
+              "repro_torch.serve.costs", "repro_torch.serve.autoscale",
+              *SLICE_MODULES):
         assert m in mods, m
+
+
+# The serving executor's slice: each module imported alone, as the first
+# import of a fresh interpreter, so an import cycle between ``sim`` and
+# ``serve`` (``sim.scenarios`` reaches ``serve`` at import, ``colocate`` and
+# ``generate`` reach back into ``sim``) shows here.
+SLICE_MODULES = (
+    "repro_torch.serve.resilience", "repro_torch.serve.replica",
+    "repro_torch.serve.router", "repro_torch.sim.workload",
+    "repro_torch.serve.evaluate", "repro_torch.serve",
+    "repro_torch.sim.chaos", "repro_torch.sim.colocate",
+    "repro_torch.sim.generate", "repro_torch.sim",
+)
+
+_IMPORT_ONE = """
+import importlib, sys
+mod = importlib.import_module(sys.argv[1])
+for name in getattr(mod, "__all__", ()):
+    getattr(mod, name)
+bad = [m for m in sys.modules
+       if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_serving_slice_module_imports_alone_without_jax_or_repro(module):
+    """Every export resolves too: ``serve``'s lazy names load their
+    submodules, which must not re-enter a half-built ``repro_torch.sim``."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 # The lazy imports inside function bodies (sim/evaluate.py's labels import,
@@ -84,9 +121,22 @@ res, ctl = ev.run_drift_scenario(drift, "guarded")
 assert ctl.summary()["replans"] >= 1, ctl.summary()
 row = ev.evaluate_scenario(sc.get_scenario("cross_region_wan"))
 assert row["Hulk"]["makespan_s"] < float("inf"), row
+# the serving slice's lazy imports: a Hulk serve run, a chaos case, a
+# colocated run and a generated scenario's checks
+from repro_torch.serve import evaluate as se
+from repro_torch.sim import chaos, colocate, generate
+scn = sc.get_serve_scenario("serve_replica_failure")
+se.serve_gnn(scn.model, scn.n_replicas, device="cpu")
+served, _ = se.run_serve(scn, "hulk")
+assert served.n_completed > 0, served
+chaos.fuzz_one(0, check_planes=False)
+colocate.run_colocated(sc.get_colocated_scenario("colo_wan_steady"),
+                       "least_loaded", train_placer="greedy")
+generate.check_scenario(generate.generate_scenario(1), planes=False)
 for name in ("repro_torch.core.labels", "repro_torch.runtime.controller",
              "repro_torch.serve.costs", "repro_torch.serve.traffic",
-             "repro_torch.serve.autoscale"):
+             "repro_torch.serve.autoscale", "repro_torch.serve.resilience",
+             "repro_torch.serve.router", "repro_torch.serve.replica"):
     assert name in sys.modules, name
 bad = [m for m in sys.modules
        if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
@@ -129,6 +179,11 @@ ENTRY_POINTS = {
         tgnn.params_to_numpy(tgnn.init(cfg, ex.feats.shape[1], device="cpu"))),
     # the evaluator's GNN as a user trains one (a seed no test caches)
     "trained_gnn": lambda *_: tev.trained_gnn(tcm.FOUR_TASKS[1:3], seed=97),
+    # the serving GNN as a user trains one, and a Hulk placement over params
+    # at their default device
+    "serve_gnn": lambda *_: tse.serve_gnn(_CHAT, 2, seed=97),
+    "HulkPlacement": lambda cfg, g, ex: HulkPlacement(
+        g, _CHAT, 2, tgnn.init(cfg, ex.feats.shape[1]), cfg),
     "lm.init_params": lambda *_: tdlm.init_params(_lm_cfg()),
     "lm.params_from_numpy": lambda *_: tdlm.params_from_numpy(
         tdlm.params_to_numpy(tdlm.init_params(_lm_cfg(), device="cpu"))),
@@ -142,6 +197,10 @@ ENTRY_POINTS = {
     "train_loop": lambda *_: ttrain_launch.train_loop(_lm_cfg(), 1, 1, 8),
     "train.main": lambda *_: ttrain_launch.main(["--arch", "gemma3-1b", "--smoke"]),
 }
+
+
+_CHAT = serve_model_from_task(tcm.ModelTask("Chat-34B", 34e9, 60, 7168),
+                              name="chat-34b", decode_efficiency=0.01)
 
 
 def _lm_cfg():

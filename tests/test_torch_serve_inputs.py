@@ -124,12 +124,21 @@ def test_serve_model_from_config_is_not_ported():
 
 
 def test_serve_package_exports_only_the_ported_modules():
+    """Every module of the reference's ``serve`` is ported now: the package
+    exports the reference's names, each from the submodule of the same
+    name, and nothing else."""
+    import importlib
+
+    import repro.serve as jserve
     assert tserve.ServeModel is tcosts.ServeModel
     assert tserve.Autoscaler is tautoscale.Autoscaler
     assert tserve.generate is ttraffic.generate
-    for name in ("Replica", "Router", "ServeResult", "RetryPolicy"):
-        with pytest.raises(AttributeError):
-            getattr(tserve, name)
+    assert tserve._EXPORTS == jserve._EXPORTS
+    for name, submodule in tserve._EXPORTS.items():
+        home = importlib.import_module(f"repro_torch.serve.{submodule}")
+        assert getattr(tserve, name) is getattr(home, name), name
+    with pytest.raises(AttributeError):
+        getattr(tserve, "NotAServeName")
 
 
 class _Clock:

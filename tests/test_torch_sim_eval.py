@@ -11,17 +11,16 @@ forward does not count. Every ``FleetSimulation`` run is also compared
 through ``repro.sim.chaos.canonical_fleet`` and field by field.
 """
 import dataclasses
-import json
 import math
-import re
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
+from _torch_parity import (PORT_UNCOUNTED, as_json, port_metrics,
+                           seed_scenario_gnn)
 from repro.core import graph as jgraph
 from repro.core import train as jtrain
 from repro.sim import evaluate as jev
@@ -40,38 +39,6 @@ from repro_torch.sim.compute import JitterConfig as TJitter
 from repro_torch.sim.network import NetworkModel as TNet
 
 SYSTEMS = ("Hulk", "SystemA", "SystemB", "SystemC")
-_PORT_UNCOUNTED = re.compile(r"plan\.jit\.bucket\d+\.(compiles|cache_hits)$")
-
-
-def seed_port_gnn(ref_scn, port_scn, label_mode):
-    """Train the reference's GNN for a scenario (through its own cache) and
-    put its params into the port's cache under the port's key (built from
-    the port's scenario: traffic builders hash by identity)."""
-    params, cfg = jev.trained_gnn(list(ref_scn.tasks), seed=0,
-                                  label_mode=label_mode,
-                                  jitter=ref_scn.jitter,
-                                  traffic=ref_scn.traffic,
-                                  comm_model=ref_scn.comm_model)
-    names = tuple(t.name for t in port_scn.tasks)
-    key = ((names, 0, label_mode, port_scn.jitter, port_scn.traffic,
-            port_scn.comm_model) if label_mode == "sim"
-           else (names, 0, label_mode))
-    tev._GNN_CACHE[key] = (
-        tgnn.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
-        tgnn.GNNConfig(**dataclasses.asdict(cfg)))
-    return params, cfg
-
-
-def port_metrics(ref_metrics: dict) -> dict:
-    """The reference's metrics without the names the port does not count."""
-    return {k: v for k, v in ref_metrics.items()
-            if not _PORT_UNCOUNTED.match(k)}
-
-
-def as_json(x) -> str:
-    return json.dumps(x, sort_keys=True, default=float)
-
-
 def result_fields(res) -> dict:
     return {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
 
@@ -111,7 +78,7 @@ def _logit_note(ref_params, ref_cfg, name: str) -> str:
 @pytest.fixture(scope="module")
 def evaluated():
     """``evaluate_all(seed=0)`` in both packages, each arm's run kept."""
-    ref_params, ref_cfg = seed_port_gnn(jsc.get_scenario("cross_region_wan"),
+    ref_params, ref_cfg = seed_scenario_gnn(jsc.get_scenario("cross_region_wan"),
                                         tsc.get_scenario("cross_region_wan"),
                                         "analytic")
     ref, ref_runs = _captured_runs(jev, lambda: jev.evaluate_all(seed=0))
@@ -133,7 +100,7 @@ def test_evaluate_scenario_rows_match_reference(evaluated, name, system):
     jres, tres = runs[name, system]
     assert tres.system == jres.system
     assert canonical_fleet(tres) == canonical_fleet(jres), note
-    assert not any(_PORT_UNCOUNTED.match(k) for k in tres.metrics)
+    assert not any(PORT_UNCOUNTED.match(k) for k in tres.metrics)
     jfields = dict(result_fields(jres), metrics=port_metrics(jres.metrics))
     assert as_json(result_fields(tres)) == as_json(jfields), note
     jrow = dict(jrow, metrics=port_metrics(jrow.get("metrics", {})))
@@ -160,7 +127,7 @@ def test_comparison_table_text_matches_reference(evaluated):
 def test_sim_labeled_hulk_matches_reference_on_straggler_heavy():
     """``label_mode="sim"``: v2 features with observed telemetry and the
     sim-refined placement polish (``HulkPlacer(sim_refine=True)``)."""
-    seed_port_gnn(jsc.get_scenario("straggler_heavy"),
+    seed_scenario_gnn(jsc.get_scenario("straggler_heavy"),
                   tsc.get_scenario("straggler_heavy"), "sim")
     jrow = jev.evaluate_scenario(jsc.get_scenario("straggler_heavy"), seed=0,
                                  label_mode="sim")
