@@ -20,7 +20,10 @@ chaos, controller and generator suites, and serves the 1024-node fleet at
 through ``gcn_spmm`` in each; serving gemma3-1b (26 layers,
 d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
-decode step; and training the same model (batch 4 x 1024 tokens, remat on,
+decode step; serving olmoe-1b-7b at full width (16 layers, 64 experts top-8,
+bf16) the same way, deepseek-v2 at full width cut to 2 layers (MLA in the
+plain and the absorbed order, 160 experts top-6), and jamba-1.5-large and
+xlstm-125m reduced and xlstm-125m at full size; and training the same model (batch 4 x 1024 tokens, remat on,
 chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
 times every kernel beside its plain version, a one-call library yardstick
@@ -49,6 +52,12 @@ fused against plain hosts) -> gcn_spmm times and a bit-for-bit repeat at
 buckets 1024 and 2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
+olmoe-1b-7b serve (launch counts, a repeat call, graphed vs eager,
+profiles, fp32 kernels vs plain: the routing decisions compared layer by
+layer, then the logits on the rows no routing flip reached) -> deepseek-v2
+serve (2 layers, both MLA orders graphed, the fp32 orders' tokens, routing
+and logits) -> the small families (jamba and xlstm reduced, xlstm at full
+size; graphed vs eager, jamba's kernel launches) ->
 attention times (decode also per call inside a graph and from HBM) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
@@ -58,7 +67,10 @@ Launch counts on the serve path, zeroed just before the 64-token call and
 read just after it: 26 ``flash_attention`` (one prefill of 26 layers) and
 26 x 64 = 1,664 ``decode_attention``: the eager warm-up step before the
 capture (26), then 63 replays of a graph that holds one step (26 each);
-the capture itself runs nothing. On the train path, zeroed just before
+the capture itself runs nothing. On olmoe-1b-7b's serve path, zeroed the
+same way: 16 ``flash_attention`` and 16 x 64 = 1,024 ``decode_attention``;
+on reduced jamba's (2 attention layers, 16 generated) 2 and 32;
+deepseek-v2 and xlstm launch neither. On the train path, zeroed just before
 the 6 straight steps and read just after: 26 x 2 x 6 = 312
 ``flash_attention`` (each layer's forward and its recompute under remat)
 and 26 x 6 = 156 ``flash_attention_bwd``.
@@ -1489,25 +1501,14 @@ def phase_serve(torch, device, FK, DK) -> dict:
     cfg = get_config(SERVE["arch"])
     b, s, gen_n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     max_len = s + gen_n
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = dlm.init_params(cfg, seed=SERVE["seed"], device=device)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
                                             seed=SERVE["seed"]), 0)
-    _, cold = serve.serve_batch(cfg, params, batch, 2, log=lambda *_: None)
-    torch.cuda.synchronize()
-    allocated = [torch.cuda.memory_allocated()]
-
-    FK.reset_launches()
-    DK.reset_launches()
-    gen, stats = serve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
-    launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
-                "decode_attention": DK.LAUNCHES["decode_attention"]}
-    peak = torch.cuda.max_memory_allocated()
-    torch.cuda.synchronize()
-    allocated.append(torch.cuda.memory_allocated())
+    run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    gen, stats, launches = run["gen"], run["stats"], run["launches"]
     n_layers = cfg.n_layers
     # one eager warm-up step before the capture, then gen_n - 1 replays of a
     # graph that holds one step: n_layers decode launches per step, gen_n
@@ -1516,18 +1517,6 @@ def phase_serve(torch, device, FK, DK) -> dict:
                        "decode_attention": n_layers * gen_n},
           f"serve launches {launches}, want {n_layers} flash and "
           f"{n_layers * gen_n} decode")
-    check(gen.shape == (b, gen_n) and ((gen >= 0) & (gen < cfg.vocab_size)).all(),
-          f"generated tokens of shape {gen.shape} out of range")
-    # a repeat call: the graph and its pool are released, memory does not grow
-    torch.cuda.reset_peak_memory_stats()
-    gen_again, stats_again = serve.serve_batch(cfg, params, batch, gen_n,
-                                               log=lambda *_: None)
-    peak_again = torch.cuda.max_memory_allocated()
-    torch.cuda.synchronize()
-    allocated.append(torch.cuda.memory_allocated())
-    check(max(allocated[1:]) <= allocated[0],
-          f"device memory after serve calls grows: {allocated}")
-    check((gen_again == gen).all(), "a repeat serve call generated other tokens")
     tokens = torch.as_tensor(batch["tokens"], device=device)
     fed = torch.as_tensor(gen, device=device)
     g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen,
@@ -1576,12 +1565,11 @@ def phase_serve(torch, device, FK, DK) -> dict:
          batch=b, prompt_tokens=s, gen_tokens=gen_n, max_len=max_len,
          prefill_tokens_per_s=stats["prefill_tokens_per_s"],
          decode_tokens_per_s=stats["tokens_per_s"], prefill_s=stats["prefill_s"],
-         decode_s=stats["decode_s"], cold_prefill_s=cold["prefill_s"],
+         decode_s=stats["decode_s"], cold_prefill_s=run["cold"]["prefill_s"],
          decode_capture_s=stats["decode_capture_s"],
-         repeat_call={k: stats_again[k] for k in (
-             "prefill_tokens_per_s", "tokens_per_s", "decode_capture_s")},
-         peak_mem_bytes=peak, peak_mem_bytes_repeat_call=peak_again,
-         allocated_bytes_after_calls=allocated, launches=launches,
+         repeat_call=run["repeat_call"], peak_mem_bytes=run["peak_mem_bytes"],
+         peak_mem_bytes_repeat_call=run["peak_mem_bytes_repeat_call"],
+         allocated_bytes_after_calls=run["allocated"], launches=launches,
          fp32_prefill_logits_max_abs_err_kernels_vs_plain=err32_prefill,
          fp32_decode_logits_max_abs_err_kernels_vs_plain=err32_decode,
          fp32_tol=tol32,
@@ -1607,17 +1595,411 @@ def phase_serve(torch, device, FK, DK) -> dict:
     return launches
 
 
+# -- the MoE, MLA, Mamba and xLSTM families -----------------------------------
+OLMOE = dict(arch="olmoe-1b-7b", batch=4, prompt=1024, gen=64, seed=0)
+DEEPSEEK = dict(arch="deepseek-v2-236b", batch=4, prompt=512, gen=32, seed=0)
+# A token whose expert choices differ between two runs is a near tie when
+# its router margin (the least gap between neighbours among its k + 1
+# largest probabilities) is below NEAR_TIE in either run: fp32 noise of
+# ~1e-6 in the router logits moves a probability by ~1e-8. A flip above it,
+# at a token no earlier flip reached, fails.
+NEAR_TIE = 1e-5
+# A flip changes its token's expert, a capacity drop elsewhere in the group,
+# and through attention the rest of the sequences it reaches, so their later
+# logits rows are left out of the fp32 comparison; more than this share of
+# rows left out fails. The prefill routes its 4 sequences in order, so the
+# drops, and a flip's shifted slots, fall on the later ones.
+MAX_FLIPPED_ROWS = 0.5
+TOL32 = 2e-4      # tests/test_kernels.py: the model-level fp32 tolerance
+
+
+def _moe_layers(cfg) -> int:
+    return sum(seg.count * sum(l.mlp == "moe" for l in seg.layers)
+               for seg in cfg.segments)
+
+
+def _teacher_forced(torch, dlm, mlp, cc, params, cfg, tokens, fed, max_len,
+                    flash: bool):
+    """The prompt's logits at every position (``forward``), then a prefill
+    and fed.shape[1] - 1 eager decode steps fed ``fed`` with the routing
+    recorded: (logits (B, S + gen - 1, V) fp32, row j at position j; the
+    routing records; each record's first position)."""
+    s = tokens.shape[1]
+    cc.RUNTIME["use_flash"] = flash
+    with torch.no_grad():
+        logits = [dlm.forward(params, cfg, tokens=tokens)[0].float()]
+        with mlp.record_routing() as rec:
+            _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+            for i in range(fed.shape[1] - 1):
+                step, caches = dlm.decode_step(params, cfg, fed[:, i:i + 1],
+                                               s + i, caches)
+                logits.append(step.float())
+    cc.RUNTIME["use_flash"] = True
+    n_moe = _moe_layers(cfg)
+    offsets = [0] * n_moe + [s + i for i in range(fed.shape[1] - 1)
+                             for _ in range(n_moe)]
+    return torch.cat(logits, dim=1), list(rec), offsets
+
+
+def _routing_flips(torch, rec_a, rec_b, offsets, n_moe: int) -> dict:
+    """Two runs' routing records compared call by call, in the order the
+    layers ran (``record_routing``: (gate_idx (B,S,k), keep (B,S,k), margin
+    (B,S)) per MoE call; ``offsets``: each call's first position). A token
+    whose expert choices differ is a near tie (margin below NEAR_TIE in
+    either run), downstream (an earlier call's flip already reached its
+    position in its sequence) or real. Any difference, a capacity drop
+    included, reaches its sequence from that position on. Returns the
+    flipped choices per MoE layer, the three counts, and per sequence the
+    first position reached."""
+    per_layer = [0] * n_moe
+    near = downstream = real = 0
+    first = torch.full((rec_a[0][0].shape[0],), 1 << 30, dtype=torch.long,
+                       device=rec_a[0][0].device)
+    for i, ((ia, ka, ma), (ib, kb, mb), off) in enumerate(
+            zip(rec_a, rec_b, offsets)):
+        idx_diff = (ia != ib).any(-1)                        # (B, S)
+        per_layer[i % n_moe] += int((ia != ib).sum() + (ka != kb).sum())
+        tie = torch.minimum(ma, mb) < NEAR_TIE
+        pos = off + torch.arange(ia.shape[1], device=ia.device)
+        reached = pos[None, :] >= first[:, None]
+        near += int((idx_diff & tie).sum())
+        downstream += int((idx_diff & ~tie & reached).sum())
+        real += int((idx_diff & ~tie & ~reached).sum())
+        hit = idx_diff | (ka != kb).any(-1)
+        first = torch.minimum(first, torch.where(hit, pos[None, :], 1 << 30)
+                              .amin(dim=1))
+    return {"calls": len(rec_a), "flipped_choices_per_layer": per_layer,
+            "near_tie_flipped_tokens": near,
+            "downstream_flipped_tokens": downstream,
+            "real_flipped_tokens": real,
+            "first_position_reached": {b: int(f) for b, f in
+                                       enumerate(first.tolist())
+                                       if f < 1 << 30}}
+
+
+def _compare_routed(torch, logits_a, logits_b, flips) -> dict:
+    """The logits rows (b, j), at position j, that no routing difference
+    reached, compared at TOL32."""
+    b, rows = logits_a.shape[:2]
+    pos = torch.arange(rows, device=logits_a.device)
+    first = torch.tensor([flips["first_position_reached"].get(i, 1 << 30)
+                          for i in range(b)], device=logits_a.device)
+    clean = pos[None, :] < first[:, None]                    # (B, rows)
+    n_clean = int(clean.sum())
+    ok, err = _close(torch, logits_a[clean], logits_b[clean], TOL32) \
+        if n_clean else (True, 0.0)
+    return {"rows": b * rows, "rows_compared": n_clean,
+            "flipped_row_share": 1 - n_clean / (b * rows),
+            "max_abs_err_compared_rows": err, "ok": ok, "tol": TOL32}
+
+
+def _serve_twice(torch, serve, cfg, params, batch, gen_n: int, FK, DK) -> dict:
+    """A short warm-up call (``cold``), then ``serve_batch`` with the launch
+    counts zeroed just before it and read just after, then a repeat call
+    that must give the same tokens and hold no more memory: the graph and
+    its pool are released. Peak memory is read for each of the two."""
+    _, cold = serve.serve_batch(cfg, params, batch, 2, log=lambda *_: None)
+    torch.cuda.synchronize()
+    allocated = [torch.cuda.memory_allocated()]
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    DK.reset_launches()
+    gen, stats = serve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
+    launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
+                "decode_attention": DK.LAUNCHES["decode_attention"]}
+    torch.cuda.synchronize()
+    peaks = [torch.cuda.max_memory_allocated()]
+    allocated.append(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    gen_again, stats_again = serve.serve_batch(cfg, params, batch, gen_n,
+                                               log=lambda *_: None)
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    allocated.append(torch.cuda.memory_allocated())
+    check(max(allocated[1:]) <= allocated[0],
+          f"{cfg.name}: device memory after serve calls grows: {allocated}")
+    check((gen_again == gen).all(), f"{cfg.name}: a repeat serve call "
+                                    "generated other tokens")
+    check(gen.shape[1] == gen_n and ((gen >= 0) & (gen < cfg.vocab_size)).all(),
+          f"{cfg.name}: generated tokens of shape {gen.shape} out of range")
+    return {"gen": gen, "stats": stats, "cold": cold, "launches": launches,
+            "repeat_call": {k: stats_again[k] for k in (
+                "prefill_tokens_per_s", "tokens_per_s", "decode_capture_s")},
+            "peak_mem_bytes": peaks[0], "peak_mem_bytes_repeat_call": peaks[1],
+            "allocated": allocated}
+
+
+def _serve_fields(run: dict) -> dict:
+    """The serve metrics of a ``_serve_twice`` run."""
+    return {**{k: run["stats"][k] for k in (
+        "prefill_tokens_per_s", "tokens_per_s", "prefill_s", "decode_s",
+        "decode_capture_s")}, "repeat_call": run["repeat_call"],
+        "peak_mem_bytes": run["peak_mem_bytes"],
+        "allocated_bytes_after_calls": run["allocated"]}
+
+
+def phase_serve_olmoe(torch, device, FK, DK) -> dict:
+    """olmoe-1b-7b at full width (16 layers, d_model 2048, 16 query and 16
+    KV heads of 128, qk-norm, 64 experts top-8, d_ff_expert 1024, vocab
+    50,304), bf16, random weights from a seeded generator on the card,
+    through ``serve_batch`` (4 prompts of 1024, 64 generated, the decode
+    step replayed from one CUDA graph). The prompt equals ``moe_seq_chunk``
+    (1024), so the prefill's MoE takes the unchunked path: one group of 4096
+    tokens with capacity int(4096 x 8 / 64 x 1.25) = 640. The graphed step
+    against the eager one, bit for bit; decode and prefill profiles. Then
+    the same weights in fp32, teacher-forced on the served tokens with
+    ``use_flash`` on and off and the routing recorded: the decisions are
+    compared first, layer by layer, then the logits on the rows that no
+    routing flip reached."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import common as cc
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.models import mlp
+
+    torch.cuda.empty_cache()
+    cfg = get_config(OLMOE["arch"])
+    b, s, gen_n = OLMOE["batch"], OLMOE["prompt"], OLMOE["gen"]
+    max_len = s + gen_n
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    params = dlm.init_params(cfg, seed=OLMOE["seed"], device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = dlm.param_count(params)
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=OLMOE["seed"]), 0)
+    run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    gen, launches = run["gen"], run["launches"]
+    check(launches == {"flash_attention": n_layers,
+                       "decode_attention": n_layers * gen_n},
+          f"olmoe serve launches {launches}, want {n_layers} flash and "
+          f"{n_layers * gen_n} decode")
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    fed = torch.as_tensor(gen, device=device)
+    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen,
+                             max_len)
+    emit("serve_olmoe_graph_vs_eager", **g_vs_e)
+    check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
+          f"olmoe's graphed decode differs from the eager one: {g_vs_e}")
+    gprof = _profile_decode_graph(torch, dlm, serve, params, cfg, tokens,
+                                  max_len, DK)
+    emit("serve_olmoe_decode_graph_profile", **gprof)
+    check(gprof["decode_kernels_per_step"] == n_layers,
+          f"a profiled olmoe replay ran {gprof['decode_kernels_per_step']} "
+          f"decode kernels per step, want {n_layers}")
+    emit("serve_olmoe_prefill_profile",
+         **_profile_prefill(torch, dlm, params, cfg, tokens, max_len))
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    on, rec_on, offsets = _teacher_forced(torch, dlm, mlp, cc, params32, cfg32,
+                                          tokens, fed, max_len, True)
+    off, rec_off, _ = _teacher_forced(torch, dlm, mlp, cc, params32, cfg32,
+                                      tokens, fed, max_len, False)
+    del params32
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(on).all() and torch.isfinite(off).all()),
+          "olmoe fp32 logits are not finite")
+    n_moe = _moe_layers(cfg)
+    flips = _routing_flips(torch, rec_on, rec_off, offsets, n_moe)
+    cmp32 = _compare_routed(torch, on, off, flips)
+    moe = cfg.segments[0].layers[0].moe
+    emit("serve_olmoe", arch=OLMOE["arch"], dtype=cfg.dtype, layers=n_layers,
+         d_model=cfg.d_model, params=n_params, init_s=t_init, batch=b,
+         prompt_tokens=s, gen_tokens=gen_n, max_len=max_len,
+         **_serve_fields(run), launches=launches,
+         prefill_moe_capacity=max(1, int(b * s * moe.top_k / moe.n_experts
+                                         * moe.capacity_factor)),
+         prefill_dropped_choices_plain=sum(int((~k).sum())
+                                           for _, k, _ in rec_off[:n_moe]),
+         routing_fp32_kernels_vs_plain=flips, fp32_logits_kernels_vs_plain=cmp32,
+         greedy_agreement_fp32_plain=(off[:, s - 1:].argmax(-1)
+                                      == fed).float().mean().item(),
+         sample=gen[0, :8].tolist())
+    check(flips["real_flipped_tokens"] == 0,
+          f"olmoe's routing differs between the kernel and plain paths away "
+          f"from a near tie: {flips}")
+    check(cmp32["flipped_row_share"] <= MAX_FLIPPED_ROWS,
+          f"routing flips reach {cmp32['flipped_row_share']:.2f} of the olmoe "
+          f"logits rows (at most {MAX_FLIPPED_ROWS})")
+    check(cmp32["ok"], f"fp32 olmoe logits with the kernels differ from the "
+                       f"plain path on rows of identical routing: {cmp32}")
+    return launches
+
+
+def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
+    """deepseek-v2-236b at full widths (d_model 5120, MLA with 128 heads, q
+    and kv LoRA ranks 1536 / 512, vocab 102,400; 160 experts top-6 of width
+    1536 with 2 shared) cut in depth from 60 layers to 2: the dense layer 0
+    (d_ff 12,288) and one MoE layer. bf16, random weights: ``serve_batch``
+    (4 prompts of 512, 32 generated, graphed decode) in the plain and the
+    absorbed MLA order, the absorbed graphed step against the eager one.
+    Then fp32: both orders serve under the graph and must give the same
+    tokens; teacher-forced eager runs of the two orders compare routing and
+    logits as the olmoe phase does, and say where the tokens part if they
+    do. MLA has no TPU kernel in the reference, so no kernel launches."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import common as cc
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.models import mlp
+
+    torch.cuda.empty_cache()
+    full = get_config(DEEPSEEK["arch"])
+    cfg = dataclasses.replace(full, segments=(
+        full.segments[0], dataclasses.replace(full.segments[1], count=1)))
+    cut = {"layers": f"{full.n_layers} -> {cfg.n_layers}",
+           "kept": "layer 0 (dense MLP) and one MoE layer"}
+    b, s, gen_n = DEEPSEEK["batch"], DEEPSEEK["prompt"], DEEPSEEK["gen"]
+    max_len = s + gen_n
+    params = dlm.init_params(cfg, seed=DEEPSEEK["seed"], device=device)
+    n_params = dlm.param_count(params)
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=DEEPSEEK["seed"]), 0)
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    orders, peaks = {}, {}
+    for absorb in (False, True):
+        c = dataclasses.replace(cfg, mla_absorb=absorb)
+        run = _serve_twice(torch, serve, c, params, batch, gen_n, FK, DK)
+        gen = run["gen"]
+        check(run["launches"] == {"flash_attention": 0, "decode_attention": 0},
+              f"deepseek-v2 launched attention kernels: {run['launches']}")
+        orders["absorbed" if absorb else "plain"] = {
+            **_serve_fields(run), "sample": gen[0, :8].tolist()}
+    c = dataclasses.replace(cfg, mla_absorb=True)
+    fed = torch.as_tensor(gen, device=device)
+    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, c, tokens, fed, gen,
+                             max_len)
+    emit("serve_deepseek_v2_graph_vs_eager", order="absorbed", **g_vs_e)
+    check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
+          f"deepseek-v2's graphed absorbed decode differs from the eager one: "
+          f"{g_vs_e}")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    gens32 = {}
+    for absorb in (False, True):
+        c = dataclasses.replace(cfg32, mla_absorb=absorb)
+        gens32[absorb], _ = serve.serve_batch(c, params32, batch, gen_n,
+                                              log=lambda *_: None)
+    fed32 = torch.as_tensor(gens32[False], device=device)
+    plain, rec_p, offsets = _teacher_forced(
+        torch, dlm, mlp, cc, params32, dataclasses.replace(cfg32, mla_absorb=False),
+        tokens, fed32, max_len, True)
+    absorbed, rec_a, _ = _teacher_forced(
+        torch, dlm, mlp, cc, params32, dataclasses.replace(cfg32, mla_absorb=True),
+        tokens, fed32, max_len, True)
+    del params32
+    torch.cuda.empty_cache()
+    flips = _routing_flips(torch, rec_p, rec_a, offsets, _moe_layers(cfg))
+    cmp32 = _compare_routed(torch, absorbed, plain, flips)
+    same = bool((gens32[False] == gens32[True]).all())
+    parted = None
+    if not same:   # the earliest step at which a row's tokens differ
+        rows, steps = (gens32[False] != gens32[True]).nonzero()
+        j = int(steps.min())
+        bb = int(rows[steps == j][0])
+        top2 = plain[bb, s - 1 + j].topk(2).values.tolist()
+        parted = {"row": bb, "step": j, "position": s - 1 + j,
+                  "plain_top2_logits": top2,
+                  "routing_flipped_before": flips["first_position_reached"]
+                  .get(bb, 1 << 30) <= s - 1 + j}
+    emit("serve_deepseek_v2", arch=DEEPSEEK["arch"], cut=cut, dtype=cfg.dtype,
+         layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=b,
+         prompt_tokens=s, gen_tokens=gen_n, orders_bf16=orders,
+         fp32_orders_same_tokens=same, fp32_orders_parted=parted,
+         routing_fp32_plain_vs_absorbed=flips,
+         fp32_logits_absorbed_vs_plain=cmp32)
+    check(flips["real_flipped_tokens"] == 0,
+          f"deepseek-v2's routing differs between the MLA orders away from a "
+          f"near tie: {flips}")
+    check(cmp32["ok"] and cmp32["flipped_row_share"] <= MAX_FLIPPED_ROWS,
+          f"fp32 deepseek-v2 logits of the two MLA orders differ: {cmp32}")
+    check(same or (parted["routing_flipped_before"]
+                   or parted["plain_top2_logits"][0]
+                   - parted["plain_top2_logits"][1] <= TOL32),
+          f"the fp32 MLA orders part away from a near tie: {parted}")
+
+
+SMALL_FAMILIES = (("jamba-1.5-large-398b", True), ("xlstm-125m", True),
+                  ("xlstm-125m", False))
+
+
+def phase_serve_families_small(torch, device, FK, DK) -> dict:
+    """jamba-1.5-large (7 Mamba + 1 attention a block, MoE on every other
+    layer) and xlstm-125m (mLSTM + sLSTM) under ``reduce_for_smoke`` (fp32,
+    2 blocks, d 32), and xlstm-125m at full size (12 layers, d_model 768,
+    bf16): ``serve_batch`` with the graphed decode step (4 prompts of 1024
+    at full size, 2 of 32 reduced; 64 and 16 generated), whose tokens must
+    equal an eager greedy loop's, with the graphed step's logits bit for bit
+    the eager ones'. jamba's attention layers must launch both attention
+    kernels. jamba at full width fits no card (PERF.md), so it runs reduced
+    only. xlstm's sLSTM prefill is a loop over the prompt, host-bound."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder_lm as dlm
+
+    torch.cuda.empty_cache()
+    out = {}
+    for arch, reduced in SMALL_FAMILIES:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = dataclasses.replace(reduce_for_smoke(cfg), remat=False)
+        b, s, gen_n = (2, 32, 16) if reduced else (4, 1024, 64)
+        params = dlm.init_params(cfg, seed=0, device=device)
+        batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                                seed=0), 0)
+        run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+        gen, launches = run["gen"], run["launches"]
+        n_attn = sum(seg.count * sum(l.kind == "attn" for l in seg.layers)
+                     for seg in cfg.segments)
+        check(launches == {"flash_attention": n_attn,
+                           "decode_attention": n_attn * gen_n},
+              f"{arch} serve launches {launches}, want {n_attn} flash and "
+              f"{n_attn * gen_n} decode")
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        fed = torch.as_tensor(gen, device=device)
+        g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed,
+                                 gen, s + gen_n)
+        key = f"{arch}{' reduced' if reduced else ''}"
+        emit("serve_family", arch=arch, reduced=reduced, dtype=cfg.dtype,
+             layers=cfg.n_layers, d_model=cfg.d_model,
+             kinds=sorted({f"{l.kind}+{l.mlp}" for l in cfg.layer_list()}),
+             params=dlm.param_count(params), batch=b, prompt_tokens=s,
+             gen_tokens=gen_n, **_serve_fields(run), launches=launches,
+             graph_vs_eager=g_vs_e)
+        check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
+              f"{key}: the graphed decode differs from the eager one: {g_vs_e}")
+        out[key] = launches
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def _attn_time_cases(torch, F, FK, FR, DK, DR):
     """The serve shapes: prefill of a global (causal) and a local (window
     512) layer, and one decode step of the global cache (T 1088, valid up
     to the middle of generation) and of a local ring (T 512, all valid);
     and phi3-mini's attention (32 heads, 32 kv heads, head_dim 96, which
     the wrappers pad to 128): a prefill of 1 x 1024 tokens and a decode
-    step at B 4 against T 1088."""
+    step at B 4 against T 1088; and olmoe-1b-7b's (16 heads, 16 kv heads,
+    head_dim 128, nothing padded) at its serve shapes, B 4 x 1024 and T
+    1088."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE["arch"])
     spec_local = cfg.segments[0].layers[0].attn
     phi3 = get_config("phi3-mini-3.8b").segments[0].layers[0].attn
+    olmoe = get_config(OLMOE["arch"]).segments[0].layers[0].attn
     b, s = SERVE["batch"], SERVE["prompt"]
     max_len = s + SERVE["gen"]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1627,10 +2009,12 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     cases = {}
     gemma = (spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim)
     phi = (phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
+    olm = (olmoe.n_heads, olmoe.n_kv_heads, olmoe.head_dim)
     for label, window, b, (h, kvh, d) in (
             ("global", None, SERVE["batch"], gemma),
             ("local", spec_local.window, SERVE["batch"], gemma),
-            ("phi3-mini", None, 1, phi)):
+            ("phi3-mini", None, 1, phi),
+            ("olmoe", None, OLMOE["batch"], olm)):
         q, k, v = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d)
         qpos = torch.arange(s, device="cuda")[:, None]
         kpos = torch.arange(s, device="cuda")[None, :]
@@ -1651,7 +2035,8 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     for label, t, n_valid, (h, kvh, d) in (
             ("global", max_len, s + SERVE["gen"] // 2, gemma),
             ("local", spec_local.window, spec_local.window, gemma),
-            ("phi3-mini", max_len, s + SERVE["gen"] // 2, phi)):
+            ("phi3-mini", max_len, s + SERVE["gen"] // 2, phi),
+            ("olmoe", max_len, s + SERVE["gen"] // 2, olm)):
         q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
         valid = torch.arange(t, device="cuda") < n_valid
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1968,7 +2353,8 @@ def phase_gpu_pytest() -> None:
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
              "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py",
              "tests/test_torch_sim_eval_gpu.py",
-             "tests/test_torch_serve_sim_gpu.py"]
+             "tests/test_torch_serve_sim_gpu.py",
+             "tests/test_torch_families_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -2047,6 +2433,12 @@ def main() -> None:
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
     # 7. the serving main path, counts zeroed before and read after
     launches.update(phase_serve(torch, device, FK, DK))
+    # 7b. the MoE, MLA, Mamba and xLSTM families: olmoe-1b-7b at full width,
+    # deepseek-v2 at full width and 2 layers, jamba and xlstm reduced and
+    # xlstm at full size; counts zeroed before and read after each serve
+    l_olmoe = phase_serve_olmoe(torch, device, FK, DK)
+    phase_serve_deepseek_v2(torch, device, FK, DK)
+    l_small = phase_serve_families_small(torch, device, FK, DK)
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
     # 9. the flash backward: check and times at the training shape
@@ -2082,21 +2474,21 @@ def main() -> None:
             **{k: top[k] for k in keys},
             "by_bucket": {str(b): times[name][b] for b in TIMED_BUCKETS}})
     for name in ("flash_attention", "decode_attention"):
+        by_path = {"serve": launches[name], "serve_olmoe": l_olmoe[name],
+                   **{f"serve {k}": n[name] for k, n in l_small.items()}}
+        if name == "flash_attention":
+            by_path["train"] = train_launches[name]
         kernels.append({
             "name": f"{name}.{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": ATTN_REPLACES[name], "launches": launches[name],
-            "on_main_path": True,
+            "replaces": ATTN_REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "on_main_path": True,
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
             **{k: attn_times[name]["global"][k] for k in keys},
             **{k: attn_times[name]["global"][k] for k in decode_keys
                if k in attn_times[name]["global"]},
             "by_case": attn_times[name]})
-    kernels[-2]["launches"] += train_launches["flash_attention"]
-    kernels[-2]["launches_by_path"] = {
-        "serve": launches["flash_attention"],
-        "train": train_launches["flash_attention"]}
     kernels.append({
         "name": "flash_attention.flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

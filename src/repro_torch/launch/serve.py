@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch._tree import tree_map
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
@@ -55,12 +56,16 @@ class DecodeGraph:
 
     The step's inputs live in static device buffers: the token, ``pos`` as a
     0-d int32 tensor and the caches, which the step updates in place (the
-    reference donates them). The graph ends by writing its token into
-    column ``i`` of ``tokens``, feeding it back as the next input and
-    advancing ``pos`` and ``i``, so a replay needs no host work besides the
-    launch. Before the capture one eager step runs on the capture's side
-    stream; its cache writes are the ones the first replay makes again. The
-    graph holds the memory of its intermediates until ``release``.
+    reference donates them): attention's K/V (and a ring's slot
+    positions), MLA's ``{"ckv", "k_rope"}``, Mamba's ``{"h", "conv"}``,
+    mLSTM's ``{"c", "n", "m", "conv"}`` and sLSTM's ``{"c", "n", "h",
+    "m"}``. The graph ends by writing its token into column ``i`` of
+    ``tokens``, feeding it back as the next input and advancing ``pos`` and
+    ``i``, so a replay needs no host work besides the launch. Before the
+    capture one eager step runs on the capture's side stream, on a copy of
+    the caches: a recurrent state advances at every step, so a step on the
+    caches themselves would be one step too many. The graph holds the
+    memory of its intermediates until ``release``.
 
     Launch counting: the warm-up's kernels count as they run; the capture
     records ``held`` (wrapper -> launches in the graph, from
@@ -76,12 +81,13 @@ class DecodeGraph:
         self.col = torch.zeros((1,), dtype=torch.long, device=dev)
         self.tokens = torch.zeros((token.shape[0], steps), dtype=torch.int32,
                                   device=dev)
+        scratch = tree_map(torch.clone, caches)
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = dict(dec_kernel.CAPTURED)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            decode_fn(params, self.token, self.pos, caches)   # the warm-up
+            decode_fn(params, self.token, self.pos, scratch)  # the warm-up
             # capture_begin, not torch.cuda.graph(): that one empties the
             # allocator's cache first, and the next prefill would pay to
             # allocate its memory again
@@ -95,6 +101,7 @@ class DecodeGraph:
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch   # after the wait: its last use was on the side stream
         self.held = {k: dec_kernel.CAPTURED[k] - n for k, n in before.items()}
 
     def replay(self) -> None:

@@ -7,8 +7,9 @@ Port of ``repro/launch/train.py``.
 Runs on the CUDA device unless ``--device`` says otherwise; with no card
 and no ``--device cpu`` it raises. On the card, attention goes through the
 hand-written flash kernels forward and backward (``use_flash``, the
-reference's accelerator branch); on the CPU, sequences longer than 512 use
-the q-chunked plain attention, as the reference does off its accelerator.
+reference's accelerator branch); on the CPU, sequences longer than 512 run
+the chunked plain forms (q-chunked attention and MLA, the chunkwise Mamba
+scan and mLSTM, chunks of 256), as the reference does off its accelerator.
 Fault tolerance as in the reference: atomic keep-k checkpoints and
 auto-resume from the newest committed step; the data is a pure function of
 the step, so a resumed run replays the same batches. One card, no sharding.
@@ -58,7 +59,8 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
         # the hand-written attention kernels, forward and backward
         knobs = {"use_flash": True, "q_chunk": 0}
     else:
-        knobs = {"q_chunk": 256} if seq_len > 512 else {}
+        knobs = {"q_chunk": 256, "ssm_chunk": 256, "mlstm_chunk": 256} \
+            if seq_len > 512 else {}
     saved_knobs = {k: cc.RUNTIME[k] for k in knobs}
     cc.RUNTIME.update(knobs)
     try:

@@ -1,24 +1,28 @@
-"""GQA attention (sliding window, qk-norm) with full and ring KV caches.
-Port of the GQA half of ``repro/models/attention.py``; MLA and
-``attn_cross`` wait for the slices that serve DeepSeek-V2 and Whisper.
+"""Attention layers: GQA (sliding window, qk-norm) with full and ring KV
+caches, and DeepSeek-style MLA with its compressed cache. Port of
+``repro/models/attention.py``; ``attn_cross`` waits for the slice that
+serves Whisper.
 
 Two execution paths per layer:
-  * full sequence (prefill): the hand-written flash-attention kernel when
-    ``RUNTIME["use_flash"]`` is on (its plain version for CPU tensors),
-    else the grouped einsum or the q-chunked form;
-  * one-token decode against a KV cache, full or ring (sliding window),
-    through the decode-attention kernel when ``use_flash`` is on.
+  * full sequence (prefill): GQA through the hand-written flash-attention
+    kernel when ``RUNTIME["use_flash"]`` is on (its plain version for CPU
+    tensors), else the grouped einsum or the q-chunked form; MLA as plain
+    einsums (the reference has no kernel for it), q-chunked under
+    ``q_chunk``;
+  * one-token decode against a cache: GQA's full or ring (sliding window)
+    cache through the decode-attention kernel when ``use_flash`` is on;
+    MLA's compressed cache in the plain or the absorbed matmul order.
 
 Shapes: x (B, S, d_model); q (B, S, H, D); k/v (B, T, KV, D). The decode
-step writes the new K/V into the cache in place, the torch form of the
-reference's donated cache (``launch/serve.py``): ``attn_decode`` returns
-the same dict it was given.
+step writes the new entries into the cache in place, the torch form of the
+reference's donated cache (``launch/serve.py``): ``attn_decode`` and
+``mla_decode`` return the same dict they were given.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import AttnSpec
+from repro_torch.configs.base import AttnSpec, MLASpec
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import RUNTIME as FLAGS  # launcher-set knobs
@@ -191,5 +195,165 @@ def attn_decode(p, spec: AttnSpec, x, pos, cache: dict):
         out = dec_ops.decode_attention(q, cache["k"], cache["v"], valid)
     else:
         out = _gqa_attend(q, cache["k"], cache["v"], valid[None, None, :])
+    y = out.reshape(b, 1, -1) @ p["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank Q and compressed KV with decoupled RoPE.
+# ---------------------------------------------------------------------------
+def init_mla(gen: torch.Generator, spec: MLASpec, d_model: int, dtype) -> dict:
+    h = spec.n_heads
+    qd = spec.qk_nope_dim + spec.qk_rope_dim
+    return {
+        "wq_a": dense_init(gen, d_model, spec.q_lora_rank, dtype),
+        "q_norm": {"scale": torch.ones((spec.q_lora_rank,), device=gen.device)},
+        "wq_b": dense_init(gen, spec.q_lora_rank, h * qd, dtype),
+        "wkv_a": dense_init(gen, d_model,
+                            spec.kv_lora_rank + spec.qk_rope_dim, dtype),
+        "kv_norm": {"scale": torch.ones((spec.kv_lora_rank,),
+                                        device=gen.device)},
+        "wkv_b": dense_init(gen, spec.kv_lora_rank,
+                            h * (spec.qk_nope_dim + spec.v_head_dim), dtype),
+        "wo": dense_init(gen, h * spec.v_head_dim, d_model, dtype),
+    }
+
+
+def _mla_q(p, spec: MLASpec, x, positions):
+    b, s, _ = x.shape
+    q = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
+    q = q.reshape(b, s, spec.n_heads, spec.qk_nope_dim + spec.qk_rope_dim)
+    q_nope, q_rope = q.split([spec.qk_nope_dim, spec.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, spec.rope_theta)
+
+
+def _mla_ckv(p, spec: MLASpec, x, positions):
+    """Returns (normalized compressed kv (B,S,L), rotated shared k_rope
+    (B,S,R))."""
+    c_kv, k_rope = (x @ p["wkv_a"]).split(
+        [spec.kv_lora_rank, spec.qk_rope_dim], dim=-1)
+    c_kv = apply_norm(p["kv_norm"], c_kv, "rmsnorm")
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        spec.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_chunked(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk: int,
+                 dtype):
+    """q-block chunked MLA attention: one (bq, T) score tile per chunk
+    (k_rope is shared across heads, so it never repeats). Scores accumulate
+    in fp32, as the reference's ``preferred_element_type``."""
+    b, s = q_nope.shape[:2]
+    t = k_nope.shape[1]
+    k_nope, k_rope = k_nope.float(), k_rope.float()
+    kpos = torch.arange(t, dtype=torch.int32, device=q_nope.device)
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        qpos = q0 + torch.arange(q_chunk, dtype=torch.int32,
+                                 device=q_nope.device)
+        scores = (torch.einsum("bqhn,bthn->bhqt",
+                               q_nope[:, q0:q0 + q_chunk].float(), k_nope)
+                  + torch.einsum("bqhr,btr->bhqt",
+                                 q_rope[:, q0:q0 + q_chunk].float(),
+                                 k_rope)) * scale
+        scores = scores.masked_fill(~(kpos[None, :] <= qpos[:, None]),
+                                    NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(dtype)
+        outs.append(torch.einsum("bhqt,bthd->bqhd", w, v))
+    return torch.cat(outs, dim=1).reshape(b, s, -1)
+
+
+def mla_full(p, spec: MLASpec, x, positions):
+    b, s, _ = x.shape
+    h = spec.n_heads
+    q_nope, q_rope = _mla_q(p, spec, x, positions)
+    c_kv, k_rope = _mla_ckv(p, spec, x, positions)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h,
+                                     spec.qk_nope_dim + spec.v_head_dim)
+    k_nope, v = kv.split([spec.qk_nope_dim, spec.v_head_dim], dim=-1)
+    scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
+    q_chunk = FLAGS["q_chunk"]
+    if q_chunk and s % q_chunk == 0 and s > q_chunk:
+        out = _mla_chunked(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk,
+                           x.dtype)
+        return out @ p["wo"]
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
+    scores = scores * scale
+    mask = causal_mask(positions, positions)
+    scores = scores.masked_fill(~(mask[:, None] if mask.dim() == 3
+                                  else mask[None, None]), NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, -1)
+    return out @ p["wo"]
+
+
+def init_mla_cache(spec: MLASpec, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    """The MLA win: cache only (kv_lora_rank + rope_dim) per token."""
+    return {
+        "ckv": torch.zeros((batch, max_len, spec.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, max_len, spec.qk_rope_dim), dtype=dtype,
+                              device=device),
+    }
+
+
+def mla_prefill(p, spec: MLASpec, x, positions, max_len: int):
+    s = x.shape[1]
+    y = mla_full(p, spec, x, positions)
+    c_kv, k_rope = _mla_ckv(p, spec, x, positions)
+    cache = init_mla_cache(spec, x.shape[0], max_len, x.dtype, x.device)
+    cache["ckv"][:, :s] = c_kv
+    cache["k_rope"][:, :s] = k_rope
+    return y, cache
+
+
+def mla_decode(p, spec: MLASpec, x, pos, cache: dict, absorb: bool = False):
+    """One-token MLA decode at ``pos`` (an int or a 0-d int32 tensor on x's
+    device). Writes the token's compressed entries into ``cache`` in place
+    (``index_copy_`` at the tensor position; the validity mask compares
+    with it, so a captured step replays at later positions). Returns
+    (y, cache). absorb=True uses the matmul-absorbed order, which never
+    re-expands K/V over the whole cache."""
+    b = x.shape[0]
+    h = spec.n_heads
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    positions = pos.view(1, 1).expand(b, 1)
+    q_nope, q_rope = _mla_q(p, spec, x, positions)            # (B,1,H,*)
+    c_new, r_new = _mla_ckv(p, spec, x, positions)            # (B,1,L),(B,1,R)
+    slot = pos.long().view(1)
+    cache["ckv"].index_copy_(1, slot, c_new)
+    cache["k_rope"].index_copy_(1, slot, r_new)
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+
+    t = ckv.shape[1]
+    valid = torch.arange(t, device=x.device) <= pos
+    scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
+    wkv_b = p["wkv_b"].reshape(spec.kv_lora_rank, h,
+                               spec.qk_nope_dim + spec.v_head_dim)
+    w_k = wkv_b[..., :spec.qk_nope_dim]    # (L,H,N)
+    w_v = wkv_b[..., spec.qk_nope_dim:]    # (L,H,V)
+
+    if absorb:
+        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, w_k)   # (B,1,H,L)
+        scores = (torch.einsum("bqhl,btl->bhqt", q_eff, ckv)
+                  + torch.einsum("bqhr,btr->bhqt", q_rope, k_rope))
+    else:
+        kv = (ckv @ p["wkv_b"]).reshape(b, t, h,
+                                        spec.qk_nope_dim + spec.v_head_dim)
+        k_nope, v_full = kv.split([spec.qk_nope_dim, spec.v_head_dim], dim=-1)
+        scores = (torch.einsum("bqhn,bthn->bhqt", q_nope, k_nope)
+                  + torch.einsum("bqhr,btr->bhqt", q_rope, k_rope))
+    scores = scores.float() * scale
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+
+    if absorb:
+        ctx = torch.einsum("bhqt,btl->bqhl", w, ckv)          # (B,1,H,L)
+        out = torch.einsum("bqhl,lhv->bqhv", ctx, w_v)
+    else:
+        out = torch.einsum("bhqt,bthv->bqhv", w, v_full)
     y = out.reshape(b, 1, -1) @ p["wo"]
     return y, cache

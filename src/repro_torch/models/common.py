@@ -18,11 +18,20 @@ import torch.nn.functional as F
 #   use_flash — route attention through the hand-written CUDA kernels
 #               (their plain versions for CPU tensors)
 #   q_chunk   — q-block chunked attention in plain torch (0 = off)
+#   ssm_chunk — chunkwise Mamba scan (bounds the (B, S, d_inner, d_state)
+#               discretized tensors to one chunk; 0 = whole sequence)
+#   mlstm_chunk — chunkwise-recurrent mLSTM (bounds the quadratic form)
+#   moe_chunk — MoE sequence chunk, overriding ``cfg.moe_seq_chunk`` (0 = use
+#               the config's)
 #   remat_policy — what a rematerialized block keeps for the backward:
 #               "" or "nothing" (recompute the whole block) or "outputs"
 #               (keep the attention and MLP block outputs)
-# The reference's knobs for the SSM, mLSTM and MoE arrive with their slices.
-RUNTIME = {"use_flash": False, "q_chunk": 0, "remat_policy": ""}
+#   moe_combine_bf16 — build the MoE routing tensors in bf16, not fp32
+#   moe_capacity_factor — chunked-MoE capacity factor override (0.0 = the
+#               spec's)
+RUNTIME = {"use_flash": False, "q_chunk": 0, "ssm_chunk": 0,
+           "mlstm_chunk": 0, "moe_chunk": 0, "remat_policy": "",
+           "moe_combine_bf16": False, "moe_capacity_factor": 0.0}
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

@@ -1,20 +1,24 @@
 """Generic decoder-only LM over config segments. Port of
 ``repro/models/decoder_lm.py``.
 
-A segment is ``count`` repetitions of a *block* of layers (Gemma-3's 5 local
-+ 1 global). Segment parameters are a list (one entry per layer-in-block) of
-layer param dicts; for count > 1 every leaf has a leading (count,) axis, as
-in the reference, so weights carry across one to one. Caches mirror that
+A segment is ``count`` repetitions of a *block* of layers, possibly
+heterogeneous (Jamba's 7 Mamba + 1 attention, Gemma-3's 5 local + 1
+global, xLSTM's mLSTM + sLSTM). Segment parameters are a list (one entry
+per layer-in-block) of layer param dicts; for count > 1 every leaf has a
+leading (count,) axis, as in the reference, so weights carry across one
+to one. Caches mirror that
 layout. A Python loop over the (count,) axis takes the place of the
 reference's ``lax.scan``; indexing gives views, so a decode step writes each
-layer's K/V into the stacked cache in place.
+layer's cache entries (K/V, MLA's compressed KV, Mamba's and xLSTM's
+recurrent states) into the stacked cache in place.
 
 Entry points: ``init_params``, ``init_caches``, ``forward``,
 ``loss_and_metrics`` (the training objective), ``prefill`` and
 ``decode_step``; ``params_from_numpy`` / ``params_to_numpy`` carry weights
-across from the reference. The port runs ``attn`` layers with ``dense``
-MLPs; other layer kinds raise ``NotImplementedError`` naming the slice they
-wait for.
+across from the reference. Every layer kind of the reference runs: ``attn``,
+``mla``, ``mamba``, ``mlstm`` and ``slstm`` sequence mixers, each followed
+by a ``dense`` MLP, a ``moe`` layer (whose aux loss joins the training
+objective) or nothing.
 
 Training memory, as in the reference: with ``cfg.remat`` each block runs
 under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
@@ -35,26 +39,13 @@ from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (DTYPES, RUNTIME, apply_norm,
                                        cross_entropy, layernorm_params,
                                        rmsnorm_params, truncnorm_init)
 
 PyTree = Any
-
-_LATER = {
-    "mla": "the MLA slice (DeepSeek-V2)",
-    "mamba": "the SSM slice (ssm.py, Jamba)",
-    "mlstm": "the xLSTM slice (xlstm.py)",
-    "slstm": "the xLSTM slice (xlstm.py)",
-    "moe": "the MoE slice (models/mlp.py::moe)",
-}
-
-
-def _unported(kind: str):
-    raise NotImplementedError(
-        f"{kind!r} layers are not ported yet: they wait for "
-        f"{_LATER.get(kind, 'a later slice')}")
-
 
 def _norm_params(cfg: ModelConfig, d: int, device):
     return layernorm_params(d, device) if cfg.norm == "layernorm" \
@@ -96,14 +87,24 @@ def init_layer(gen: torch.Generator, layer: LayerSpec, cfg: ModelConfig) -> dict
     dt = _dtype(cfg)
     d = cfg.d_model
     p: dict = {"norm1": _norm_params(cfg, d, gen.device)}
-    if layer.kind != "attn":
-        _unported(layer.kind)
-    p["attn"] = attn_mod.init_attn(gen, layer.attn, d, dt)
+    if layer.kind == "attn":
+        p["attn"] = attn_mod.init_attn(gen, layer.attn, d, dt)
+    elif layer.kind == "mla":
+        p["mla"] = attn_mod.init_mla(gen, layer.mla, d, dt)
+    elif layer.kind == "mamba":
+        p["mamba"] = ssm_mod.init_mamba(gen, layer.mamba, d, dt)
+    elif layer.kind == "mlstm":
+        p["mlstm"] = xlstm_mod.init_mlstm(gen, layer.xlstm, d, dt)
+    elif layer.kind == "slstm":
+        p["slstm"] = xlstm_mod.init_slstm(gen, layer.xlstm, d, dt)
+    else:
+        raise ValueError(layer.kind)
     if layer.mlp == "dense":
         p["norm2"] = _norm_params(cfg, d, gen.device)
         p["mlp"] = mlp_mod.init_mlp(gen, d, layer.d_ff, cfg.act, dt)
     elif layer.mlp == "moe":
-        _unported("moe")
+        p["norm2"] = _norm_params(cfg, d, gen.device)
+        p["moe"] = mlp_mod.init_moe(gen, layer.moe, d, cfg.act, dt)
     return p
 
 
@@ -113,18 +114,67 @@ def init_block(gen: torch.Generator, seg: Segment, cfg: ModelConfig) -> list:
 
 def layer_cache_init(layer: LayerSpec, cfg: ModelConfig, batch: int,
                      max_len: int, device) -> Optional[dict]:
-    if layer.kind != "attn":
-        _unported(layer.kind)
-    return attn_mod.init_cache(layer.attn, batch, max_len, _dtype(cfg), device)
+    dt = _dtype(cfg)
+    if layer.kind == "attn":
+        return attn_mod.init_cache(layer.attn, batch, max_len, dt, device)
+    if layer.kind == "mla":
+        return attn_mod.init_mla_cache(layer.mla, batch, max_len, dt, device)
+    if layer.kind == "mamba":
+        return ssm_mod.init_mamba_cache(layer.mamba, cfg.d_model, batch, dt,
+                                        device)
+    if layer.kind == "mlstm":
+        return xlstm_mod.init_mlstm_cache(layer.xlstm, cfg.d_model, batch, dt,
+                                          device)
+    if layer.kind == "slstm":
+        return xlstm_mod.init_slstm_state(layer.xlstm, cfg.d_model, batch,
+                                          device)
+    raise ValueError(layer.kind)
 
 
-def _attn_branch(p, layer: LayerSpec, cfg: ModelConfig, x, positions):
-    return attn_mod.attn_full(p["attn"], layer.attn,
-                              apply_norm(p["norm1"], x, cfg.norm), positions)
+def _mixer_full(p, layer: LayerSpec, h, positions):
+    """The layer's sequence mixer over the normed input h."""
+    if layer.kind == "attn":
+        return attn_mod.attn_full(p["attn"], layer.attn, h, positions)
+    if layer.kind == "mla":
+        return attn_mod.mla_full(p["mla"], layer.mla, h, positions)
+    if layer.kind == "mamba":
+        return ssm_mod.mamba_full(p["mamba"], layer.mamba, h)
+    if layer.kind == "mlstm":
+        return xlstm_mod.mlstm_full(p["mlstm"], layer.xlstm, h)
+    if layer.kind == "slstm":
+        return xlstm_mod.slstm_full(p["slstm"], layer.xlstm, h)
+    raise ValueError(layer.kind)
+
+
+def _mixer_prefill(p, layer: LayerSpec, h, positions, max_len: int):
+    """The mixer's forward and its decode cache: (y, cache)."""
+    if layer.kind == "attn":
+        return attn_mod.attn_prefill(p["attn"], layer.attn, h, positions,
+                                     max_len)
+    if layer.kind == "mla":
+        return attn_mod.mla_prefill(p["mla"], layer.mla, h, positions, max_len)
+    if layer.kind == "mamba":
+        return ssm_mod.mamba_prefill(p["mamba"], layer.mamba, h)
+    if layer.kind == "mlstm":
+        return xlstm_mod.mlstm_prefill(p["mlstm"], layer.xlstm, h)
+    if layer.kind == "slstm":
+        return xlstm_mod.slstm_prefill(p["slstm"], layer.xlstm, h)
+    raise ValueError(layer.kind)
+
+
+def _mixer_branch(p, layer: LayerSpec, cfg: ModelConfig, x, positions):
+    return _mixer_full(p, layer, apply_norm(p["norm1"], x, cfg.norm),
+                       positions)
 
 
 def _mlp_branch(p, cfg: ModelConfig, x):
     return mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.act)
+
+
+def _moe_branch(p, layer: LayerSpec, cfg: ModelConfig, x):
+    """(y, aux) of the MoE layer."""
+    return mlp_mod.moe(p["moe"], layer.moe, apply_norm(p["norm2"], x, cfg.norm),
+                       cfg.act, seq_chunk=cfg.moe_seq_chunk)
 
 
 def _branch(fn, remat: bool, *args):
@@ -140,40 +190,52 @@ def _branch(fn, remat: bool, *args):
 
 def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
                want_cache: bool, max_len: int, remat_branches: bool = False):
-    """Full-sequence layer. Returns (x, aux, cache_or_None).
-    ``remat_branches``: the attention and MLP branches each under their own
-    checkpoint (remat policy "outputs")."""
-    if layer.kind != "attn":
-        _unported(layer.kind)
+    """Full-sequence layer. Returns (x, aux, cache_or_None): aux is the MoE
+    layer's load-balance loss (0 without one). ``remat_branches``: the
+    mixer and MLP branches each under their own checkpoint (remat policy
+    "outputs")."""
     cache = None
     if want_cache:
         h = apply_norm(p["norm1"], x, cfg.norm)
-        y, cache = attn_mod.attn_prefill(p["attn"], layer.attn, h, positions,
-                                         max_len)
+        y, cache = _mixer_prefill(p, layer, h, positions, max_len)
     else:
-        y = _branch(_attn_branch, remat_branches, p, layer, cfg, x, positions)
+        y = _branch(_mixer_branch, remat_branches, p, layer, cfg, x, positions)
     x = x + y
     aux = torch.zeros((), device=x.device)
     if layer.mlp == "dense":
         x = x + _branch(_mlp_branch, remat_branches, p, cfg, x)
     elif layer.mlp == "moe":
-        _unported("moe")
+        y2, aux = _branch(_moe_branch, remat_branches, p, layer, cfg, x)
+        x = x + y2
     return x, aux, cache
 
 
 def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
     """Single-token layer step at ``pos`` (an int or a 0-d int32 tensor);
     updates ``cache`` in place. Returns (x, cache)."""
-    if layer.kind != "attn":
-        _unported(layer.kind)
     h = apply_norm(p["norm1"], x, cfg.norm)
-    y, cache = attn_mod.attn_decode(p["attn"], layer.attn, h, pos, cache)
+    if layer.kind == "attn":
+        y, cache = attn_mod.attn_decode(p["attn"], layer.attn, h, pos, cache)
+    elif layer.kind == "mla":
+        y, cache = attn_mod.mla_decode(p["mla"], layer.mla, h, pos, cache,
+                                       absorb=cfg.mla_absorb)
+    elif layer.kind == "mamba":
+        y, cache = ssm_mod.mamba_decode(p["mamba"], layer.mamba, h, cache)
+    elif layer.kind == "mlstm":
+        y, cache = xlstm_mod.mlstm_decode(p["mlstm"], layer.xlstm, h, cache)
+    elif layer.kind == "slstm":
+        y, cache = xlstm_mod.slstm_decode(p["slstm"], layer.xlstm, h, cache)
+    else:
+        raise ValueError(layer.kind)
     x = x + y
     if layer.mlp == "dense":
         x = x + mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
     elif layer.mlp == "moe":
-        _unported("moe")
+        y2, _ = mlp_mod.moe(p["moe"], layer.moe,
+                            apply_norm(p["norm2"], x, cfg.norm), cfg.act,
+                            decode=True)
+        x = x + y2
     return x, cache
 
 

@@ -1,13 +1,44 @@
-"""Dense MLP (gated SiLU or plain GeLU). Port of the dense half of
-``repro/models/mlp.py``; the Mixture-of-Experts half waits for the slice
-that serves an MoE config."""
+"""MLP layers: dense (gated SiLU or plain GeLU) and Mixture-of-Experts.
+Port of ``repro/models/mlp.py``.
+
+MoE keeps the reference's GShard formulation: top-k capacity routing in
+which every group routes on its own with a per-group capacity, one-hot
+dispatch and combine tensors (G, n, E, C) contracted with einsums (batched
+matmuls, cuBLAS on the card), the Switch load-balance aux loss, no dropping
+on small token counts (decode, or n <= 256), and long sequences taken one
+``moe_seq_chunk`` at a time (a loop over chunks, each under its own
+checkpoint when a backward follows, the reference's rematerialized scan).
+
+Two places where torch and JAX differ, and the port keeps the reference's
+decisions token for token:
+
+* Ties in top-k. ``jax.lax.top_k`` puts the lower expert index first on a
+  tie; ``torch.topk`` promises no order. The port takes the first k of a
+  stable descending sort, which orders ties by index on the CPU and CUDA.
+* One-hots of out-of-range indices. ``jax.nn.one_hot`` gives a zero row for
+  an index past its range, and the reference's ``_route`` leans on that for
+  choices past an expert's capacity. The port never builds those one-hots:
+  it writes each kept choice's gate weight into the combine tensor at
+  (expert, slot) with one ``scatter_``, and a dropped choice writes 0 at
+  slot 0 of its expert, a cell no other choice of the same token writes
+  (a token's top-k experts are distinct). The result equals the
+  reference's sum of one-hot products: each cell has at most one term.
+"""
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import activate, dense_init
+from repro_torch.configs.base import MoESpec
+from repro_torch.models import common as cc
+from repro_torch.models.common import activate, dense_init, truncnorm_init
 
 
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,
              dtype) -> dict:
     p = {
@@ -26,3 +57,180 @@ def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = activate(h, act)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+# Read-only recorder of routing decisions, for comparing two runs of one
+# model: None, or the list that ``record_routing`` installs, to which every
+# ``moe`` call appends (gate_idx, keep, margin): the expert of each choice
+# and whether it fit in the expert's capacity, (B, S, top_k), and each
+# token's margin (B, S), the least gap between neighbours among its k + 1
+# largest router probabilities, which says how near a tie its choices and
+# their order (which decides who gets a slot first) were. It changes no
+# result.
+_ROUTING: list | None = None
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Record every ``moe`` call's routing decisions while the block runs;
+    yields the list they are appended to, in call order."""
+    global _ROUTING
+    prev, _ROUTING = _ROUTING, []
+    try:
+        yield _ROUTING
+    finally:
+        _ROUTING = prev
+
+
+def init_moe(gen: torch.Generator, spec: MoESpec, d_model: int, act: str,
+             dtype) -> dict:
+    e, f = spec.n_experts, spec.d_ff_expert
+    p = {
+        "router": dense_init(gen, d_model, e, torch.float32, scale=0.01),
+        "w_up": truncnorm_init(gen, (e, d_model, f), 1.0, dtype)
+        * d_model ** -0.5,
+        "w_down": truncnorm_init(gen, (e, f, d_model), 1.0, dtype)
+        * f ** -0.5,
+    }
+    if act == "silu":
+        p["w_gate"] = truncnorm_init(gen, (e, d_model, f), 1.0, dtype) \
+            * d_model ** -0.5
+    if spec.n_shared:
+        p["shared"] = init_mlp(gen, d_model, f * spec.n_shared, act, dtype)
+    return p
+
+
+def _expert_ffn(p, x_gecd, act: str):
+    """x: (G, E, C, d) -> (G, E, C, d), batched over groups x experts."""
+    h = torch.einsum("gecd,edf->gecf", x_gecd, p["w_up"])
+    if "w_gate" in p:
+        g = torch.einsum("gecd,edf->gecf", x_gecd, p["w_gate"])
+        h = activate(g, act) * h
+    else:
+        h = activate(h, act)
+    return torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+
+def _sorted(probs: torch.Tensor):
+    """Descending along the last axis, ties lower index first (the order of
+    ``jax.lax.top_k``)."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True)
+
+
+def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
+    """GShard grouped top-k capacity routing. x: (G, n, d): every group
+    routes on its own with per-group capacity, so the dispatch tensor is
+    (G, n, E, C) with C ~ n·k/E. Returns (dispatch, combine (G,n,E,C),
+    aux_loss); with a list for ``decisions``, appends (gate_idx, keep,
+    margin): (G, n, k), (G, n, k) and (G, n)."""
+    g_, n, _ = x.shape
+    e = spec.n_experts
+    logits = torch.einsum("gnd,de->gne", x.float(), router_w)
+    probs = torch.softmax(logits, dim=-1)
+    sorted_vals, sorted_idx = _sorted(probs)
+    gate_vals = sorted_vals[..., :spec.top_k]                # (G, n, k)
+    gate_idx = sorted_idx[..., :spec.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # one-hot of every choice over the experts, (G, k, E, n): n innermost,
+    # so the cumsum over tokens below scans the contiguous axis
+    hit = (gate_idx.transpose(1, 2)[:, :, None, :]
+           == torch.arange(e, device=x.device)[:, None]).to(torch.int32)
+
+    # aux load-balance loss (Switch): E * sum_e f_e * P_e, averaged over groups
+    me = probs.mean(dim=1)                                   # (G, E)
+    ce = hit.float().mean(dim=-1).sum(dim=1)                 # (G, E)
+    aux = e * (me * ce / spec.top_k).sum(-1).mean()
+
+    # slot of each choice in its expert: all choices of a lower rank come
+    # first, then earlier tokens' choices of the same rank
+    counts = hit.sum(dim=-1, dtype=torch.int32)              # (G, k, E)
+    before = counts.cumsum(dim=1, dtype=torch.int32) - counts
+    pos = hit.cumsum(dim=-1, dtype=torch.int32) - 1 + before[..., None]
+    slot = pos.gather(2, gate_idx.transpose(1, 2)[:, :, None, :])[:, :, 0]
+    keep = (slot < capacity).transpose(1, 2)                 # (G, n, k)
+    slot = slot.transpose(1, 2).long()
+
+    # bf16 routing tensors halve the (G,n,E,C) traffic (the reference's
+    # moe_combine_bf16 knob); gate weights in [0, 1] route the same
+    rdt = torch.bfloat16 if cc.RUNTIME.get("moe_combine_bf16") else torch.float32
+    flat = gate_idx * capacity + torch.where(keep, slot, 0)
+    vals = torch.where(keep, gate_vals, 0.0).to(rdt)
+    combine = torch.zeros((g_, n, e * capacity), dtype=rdt, device=x.device)
+    combine = combine.scatter_(2, flat, vals).view(g_, n, e, capacity)
+    dispatch = combine > 0
+    if decisions is not None:
+        top = sorted_vals[..., :spec.top_k + 1]
+        margin = (top[..., :-1] - top[..., 1:]).amin(-1) if top.shape[-1] > 1 \
+            else torch.ones_like(top[..., 0])
+        decisions.append((gate_idx, keep, margin))
+    return dispatch, combine, aux
+
+
+def _moe_grouped(p, spec: MoESpec, x_gnd, act: str, capacity: int,
+                 decisions=None):
+    """x: (G, n, d) -> (y (G, n, d), aux)."""
+    dispatch, combine, aux = _route(p["router"], x_gnd, spec, capacity,
+                                    decisions)
+    dispatched = torch.einsum("gnec,gnd->gecd", dispatch.to(x_gnd.dtype), x_gnd)
+    del dispatch
+    out = _expert_ffn(p, dispatched, act)
+    y = torch.einsum("gnec,gecd->gnd", combine.to(x_gnd.dtype), out)
+    return y, aux
+
+
+
+
+def moe(p, spec: MoESpec, x, act: str, seq_chunk: int = 0,
+        decode: bool = False):
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Chunked path (``seq_chunk`` set, not decoding, S a multiple of it and
+    longer): groups are the batch rows, one sequence chunk at a time, with
+    per-group capacity C = chunk·k/E·cf; each chunk runs under a checkpoint
+    when a backward follows. Otherwise one group of all B·S tokens, with no
+    dropping when decoding or at n <= 256 tokens."""
+    b, s, d = x.shape
+    n = b * s
+    # launcher/perf-iteration overrides (0 = use the config's values)
+    seq_chunk = cc.RUNTIME.get("moe_chunk", 0) or seq_chunk
+    cf = cc.RUNTIME.get("moe_capacity_factor", 0.0) or spec.capacity_factor
+    decisions = [] if _ROUTING is not None else None
+
+    if seq_chunk and not decode and s % seq_chunk == 0 and s > seq_chunk:
+        n_chunks = s // seq_chunk
+        cap = max(1, int(seq_chunk * spec.top_k / spec.n_experts * cf))
+        ys, aux_sum = [], torch.zeros((), device=x.device)
+        for c0 in range(0, s, seq_chunk):
+            args = (p, spec, x[:, c0:c0 + seq_chunk], act, cap, decisions)
+            # (a recompute in the backward appends to ``decisions`` again,
+            # after this call has read it)
+            yi, aux_i = checkpoint(_moe_grouped, *args, use_reentrant=False,
+                                   preserve_rng_state=False) \
+                if torch.is_grad_enabled() else _moe_grouped(*args)
+            ys.append(yi)
+            aux_sum = aux_sum + aux_i
+        y = torch.cat(ys, dim=1).reshape(n, d)
+        aux = aux_sum / n_chunks
+    else:
+        if decode or n <= 256:
+            capacity = n                   # no dropping on small token counts
+        else:
+            capacity = max(1, int(n * spec.top_k / spec.n_experts
+                                  * spec.capacity_factor))
+        y, aux = _moe_grouped(p, spec, x.reshape(1, n, d), act, capacity,
+                              decisions)
+        y = y.reshape(n, d)
+
+    if decisions is not None:
+        _ROUTING.append(tuple(torch.cat([t.reshape(b, -1, *t.shape[2:])
+                                         for t in ts], dim=1)
+                              for ts in zip(*decisions)))
+    x_flat = x.reshape(n, d)
+    if spec.n_shared:
+        y = y + mlp(p["shared"], x_flat, act)
+    return y.reshape(b, s, d), aux * spec.router_aux_weight

@@ -1,6 +1,7 @@
 """Shared helpers of the port's parity tests: the port's GNN cache seeded
-with the reference's params, the metric names the port does not count, and
-the byte-comparable projections of a serving run.
+with the reference's params, the metric names the port does not count, the
+byte-comparable projections of a serving run, and the models' RUNTIME
+knobs set on both packages at once.
 
 The reference trains its GNNs from ``jax.random``, which torch cannot
 reproduce, so the port's ``trained_gnn`` cache gets the reference's params
@@ -8,6 +9,7 @@ reproduce, so the port's ``trained_gnn`` cache gets the reference's params
 The only metric names allowed to differ are ``plan.jit.bucket{b}.compiles``
 / ``.cache_hits``, which the port's eager forward does not count.
 """
+import contextlib
 import dataclasses
 import json
 import re
@@ -15,14 +17,31 @@ import re
 import jax
 import numpy as np
 
+from repro.models import common as jcommon
 from repro.serve import evaluate as jse
 from repro.sim import evaluate as jev
 from repro.sim.chaos import canonical_records
 from repro_torch.core import gnn as tgnn
+from repro_torch.models import common as tcommon
 from repro_torch.serve.costs import serve_task_for as t_serve_task_for
 from repro_torch.sim import evaluate as tev
 
 PORT_UNCOUNTED = re.compile(r"plan\.jit\.bucket\d+\.(compiles|cache_hits)$")
+
+
+@contextlib.contextmanager
+def runtime(**flags):
+    """Set the models' RUNTIME knobs on both packages for the block, then
+    restore them."""
+    old = ({k: jcommon.RUNTIME[k] for k in flags},
+           {k: tcommon.RUNTIME[k] for k in flags})
+    jcommon.RUNTIME.update(flags)
+    tcommon.RUNTIME.update(flags)
+    try:
+        yield
+    finally:
+        jcommon.RUNTIME.update(old[0])
+        tcommon.RUNTIME.update(old[1])
 
 
 def to_port(params, cfg):

@@ -42,6 +42,11 @@ FLASH_CASES = [
     # phi3-mini's prefill: 32 heads, 32 kv heads, head_dim 96 (padded to 128)
     (1, 1024, 32, 32, 96, None, "bfloat16"),
     (1, 200, 4, 2, 96, 64, "float32"),
+    # olmoe-1b-7b's prefill (16 heads, 16 kv heads, head_dim 128) and reduced
+    # jamba's attention layer (2 heads, 2 kv heads, head_dim 16, fp32)
+    (4, 1024, 16, 16, 128, None, "bfloat16"),
+    (4, 1024, 16, 16, 128, None, "float32"),
+    (2, 32, 2, 2, 16, None, "float32"),
 ]
 # tests/test_kernels.py::DEC_CASES, then gemma3-1b's decode shapes: the
 # window-512 ring (a non-prefix mask) and the global cache at max_len 1088
@@ -58,6 +63,11 @@ DEC_CASES = [
     # phi3-mini's decode: B 4, T 1088, 32 heads, 32 kv heads, head_dim 96
     (4, 1088, 32, 32, 96, 1050, "bfloat16"),
     (4, 1088, 32, 32, 96, 1050, "float32"),
+    # olmoe-1b-7b's decode (G 1, head_dim 128, nothing padded) and reduced
+    # jamba's (T 48 = 32 prompt + 16 generated)
+    (4, 1088, 16, 16, 128, 1050, "bfloat16"),
+    (4, 1088, 16, 16, 128, 1050, "float32"),
+    (2, 48, 2, 2, 16, 40, "float32"),
 ]
 # the redesigned kernel's edges: T = 1, T off the 8-row chunk, a whole
 # chunk invalid ("hole"), one valid slot at the end ("last"), no valid slot

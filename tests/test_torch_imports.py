@@ -67,7 +67,7 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.sim.scenarios", "repro_torch.sim.evaluate",
               "repro_torch.serve", "repro_torch.serve.traffic",
               "repro_torch.serve.costs", "repro_torch.serve.autoscale",
-              *SLICE_MODULES):
+              *SLICE_MODULES, *MODEL_MODULES):
         assert m in mods, m
 
 
@@ -83,6 +83,13 @@ SLICE_MODULES = (
     "repro_torch.sim.generate", "repro_torch.sim",
 )
 
+# The model zoo's layer modules, MoE, MLA, Mamba and xLSTM among them.
+MODEL_MODULES = (
+    "repro_torch.models.mlp", "repro_torch.models.attention",
+    "repro_torch.models.ssm", "repro_torch.models.xlstm",
+    "repro_torch.models.decoder_lm",
+)
+
 _IMPORT_ONE = """
 import importlib, sys
 mod = importlib.import_module(sys.argv[1])
@@ -92,6 +99,14 @@ bad = [m for m in sys.modules
        if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
 assert not bad, bad
 """
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_module_imports_alone_without_jax_or_repro(module):
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
