@@ -23,7 +23,10 @@ with 64 generated, whose decode loop replays one captured CUDA graph of the
 decode step; serving olmoe-1b-7b at full width (16 layers, 64 experts top-8,
 bf16) the same way, deepseek-v2 at full width cut to 2 layers (MLA in the
 plain and the absorbed order, 160 experts top-6), and jamba-1.5-large and
-xlstm-125m reduced and xlstm-125m at full size; and training the same model (batch 4 x 1024 tokens, remat on,
+xlstm-125m reduced and xlstm-125m at full size; serving whisper-small (12
+encoder and 12 decoder layers, 1,500 frames, prompts of 384) and
+internvl2-1b (24 layers, GQA group 7, 256 patches ahead of prompts of 1024)
+at full width, bf16; and training gemma3-1b (batch 4 x 1024 tokens, remat on,
 chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
 times every kernel beside its plain version, a one-call library yardstick
@@ -57,7 +60,9 @@ profiles, fp32 kernels vs plain: the routing decisions compared layer by
 layer, then the logits on the rows no routing flip reached) -> deepseek-v2
 serve (2 layers, both MLA orders graphed, the fp32 orders' tokens, routing
 and logits) -> the small families (jamba and xlstm reduced, xlstm at full
-size; graphed vs eager, jamba's kernel launches) ->
+size; graphed vs eager, jamba's kernel launches) -> whisper-small and
+internvl2-1b serve (launch counts, a repeat call, graphed vs eager,
+profiles, fp32 kernels vs plain on every row) ->
 attention times (decode also per call inside a graph and from HBM) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
@@ -70,7 +75,9 @@ capture (26), then 63 replays of a graph that holds one step (26 each);
 the capture itself runs nothing. On olmoe-1b-7b's serve path, zeroed the
 same way: 16 ``flash_attention`` and 16 x 64 = 1,024 ``decode_attention``;
 on reduced jamba's (2 attention layers, 16 generated) 2 and 32;
-deepseek-v2 and xlstm launch neither. On the train path, zeroed just before
+deepseek-v2 and xlstm launch neither; on whisper-small's, 12 (its decoder's
+layers: the encoder is non-causal and plain) and 12 x 64 = 768; on
+internvl2-1b's, 24 and 24 x 64 = 1,536. On the train path, zeroed just before
 the 6 straight steps and read just after: 26 x 2 x 6 = 312
 ``flash_attention`` (each layer's forward and its recompute under remat)
 and 26 x 6 = 156 ``flash_attention_bwd``.
@@ -1276,23 +1283,34 @@ def _dev_time(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
-def _profile_prefill(torch, dlm, params, cfg, tokens, max_len, repeats=5) -> dict:
+def _first_decode_pos(cfg, inputs) -> int:
+    """The first generated token's position: after the prompt, and after a
+    VLM's patches."""
+    return (cfg.n_patches if cfg.family == "vlm" else 0) \
+        + inputs["tokens"].shape[1]
+
+
+def _profile_prefill(torch, params, cfg, inputs, max_len, repeats=5) -> dict:
     """Median host wall time of ``repeats`` warm prefills (each ended by a
-    synchronize), then one prefill under torch.profiler (CUDA activity):
-    the device time of its kernels, the flash kernel's part of it and the
-    largest kernels."""
+    synchronize; ``make_prefill``'s step over ``inputs``: the tokens and a
+    family's frames or patches), then one prefill under torch.profiler
+    (CUDA activity): the device time of its kernels, the flash kernel's
+    part of it and the largest kernels. Tokens/s counts the prompt's
+    tokens, as ``serve_batch`` does."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.train_step import make_prefill
+    prefill = make_prefill(cfg)
     walls = []
     with torch.no_grad():
         for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+            prefill(params, inputs, max_len)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+            prefill(params, inputs, max_len)
             torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1302,7 +1320,7 @@ def _profile_prefill(torch, dlm, params, cfg, tokens, max_len, repeats=5) -> dic
     wall = statistics.median(walls)
     return {"repeats": repeats, "wall_ms_median": wall * 1e3,
             "wall_ms": [w * 1e3 for w in walls],
-            "tokens_per_s_median": tokens.numel() / wall,
+            "tokens_per_s_median": inputs["tokens"].numel() / wall,
             "device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
             "flash_share_of_busy": flash_us / busy_us,
             "top_kernels": [[e.key[:100], _dev_time(e) / 1e3, e.count]
@@ -1354,45 +1372,47 @@ def _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len, steps=3):
                             for e in top]}
 
 
-def _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen, max_len,
+def _graph_vs_eager(torch, serve, params, cfg, inputs, fed, gen, max_len,
                     steps=8) -> dict:
     """The captured step against the eager one on the same weights and the
-    same prefill caches: ``decode_step`` captured with a tensor pos and
-    replayed teacher-forced on ``fed`` against eager ``decode_step`` calls
-    (logits, bit for bit expected: the same kernels in the same order), and
+    same prefill caches (``make_prefill``'s step over ``inputs``): the
+    family's ``decode_step`` captured with a tensor pos and replayed
+    teacher-forced on ``fed`` against eager ``decode_step`` calls (logits,
+    bit for bit expected: the same kernels in the same order), and
     ``serve_batch``'s graphed tokens ``gen`` against an eager greedy loop
     of ``make_decode_step``'s step."""
-    from repro_torch.training.train_step import make_decode_step
-    s = tokens.shape[1]
-
-    def clone(tree):   # caches: lists of per-layer dicts of tensors
-        return [{k: v.clone() for k, v in c.items()} if isinstance(c, dict)
-                else clone(c) for c in tree]
+    from repro_torch._tree import tree_map
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.train_step import make_decode_step, make_prefill
+    api = get_api(cfg)
+    prefill = make_prefill(cfg, api)
+    s = _first_decode_pos(cfg, inputs)
+    clone = lambda tree: tree_map(torch.clone, tree)
 
     with torch.no_grad():
-        last, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        last, caches = prefill(params, inputs, max_len)
         eager_caches = clone(caches)
         tok = fed[:, :1].clone()
-        pos = torch.full((), s, dtype=torch.int32, device=tokens.device)
-        dlm.decode_step(params, cfg, tok, pos, clone(caches))   # eager warm-up
+        pos = torch.full((), s, dtype=torch.int32, device=fed.device)
+        api.decode_step(params, cfg, tok, pos, clone(caches))   # eager warm-up
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            logits, _ = dlm.decode_step(params, cfg, tok, pos, caches)
+            logits, _ = api.decode_step(params, cfg, tok, pos, caches)
         errs, same = [], True
         for i in range(steps):
             tok.copy_(fed[:, i:i + 1])
             pos.fill_(s + i)
             graph.replay()
-            want, eager_caches = dlm.decode_step(params, cfg, fed[:, i:i + 1],
+            want, eager_caches = api.decode_step(params, cfg, fed[:, i:i + 1],
                                                  s + i, eager_caches)
             torch.cuda.synchronize()
             same = same and torch.equal(logits, want)
             errs.append((logits - want).abs().max().item())
         graph.reset()
         del graph, logits, caches, eager_caches
-        step = make_decode_step(cfg)
-        _, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        step = make_decode_step(cfg, api)
+        _, caches = prefill(params, inputs, max_len)
         t = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
         out = [t]
         for i in range(gen.shape[1] - 1):
@@ -1405,7 +1425,7 @@ def _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen, max_len,
             "token_agreement": float((eager_gen == gen).mean())}
 
 
-def _profile_decode_graph(torch, dlm, serve, params, cfg, tokens, max_len, DK,
+def _profile_decode_graph(torch, serve, params, cfg, inputs, max_len, DK,
                           steps=16) -> dict:
     """Replays of ``serve_batch``'s captured decode step under torch.profiler
     (CUDA activity), after a fresh prefill: host wall time per step (an
@@ -1417,12 +1437,13 @@ def _profile_decode_graph(torch, dlm, serve, params, cfg, tokens, max_len, DK,
     activity after it is counted (the host's and the card's timestamps may
     be offset by more than a kernel)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.training.train_step import make_decode_step
-    s = tokens.shape[1]
+    from repro_torch.training.train_step import make_decode_step, make_prefill
+    s = _first_decode_pos(cfg, inputs)
     step = make_decode_step(cfg)
+    prefill = make_prefill(cfg)
 
     def prefilled():
-        last, caches = dlm.prefill(params, cfg, tokens=tokens, max_len=max_len)
+        last, caches = prefill(params, inputs, max_len)
         return torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None], caches
 
     with torch.no_grad():
@@ -1519,8 +1540,8 @@ def phase_serve(torch, device, FK, DK) -> dict:
           f"{n_layers * gen_n} decode")
     tokens = torch.as_tensor(batch["tokens"], device=device)
     fed = torch.as_tensor(gen, device=device)
-    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen,
-                             max_len)
+    g_vs_e = _graph_vs_eager(torch, serve, params, cfg, {"tokens": tokens},
+                             fed, gen, max_len)
     emit("serve_graph_vs_eager", **g_vs_e)
     check(g_vs_e["tokens_equal"], "graphed serve tokens differ from the eager "
                                   "greedy loop's")
@@ -1528,10 +1549,10 @@ def phase_serve(torch, device, FK, DK) -> dict:
           f"graphed decode logits differ from eager ones by "
           f"{g_vs_e['logits_max_abs_err']}")
     prof = _profile_decode(torch, dlm, params, cfg, tokens, fed, max_len)
-    gprof = _profile_decode_graph(torch, dlm, serve, params, cfg, tokens, max_len,
-                                  DK)
+    gprof = _profile_decode_graph(torch, serve, params, cfg, {"tokens": tokens},
+                                  max_len, DK)
     emit("serve_prefill_profile",
-         **_profile_prefill(torch, dlm, params, cfg, tokens, max_len))
+         **_profile_prefill(torch, params, cfg, {"tokens": tokens}, max_len))
 
     def teacher_forced(p, c, flash: bool):
         cc.RUNTIME["use_flash"] = flash
@@ -1779,19 +1800,19 @@ def phase_serve_olmoe(torch, device, FK, DK) -> dict:
           f"{n_layers * gen_n} decode")
     tokens = torch.as_tensor(batch["tokens"], device=device)
     fed = torch.as_tensor(gen, device=device)
-    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed, gen,
-                             max_len)
+    g_vs_e = _graph_vs_eager(torch, serve, params, cfg, {"tokens": tokens},
+                             fed, gen, max_len)
     emit("serve_olmoe_graph_vs_eager", **g_vs_e)
     check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
           f"olmoe's graphed decode differs from the eager one: {g_vs_e}")
-    gprof = _profile_decode_graph(torch, dlm, serve, params, cfg, tokens,
+    gprof = _profile_decode_graph(torch, serve, params, cfg, {"tokens": tokens},
                                   max_len, DK)
     emit("serve_olmoe_decode_graph_profile", **gprof)
     check(gprof["decode_kernels_per_step"] == n_layers,
           f"a profiled olmoe replay ran {gprof['decode_kernels_per_step']} "
           f"decode kernels per step, want {n_layers}")
     emit("serve_olmoe_prefill_profile",
-         **_profile_prefill(torch, dlm, params, cfg, tokens, max_len))
+         **_profile_prefill(torch, params, cfg, {"tokens": tokens}, max_len))
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = tree_map(lambda t: t.float(), params)
@@ -1875,8 +1896,8 @@ def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
             **_serve_fields(run), "sample": gen[0, :8].tolist()}
     c = dataclasses.replace(cfg, mla_absorb=True)
     fed = torch.as_tensor(gen, device=device)
-    g_vs_e = _graph_vs_eager(torch, dlm, serve, params, c, tokens, fed, gen,
-                             max_len)
+    g_vs_e = _graph_vs_eager(torch, serve, params, c, {"tokens": tokens}, fed,
+                             gen, max_len)
     emit("serve_deepseek_v2_graph_vs_eager", order="absorbed", **g_vs_e)
     check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
           f"deepseek-v2's graphed absorbed decode differs from the eager one: "
@@ -1969,8 +1990,8 @@ def phase_serve_families_small(torch, device, FK, DK) -> dict:
               f"{n_attn * gen_n} decode")
         tokens = torch.as_tensor(batch["tokens"], device=device)
         fed = torch.as_tensor(gen, device=device)
-        g_vs_e = _graph_vs_eager(torch, dlm, serve, params, cfg, tokens, fed,
-                                 gen, s + gen_n)
+        g_vs_e = _graph_vs_eager(torch, serve, params, cfg, {"tokens": tokens},
+                                 fed, gen, s + gen_n)
         key = f"{arch}{' reduced' if reduced else ''}"
         emit("serve_family", arch=arch, reduced=reduced, dtype=cfg.dtype,
              layers=cfg.n_layers, d_model=cfg.d_model,
@@ -1986,20 +2007,177 @@ def phase_serve_families_small(torch, device, FK, DK) -> dict:
     return out
 
 
+# -- the encoder-decoder and VLM families ---------------------------------------
+WHISPER = dict(arch="whisper-small", batch=4, prompt=384, gen=64, seed=0)
+INTERNVL = dict(arch="internvl2-1b", batch=4, prompt=1024, gen=64, seed=0)
+
+
+def _fp32_kernels_vs_plain(torch, serve, api, cfg, params, batch, fed,
+                           max_len) -> dict:
+    """The same weights upcast to fp32: ``serve_batch`` (kernels, graphed
+    decode) generates tokens; then the prefill and teacher-forced decode
+    steps fed those tokens, with ``use_flash`` on and off, give (B, gen, V)
+    logits that must agree within TOL32 on every row (no routing here).
+    Where the plain path's greedy token differs from a served one, its top
+    two logits must be within TOL32 (a near tie)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import common as cc
+    from repro_torch.training.train_step import device_batch, make_prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    gen32, _ = serve.serve_batch(cfg32, params32, batch, fed.shape[1],
+                                 log=lambda *_: None)
+    fed32 = torch.as_tensor(gen32, device=fed.device)
+    inputs32 = device_batch(cfg32, batch, fed.device)
+    s = _first_decode_pos(cfg32, inputs32)
+    prefill = make_prefill(cfg32, api)
+    logits = {}
+    for flash in (True, False):
+        cc.RUNTIME["use_flash"] = flash
+        with torch.no_grad():
+            last, caches = prefill(params32, inputs32, max_len)
+            rows = [last[:, -1]]
+            for i in range(fed32.shape[1] - 1):
+                step, caches = api.decode_step(params32, cfg32,
+                                               fed32[:, i:i + 1], s + i, caches)
+                rows.append(step[:, -1])
+        logits[flash] = torch.stack(rows, dim=1).float()
+        del caches
+    cc.RUNTIME["use_flash"] = True
+    del params32
+    torch.cuda.empty_cache()
+    on, off = logits[True], logits[False]
+    check(bool(torch.isfinite(on).all() and torch.isfinite(off).all()),
+          f"{cfg.name}: fp32 logits are not finite")
+    ok_p, err_p = _close(torch, on[:, 0], off[:, 0], TOL32)
+    ok_d, err_d = _close(torch, on[:, 1:], off[:, 1:], TOL32)
+    greedy = off.argmax(-1)
+    differ = greedy != fed32
+    top2 = off.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1])[differ]
+    return {"prefill_logits_max_abs_err": err_p, "prefill_ok": ok_p,
+            "decode_logits_max_abs_err": err_d, "decode_ok": ok_d, "tol": TOL32,
+            "plain_greedy_agreement_with_served": 1 - differ.float().mean().item(),
+            "plain_greedy_differs_at_near_tie_only":
+                bool((margins <= TOL32).all()),
+            "plain_greedy_margins_where_differ": margins.tolist()[:8],
+            "sample": gen32[0, :8].tolist()}
+
+
+def _phase_serve_family(torch, device, FK, DK, spec: dict, phase: str) -> dict:
+    """One model of the encoder-decoder or VLM family at its config's full
+    width, bf16, random weights from a seeded generator on the card,
+    through ``serve_batch`` (its frames or patches from ``make_batch``, fed
+    in the params' dtype; the decode step replayed from one CUDA graph),
+    with the launches counted from zero around the timed call: the flash
+    kernel once per causal self-attention layer of the prefill, the decode
+    kernel once per decoder layer and generated token. The graphed step
+    against the eager one, bit for bit; decode and prefill profiles; then
+    the fp32 kernels against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.train_step import device_batch
+
+    torch.cuda.empty_cache()
+    cfg = get_config(spec["arch"])
+    api = get_api(cfg)
+    b, s, gen_n = spec["batch"], spec["prompt"], spec["gen"]
+    n_layers = cfg.n_layers           # the decoder's
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=spec["seed"], device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=spec["seed"]), 0)
+    batch = {k: v for k, v in batch.items() if k != "labels"}
+    inputs = device_batch(cfg, batch, device)
+    max_len = _first_decode_pos(cfg, inputs) + gen_n
+    run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    gen, launches = run["gen"], run["launches"]
+    check(launches == {"flash_attention": n_layers,
+                       "decode_attention": n_layers * gen_n},
+          f"{cfg.name} serve launches {launches}, want {n_layers} flash and "
+          f"{n_layers * gen_n} decode")
+    fed = torch.as_tensor(gen, device=device)
+    g_vs_e = _graph_vs_eager(torch, serve, params, cfg, inputs, fed, gen,
+                             max_len)
+    emit(f"{phase}_graph_vs_eager", **g_vs_e)
+    check(g_vs_e["tokens_equal"] and g_vs_e["logits_bit_identical"],
+          f"{cfg.name}'s graphed decode differs from the eager one: {g_vs_e}")
+    gprof = _profile_decode_graph(torch, serve, params, cfg, inputs, max_len, DK)
+    emit(f"{phase}_decode_graph_profile", **gprof)
+    check(gprof["decode_kernels_per_step"] == n_layers,
+          f"a profiled {cfg.name} replay ran {gprof['decode_kernels_per_step']} "
+          f"decode kernels per step, want {n_layers}")
+    emit(f"{phase}_prefill_profile",
+         **_profile_prefill(torch, params, cfg, inputs, max_len))
+    n_params = dlm.param_count(params)
+    del inputs
+    cmp32 = _fp32_kernels_vs_plain(torch, serve, api, cfg, params, batch, fed,
+                                   max_len)
+    del params
+    torch.cuda.empty_cache()
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    emit(phase, arch=spec["arch"], family=cfg.family, dtype=cfg.dtype,
+         layers=n_layers, encoder_layers=sum(
+             seg.count * len(seg.layers) for seg in cfg.encoder_segments),
+         d_model=cfg.d_model, params=n_params, init_s=t_init, batch=b,
+         prompt_tokens=s, gen_tokens=gen_n, max_len=max_len, inputs=shapes,
+         **_serve_fields(run), launches=launches,
+         fp32_kernels_vs_plain=cmp32, sample=gen[0, :8].tolist())
+    check(cmp32["prefill_ok"] and cmp32["decode_ok"],
+          f"fp32 {cfg.name} logits with the kernels differ from the plain "
+          f"path: {cmp32}")
+    check(cmp32["plain_greedy_differs_at_near_tie_only"],
+          f"the fp32 plain path's greedy tokens part from {cfg.name}'s served "
+          f"ones away from a near tie: {cmp32}")
+    return launches
+
+
+def phase_serve_whisper_small(torch, device, FK, DK) -> dict:
+    """whisper-small at its config's widths (arXiv:2212.04356; 12 encoder
+    and 12 decoder layers, d_model 768, 12 heads of 64, d_ff 3072, vocab
+    51,968), no cut: 4 x 1,500 encoder frames (30 s of audio), prompts of
+    384 tokens, 64 generated (max_len 448, the decoder's context). The
+    non-causal encoder and the cross-attention take the plain path, as in
+    the reference; the flash kernel runs on the 12 decoder layers per
+    prefill, the decode kernel on 12 per step."""
+    return _phase_serve_family(torch, device, FK, DK, WHISPER,
+                               "serve_whisper_small")
+
+
+def phase_serve_internvl2_1b(torch, device, FK, DK) -> dict:
+    """internvl2-1b at its config's widths (arXiv:2404.16821; 24 layers,
+    d_model 896, 14 heads over 2 kv heads of 64, d_ff 4,864, vocab 151,808,
+    vit_dim 1,024), no cut: 4 x (256 patches + 1,024 prompt tokens), 64
+    generated (max_len 1,344). Both kernels run at GQA group 7: 24 flash
+    launches per prefill, 24 decode launches per step."""
+    return _phase_serve_family(torch, device, FK, DK, INTERNVL,
+                               "serve_internvl2_1b")
+
+
 def _attn_time_cases(torch, F, FK, FR, DK, DR):
     """The serve shapes: prefill of a global (causal) and a local (window
     512) layer, and one decode step of the global cache (T 1088, valid up
     to the middle of generation) and of a local ring (T 512, all valid);
     and phi3-mini's attention (32 heads, 32 kv heads, head_dim 96, which
     the wrappers pad to 128): a prefill of 1 x 1024 tokens and a decode
-    step at B 4 against T 1088; and olmoe-1b-7b's (16 heads, 16 kv heads,
+    step at B 4 against T 1088; olmoe-1b-7b's (16 heads, 16 kv heads,
     head_dim 128, nothing padded) at its serve shapes, B 4 x 1024 and T
-    1088."""
+    1088; internvl2-1b's (14 heads over 2 kv heads: G 7, head_dim 64), a
+    prefill of 4 x (256 patches + 1024 tokens) and a step against T 1344;
+    and whisper-small's decoder (12 heads, 12 kv heads, head_dim 64), a
+    prefill of 4 x 384 and a step against T 448."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE["arch"])
     spec_local = cfg.segments[0].layers[0].attn
     phi3 = get_config("phi3-mini-3.8b").segments[0].layers[0].attn
     olmoe = get_config(OLMOE["arch"]).segments[0].layers[0].attn
+    ivl = get_config(INTERNVL["arch"]).segments[0].layers[0].attn
+    whisper = get_config(WHISPER["arch"]).segments[0].layers[0].attn
     b, s = SERVE["batch"], SERVE["prompt"]
     max_len = s + SERVE["gen"]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2010,11 +2188,16 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     gemma = (spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim)
     phi = (phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
     olm = (olmoe.n_heads, olmoe.n_kv_heads, olmoe.head_dim)
-    for label, window, b, (h, kvh, d) in (
-            ("global", None, SERVE["batch"], gemma),
-            ("local", spec_local.window, SERVE["batch"], gemma),
-            ("phi3-mini", None, 1, phi),
-            ("olmoe", None, OLMOE["batch"], olm)):
+    g7 = (ivl.n_heads, ivl.n_kv_heads, ivl.head_dim)
+    whi = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim)
+    ivl_s = get_config(INTERNVL["arch"]).n_patches + INTERNVL["prompt"]
+    for label, window, b, s, (h, kvh, d) in (
+            ("global", None, SERVE["batch"], SERVE["prompt"], gemma),
+            ("local", spec_local.window, SERVE["batch"], SERVE["prompt"], gemma),
+            ("phi3-mini", None, 1, SERVE["prompt"], phi),
+            ("olmoe", None, OLMOE["batch"], OLMOE["prompt"], olm),
+            ("internvl2-1b", None, INTERNVL["batch"], ivl_s, g7),
+            ("whisper-small", None, WHISPER["batch"], WHISPER["prompt"], whi)):
         q, k, v = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d)
         qpos = torch.arange(s, device="cuda")[:, None]
         kpos = torch.arange(s, device="cuda")[None, :]
@@ -2032,11 +2215,16 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
             flops=4 * d * pairs * b * h)
     b = SERVE["batch"]
+    s = SERVE["prompt"]
+    ivl_t = ivl_s + INTERNVL["gen"]
+    whi_t = WHISPER["prompt"] + WHISPER["gen"]
     for label, t, n_valid, (h, kvh, d) in (
             ("global", max_len, s + SERVE["gen"] // 2, gemma),
             ("local", spec_local.window, spec_local.window, gemma),
             ("phi3-mini", max_len, s + SERVE["gen"] // 2, phi),
-            ("olmoe", max_len, s + SERVE["gen"] // 2, olm)):
+            ("olmoe", max_len, s + SERVE["gen"] // 2, olm),
+            ("internvl2-1b", ivl_t, ivl_s + INTERNVL["gen"] // 2, g7),
+            ("whisper-small", whi_t, WHISPER["prompt"] + WHISPER["gen"] // 2, whi)):
         q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
         valid = torch.arange(t, device="cuda") < n_valid
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2354,7 +2542,9 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py",
              "tests/test_torch_sim_eval_gpu.py",
              "tests/test_torch_serve_sim_gpu.py",
-             "tests/test_torch_families_gpu.py"]
+             "tests/test_torch_families_gpu.py",
+             "tests/test_torch_encdec_vlm_gpu.py",
+             "tests/test_torch_train_families_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -2439,6 +2629,13 @@ def main() -> None:
     l_olmoe = phase_serve_olmoe(torch, device, FK, DK)
     phase_serve_deepseek_v2(torch, device, FK, DK)
     l_small = phase_serve_families_small(torch, device, FK, DK)
+    # 7c. the encoder-decoder and VLM families at full width: whisper-small
+    # (flash on the decoder's 12 layers, G 1) and internvl2-1b (G 7); counts
+    # zeroed before and read after each serve
+    l_family = {"serve_whisper_small": phase_serve_whisper_small(
+                    torch, device, FK, DK),
+                "serve_internvl2_1b": phase_serve_internvl2_1b(
+                    torch, device, FK, DK)}
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
     # 9. the flash backward: check and times at the training shape
@@ -2475,7 +2672,8 @@ def main() -> None:
             "by_bucket": {str(b): times[name][b] for b in TIMED_BUCKETS}})
     for name in ("flash_attention", "decode_attention"):
         by_path = {"serve": launches[name], "serve_olmoe": l_olmoe[name],
-                   **{f"serve {k}": n[name] for k, n in l_small.items()}}
+                   **{f"serve {k}": n[name] for k, n in l_small.items()},
+                   **{k: n[name] for k, n in l_family.items()}}
         if name == "flash_attention":
             by_path["train"] = train_launches[name]
         kernels.append({

@@ -4,6 +4,10 @@ Port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
+Every family of ``configs.ARCHS`` serves: ``--arch whisper-small`` feeds
+random frame embeddings (1,500 frames at full width) to the encoder,
+``--arch internvl2-1b`` random patch embeddings (256) ahead of the prompt.
+
 Runs on the CUDA device unless ``--device`` says otherwise. On the card the
 decode loop replays one captured CUDA graph of the decode step
 (``DecodeGraph``), the counterpart of the reference's jitted step with
@@ -17,7 +21,6 @@ import argparse
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from repro_torch import _device
@@ -27,7 +30,8 @@ from repro_torch.data.synthetic import SyntheticConfig, make_batch
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
-from repro_torch.training.train_step import make_decode_step, make_prefill
+from repro_torch.training.train_step import (device_batch, make_decode_step,
+                                             make_prefill)
 
 
 def _clock(device: torch.device) -> float:
@@ -50,6 +54,16 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _SIDE_STREAMS[device.index]
 
 
+def _warmup_caches(caches):
+    """The caches for ``DecodeGraph``'s eager warm-up step: a copy of every
+    cache the step writes. The encoder-decoder's cross K/V are read-only
+    and shared, not copied (221 MB at whisper-small's full width, B 4)."""
+    if isinstance(caches, dict) and "cross" in caches:
+        return {"self": tree_map(torch.clone, caches["self"]),
+                "cross": caches["cross"]}
+    return tree_map(torch.clone, caches)
+
+
 class DecodeGraph:
     """``decode_fn`` (``make_decode_step``'s ``serve_step``) captured once as
     a CUDA graph and replayed once per generated token.
@@ -58,14 +72,16 @@ class DecodeGraph:
     0-d int32 tensor and the caches, which the step updates in place (the
     reference donates them): attention's K/V (and a ring's slot
     positions), MLA's ``{"ckv", "k_rope"}``, Mamba's ``{"h", "conv"}``,
-    mLSTM's ``{"c", "n", "m", "conv"}`` and sLSTM's ``{"c", "n", "h",
-    "m"}``. The graph ends by writing its token into column ``i`` of
-    ``tokens``, feeding it back as the next input and advancing ``pos`` and
-    ``i``, so a replay needs no host work besides the launch. Before the
-    capture one eager step runs on the capture's side stream, on a copy of
-    the caches: a recurrent state advances at every step, so a step on the
-    caches themselves would be one step too many. The graph holds the
-    memory of its intermediates until ``release``.
+    mLSTM's ``{"c", "n", "m", "conv"}``, sLSTM's ``{"c", "n", "h", "m"}``
+    and the encoder-decoder's ``{"self": [...], "cross": [...]}``, whose
+    cross K/V the step only reads. The graph ends by writing its token into
+    column ``i`` of ``tokens``, feeding it back as the next input and
+    advancing ``pos`` and ``i``, so a replay needs no host work besides the
+    launch. Before the capture one eager step runs on the capture's side
+    stream, on a copy of the caches it writes (``_warmup_caches``): a
+    recurrent state advances at every step, so a step on the caches
+    themselves would be one step too many. The graph holds the memory of
+    its intermediates until ``release``.
 
     Launch counting: the warm-up's kernels count as they run; the capture
     records ``held`` (wrapper -> launches in the graph, from
@@ -81,7 +97,7 @@ class DecodeGraph:
         self.col = torch.zeros((1,), dtype=torch.long, device=dev)
         self.tokens = torch.zeros((token.shape[0], steps), dtype=torch.int32,
                                   device=dev)
-        scratch = tree_map(torch.clone, caches)
+        scratch = _warmup_caches(caches)
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = dict(dec_kernel.CAPTURED)
@@ -131,19 +147,28 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     place (the reference donates them). ``stats`` has the reference's keys,
     ``backend`` being the device type, plus ``decode_capture_s``: the
     warm-up step and the capture, timed between the prefill and the decode
-    clocks (0 on the CPU)."""
+    clocks (0 on the CPU).
+
+    ``batch`` holds ``tokens`` and the family's ``frames`` (audio) or
+    ``patches`` (vlm), which go to the device in the config's activation
+    dtype (``device_batch``). A VLM's patches take the first ``n_patches``
+    positions, so the cache holds ``n_patches + S + gen_tokens`` and the
+    first decode step sits at ``n_patches + S``, as in the reference."""
     device = _device.of(params)
     if device.type == "cuda":
         cc.RUNTIME["use_flash"] = True
     api = get_api(cfg)
     prefill_fn = make_prefill(cfg, api)
     decode_fn = make_decode_step(cfg, api)
-    tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
-    b, s = tokens.shape
-    max_len = s + gen_tokens
+    inputs = device_batch(cfg, {k: v for k, v in batch.items()
+                                if k in ("tokens", "frames", "patches")},
+                          device)
+    b, s = inputs["tokens"].shape
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    max_len = extra + s + gen_tokens
 
     t0 = _clock(device)
-    last_logits, caches = prefill_fn(params, {"tokens": tokens}, max_len)
+    last_logits, caches = prefill_fn(params, inputs, max_len)
     token = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)[:, None]
     t_prefill = _clock(device) - t0
 
@@ -151,7 +176,8 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     t_capture = 0.0
     if device.type == "cuda" and decode_steps > 0:
         t0 = _clock(device)
-        graph = DecodeGraph(decode_fn, params, token, s, caches, decode_steps)
+        graph = DecodeGraph(decode_fn, params, token, extra + s, caches,
+                            decode_steps)
         t_capture = _clock(device) - t0
         t0 = _clock(device)
         for _ in range(decode_steps):
@@ -163,7 +189,7 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
         out = [token]
         t0 = _clock(device)
         for i in range(decode_steps):
-            token, caches = decode_fn(params, token, s + i, caches)
+            token, caches = decode_fn(params, token, extra + s + i, caches)
             out.append(token)
         t_decode = _clock(device) - t0
         gen = torch.cat(out, dim=1)

@@ -20,8 +20,6 @@ import argparse
 import dataclasses
 import time
 
-import torch
-
 from repro_torch import _device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_for_smoke
@@ -29,7 +27,8 @@ from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
 from repro_torch.training.optimizer import AdamWConfig
-from repro_torch.training.train_step import init_train_state, make_train_step
+from repro_torch.training.train_step import (device_batch, init_train_state,
+                                             make_train_step)
 
 
 def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
@@ -84,7 +83,7 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             if step >= steps:
                 break
             t_step = time.perf_counter()
-            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            tb = device_batch(cfg, batch, dev)
             state, metrics = step_fn(state, tb)
             if step % log_every == 0 or step == steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}

@@ -1,7 +1,6 @@
 """Attention layers: GQA (sliding window, qk-norm) with full and ring KV
-caches, and DeepSeek-style MLA with its compressed cache. Port of
-``repro/models/attention.py``; ``attn_cross`` waits for the slice that
-serves Whisper.
+caches, the encoder-decoder's cross-attention, and DeepSeek-style MLA with
+its compressed cache. Port of ``repro/models/attention.py``.
 
 Two execution paths per layer:
   * full sequence (prefill): GQA through the hand-written flash-attention
@@ -12,6 +11,11 @@ Two execution paths per layer:
   * one-token decode against a cache: GQA's full or ring (sliding window)
     cache through the decode-attention kernel when ``use_flash`` is on;
     MLA's compressed cache in the plain or the absorbed matmul order.
+
+Cross-attention (``attn_cross``, the Whisper decoder) reads K/V computed
+once from the encoder's output, with every encoder position visible. It is
+plain for the full sequence and the one-token step alike: the reference has
+no kernel for it.
 
 Shapes: x (B, S, d_model); q (B, S, H, D); k/v (B, T, KV, D). The decode
 step writes the new entries into the cache in place, the torch form of the
@@ -121,6 +125,18 @@ def attn_full(p, spec: AttnSpec, x, positions, return_kv: bool = False):
     if return_kv:
         return y, (k, v)
     return y
+
+
+def attn_cross(p, spec: AttnSpec, x, kv_cache):
+    """Cross-attention (Whisper decoder): K, V precomputed from the encoder.
+    x (B, S, d); kv_cache (k, v), each (B, T, KV, D). No RoPE on the query
+    and no mask: every encoder position is visible."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, spec.n_heads, spec.head_dim)
+    k, v = kv_cache
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _gqa_attend(q, k, v, mask)
+    return out.reshape(b, s, -1) @ p["wo"]
 
 
 # -- KV caches ---------------------------------------------------------------

@@ -270,11 +270,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> PyTree:
     ``seed``. ``jax.random`` draws other numbers: compare with the
     reference by injecting its params (``params_from_numpy``)."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_params_from(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def init_params_from(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
+    """``init_params`` drawing from ``gen`` on its device, which the
+    encoder-decoder and VLM inits go on drawing from (the reference splits
+    one key among the parts)."""
     dt = _dtype(cfg)
     params: dict = {
         "embed": truncnorm_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
-        "final_norm": _norm_params(cfg, cfg.d_model, dev),
+        "final_norm": _norm_params(cfg, cfg.d_model, gen.device),
         "segments": [],
     }
     if not cfg.tie_embeddings:

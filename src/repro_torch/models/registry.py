@@ -1,9 +1,15 @@
-"""Model registry: family -> (init / prefill / decode) entry points.
+"""Model registry: family -> (init / loss / prefill / decode) entry points.
 Port of ``repro/models/registry.py``.
 
-The ``lm`` family (decoder-only LMs built from ``decoder_lm`` segments)
-trains and serves. ``audio`` (encoder-decoder) and ``vlm`` raise until
-their slices.
+Families:
+  * ``lm``    — decoder-only LM (dense, MoE, hybrid, SSM: anything built
+                from ``decoder_lm`` segments);
+  * ``audio`` — encoder-decoder (whisper): frontend-stub frames in, text
+                out (``encdec``);
+  * ``vlm``   — ViT-stub patches + text tokens into a decoder LM (``vlm``).
+
+Every entry point takes ``(params, cfg, ...)``; the batch dicts are those
+of ``data.synthetic.make_batch`` as tensors on the params' device.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder_lm as dlm
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import vlm as vlm_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +41,27 @@ def _lm_api() -> ModelApi:
     )
 
 
-_LATER = {"audio": "the encoder-decoder slice (encdec.py, Whisper)",
-          "vlm": "the VLM slice (vlm.py, InternVL2)"}
+def _encdec_api() -> ModelApi:
+    return ModelApi(
+        init_params=encdec_mod.init_params,
+        loss_and_metrics=encdec_mod.loss_and_metrics,
+        prefill=encdec_mod.prefill,
+        decode_step=encdec_mod.decode_step,
+    )
+
+
+def _vlm_api() -> ModelApi:
+    return ModelApi(
+        init_params=vlm_mod.init_params,
+        loss_and_metrics=vlm_mod.loss_and_metrics,
+        prefill=vlm_mod.prefill,
+        decode_step=vlm_mod.decode_step,
+        init_caches=dlm.init_caches,
+    )
+
+
+_RUNNER = {"audio": _encdec_api, "vlm": _vlm_api}
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"it waits for {_LATER[cfg.family]}")
-    return _lm_api()
+    return _RUNNER.get(cfg.family, _lm_api)()

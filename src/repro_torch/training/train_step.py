@@ -12,10 +12,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import DTYPES
 from repro_torch.models.registry import ModelApi, get_api
 from repro_torch.training.optimizer import (AdamState, AdamWConfig, adamw_init,
                                             adamw_update)
@@ -41,7 +43,8 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     api: ModelApi | None = None) -> Callable:
     """(state, batch) -> (state, metrics). ``batch``: {"tokens", "labels"}
-    int tensors on the params' device. One step: the loss, its gradient by
+    int tensors on the params' device, and a family's ``frames`` or
+    ``patches`` (``device_batch``). One step: the loss, its gradient by
     ``torch.autograd.grad`` over every param leaf, then ``adamw_update``
     (global-norm clip, schedule, decoupled decay). ``metrics``: loss, ce,
     aux, grad_norm and lr as 0-d tensors on the device; reading one waits
@@ -75,16 +78,37 @@ def make_eval_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
     return eval_step
 
 
+def device_batch(cfg: ModelConfig, batch: dict, device) -> dict:
+    """A numpy batch (``data.synthetic.make_batch``) as tensors on
+    ``device``, with ``frames`` / ``patches`` in the config's activation
+    dtype, as the reference's input specs declare them
+    (``launch/specs.py``). ``make_batch`` gives them in float32 by default:
+    JAX promotes float32 inputs against bf16 weights, torch refuses the
+    mixed product, so the model functions expect them in that dtype."""
+    act = DTYPES[cfg.dtype]
+    return {k: (torch.as_tensor(np.asarray(v), device=device).to(act)
+                if k in ("frames", "patches")
+                else torch.as_tensor(np.asarray(v), device=device))
+            for k, v in batch.items()}
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
 
 def make_prefill(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
-    """(params, batch, max_len) -> (last_logits, caches)."""
+    """(params, batch, max_len) -> (last_logits, caches). ``batch`` holds
+    ``tokens`` and the family's ``frames`` (audio) or ``patches`` (vlm)."""
     api = api or get_api(cfg)
 
     def prefill_step(params, batch, max_len: int):
+        if cfg.family == "audio":
+            return api.prefill(params, cfg, batch["frames"], batch["tokens"],
+                               max_len=max_len)
+        if cfg.family == "vlm":
+            return api.prefill(params, cfg, batch["patches"], batch["tokens"],
+                               max_len=max_len)
         return api.prefill(params, cfg, tokens=batch["tokens"], max_len=max_len)
 
     return prefill_step
@@ -107,6 +131,7 @@ def make_decode_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
                       device=None):
-    """Decode caches for serve_step (the lm family)."""
+    """Decode caches for serve_step (lm/vlm families; audio builds its own
+    via prefill because of the cross-attention KV)."""
     from repro_torch.models import decoder_lm as dlm
     return dlm.init_caches(cfg, batch, max_len, device=device)

@@ -47,6 +47,23 @@ FLASH_CASES = [
     (4, 1024, 16, 16, 128, None, "bfloat16"),
     (4, 1024, 16, 16, 128, None, "float32"),
     (2, 32, 2, 2, 16, None, "float32"),
+    # GQA groups 7 (internvl2-1b: 14 heads over 2 kv heads, head_dim 64) and
+    # 12 (starcoder2-3b: 24 over 2, head_dim 128): S off the tile (packed
+    # rows S x G not a multiple of 64, odd and even tile counts), causal and
+    # window, fp32 and bf16; then internvl2-1b's prefill (256 patches + 1024
+    # prompt tokens) and whisper-small's decoder prefill (G 1, head_dim 64)
+    (2, 100, 14, 2, 64, None, "float32"),
+    (1, 300, 14, 2, 64, 64, "float32"),
+    (2, 100, 14, 2, 64, None, "bfloat16"),
+    (1, 300, 14, 2, 64, 64, "bfloat16"),
+    (1, 77, 24, 2, 128, None, "float32"),
+    (2, 200, 24, 2, 128, 48, "float32"),
+    (1, 77, 24, 2, 128, None, "bfloat16"),
+    (2, 200, 24, 2, 128, 48, "bfloat16"),
+    (4, 1280, 14, 2, 64, None, "bfloat16"),
+    (4, 1280, 14, 2, 64, None, "float32"),
+    (4, 384, 12, 12, 64, None, "bfloat16"),
+    (4, 384, 12, 12, 64, None, "float32"),
 ]
 # tests/test_kernels.py::DEC_CASES, then gemma3-1b's decode shapes: the
 # window-512 ring (a non-prefix mask) and the global cache at max_len 1088
@@ -68,6 +85,12 @@ DEC_CASES = [
     (4, 1088, 16, 16, 128, 1050, "bfloat16"),
     (4, 1088, 16, 16, 128, 1050, "float32"),
     (2, 48, 2, 2, 16, 40, "float32"),
+    # internvl2-1b's decode (G 7, head_dim 64, T 1344 = 256 patches + 1024 +
+    # 64) and whisper-small's decoder (G 1, head_dim 64, T 448)
+    (4, 1344, 14, 2, 64, 1312, "bfloat16"),
+    (4, 1344, 14, 2, 64, 1312, "float32"),
+    (4, 448, 12, 12, 64, 416, "bfloat16"),
+    (4, 448, 12, 12, 64, 416, "float32"),
 ]
 # the redesigned kernel's edges: T = 1, T off the 8-row chunk, a whole
 # chunk invalid ("hole"), one valid slot at the end ("last"), no valid slot

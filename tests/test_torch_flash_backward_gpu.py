@@ -5,10 +5,10 @@ installed:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_flash_backward_gpu.py
 
-Covers every head dim, causal and sliding-window masks, GQA groups 1, 4 and
-8, ragged S and T off the tiles, S 1, a window wider than S, T != S, the
+Covers every head dim, causal and sliding-window masks, GQA groups 1, 4, 7,
+8 and 12, ragged S and T off the tiles, S 1, a window wider than S, T != S, the
 training shapes of gemma3-1b; the bf16 body's edges (S and T off its 64-row
-tiles, the cross-head sum at G 1, 2, 4 and 8, a grid with fewer items than
+tiles, the cross-head sum at G 1, 2, 4, 7, 8 and 12, a grid with fewer items than
 SMs and one with several items a block, head dims below its width) and
 phi3-mini's attention (head_dim 96); repeat calls (same bits); the autograd
 Function under ``torch.utils.checkpoint``; and one full training step of a
@@ -56,6 +56,12 @@ BWD_CASES = [
     (1, 50, 50, 4, 4, 64, True, 100, "bfloat16"),
     (1, 45, 72, 8, 2, 64, True, None, "bfloat16"),
     (1, 45, 72, 8, 2, 64, False, None, "bfloat16"),
+    # GQA groups 7 (internvl2-1b) and 12 (starcoder2-3b): the GQA sum adds 7
+    # or 12 partials
+    (2, 100, 100, 14, 2, 64, True, None, "float32"),     # G 7, ragged S
+    (1, 77, 77, 24, 2, 128, True, 32, "float32"),        # G 12, window
+    (2, 100, 100, 14, 2, 64, True, None, "bfloat16"),
+    (1, 77, 77, 24, 2, 128, True, 32, "bfloat16"),
     (2, 300, 300, 16, 2, 128, True, 64, "bfloat16"),     # G 8, both accumulators
     (4, 1024, 1024, 4, 1, 256, True, 512, "bfloat16"),   # gemma3-1b training:
     (4, 1024, 1024, 4, 1, 256, True, None, "bfloat16"),  # local and global
@@ -77,6 +83,10 @@ BWD_EDGE_CASES = [
     (1, 100, 150, 4, 1, 256, False, 64, "bfloat16"),      # window, no causal
     (1, 90, 90, 4, 2, 32, True, 20, "bfloat16"),          # D 32 at width 128
     (1, 96, 96, 4, 4, 96, True, None, "float32"),         # head_dim 96, fp32
+    (1, 300, 300, 14, 2, 64, True, 64, "bfloat16"),       # G 7: S off the tile
+    (2, 130, 130, 24, 2, 128, True, None, "bfloat16"),    # G 12
+    (1, 70, 200, 14, 2, 64, False, None, "bfloat16"),     # G 7, T > S
+    (4, 1280, 1280, 14, 2, 64, True, None, "bfloat16"),   # internvl2-1b's
 ]
 # phi3-mini's attention: 32 heads, 32 kv heads, head_dim 96 (run at width 128)
 PHI3_CASE = (1, 1024, 1024, 32, 32, 96, True, None, "bfloat16")

@@ -21,6 +21,8 @@ from repro_torch.kernels.gcn_spmm import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
+from repro_torch.models import encdec as tencdec
+from repro_torch.models import vlm as tvlm
 from repro_torch.runtime import ElasticRuntime
 from repro_torch.serve import evaluate as tse
 from repro_torch.serve.costs import serve_model_from_task
@@ -83,11 +85,13 @@ SLICE_MODULES = (
     "repro_torch.sim.generate", "repro_torch.sim",
 )
 
-# The model zoo's layer modules, MoE, MLA, Mamba and xLSTM among them.
+# The model zoo's modules: the layer kinds (MoE, MLA, Mamba and xLSTM among
+# them), the encoder-decoder and VLM backbones and the registry.
 MODEL_MODULES = (
     "repro_torch.models.mlp", "repro_torch.models.attention",
     "repro_torch.models.ssm", "repro_torch.models.xlstm",
-    "repro_torch.models.decoder_lm",
+    "repro_torch.models.decoder_lm", "repro_torch.models.encdec",
+    "repro_torch.models.vlm", "repro_torch.models.registry",
 )
 
 _IMPORT_ONE = """
@@ -203,6 +207,8 @@ ENTRY_POINTS = {
     "lm.params_from_numpy": lambda *_: tdlm.params_from_numpy(
         tdlm.params_to_numpy(tdlm.init_params(_lm_cfg(), device="cpu"))),
     "lm.init_caches": lambda *_: tdlm.init_caches(_lm_cfg(), 1, 8),
+    "encdec.init_params": lambda *_: tencdec.init_params(_cfg("whisper-small")),
+    "vlm.init_params": lambda *_: tvlm.init_params(_cfg("internvl2-1b")),
     # a serving session as a user starts one: params at their default device
     "serve_batch": lambda *_: tserve.serve_batch(
         _lm_cfg(), tdlm.init_params(_lm_cfg()),
@@ -218,8 +224,12 @@ _CHAT = serve_model_from_task(tcm.ModelTask("Chat-34B", 34e9, 60, 7168),
                               name="chat-34b", decode_efficiency=0.01)
 
 
+def _cfg(arch: str):
+    return reduce_for_smoke(get_config(arch))
+
+
 def _lm_cfg():
-    return reduce_for_smoke(get_config("gemma3-1b"))
+    return _cfg("gemma3-1b")
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -271,6 +281,14 @@ def test_attention_kernel_wrappers_refuse_cpu_tensors_without_a_launch():
 
 def test_serve_runs_on_cpu_when_asked(capsys):
     tserve.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "generated shape (2, 3)" in out and "backend=cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_serve_runs_the_audio_and_vlm_families_on_cpu_when_asked(capsys, arch):
+    tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "12", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated shape (2, 3)" in out and "backend=cpu" in out

@@ -107,24 +107,28 @@ def test_synthetic_batches_are_bit_identical(arch):
 
 
 def test_unported_families_and_layers_raise():
-    """Only the ``audio`` and ``vlm`` families still raise; every layer kind
-    of the ``lm`` family builds (the four families of models/mlp.py's MoE,
-    MLA, ssm.py and xlstm.py are held to the reference in
-    test_torch_lm_families.py)."""
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tregistry.get_api(tconfigs.get_config("whisper-small"))
-    with pytest.raises(NotImplementedError, match="VLM"):
-        tregistry.get_api(tconfigs.get_config("internvl2-1b"))
+    """No family is left unported: every config of ``configs.ARCHS`` builds
+    through ``get_api`` (whisper-small through ``encdec``, internvl2-1b
+    through ``vlm``; both held to the reference in test_torch_encdec.py and
+    test_torch_vlm.py) and covers every layer kind. What still raises is a
+    layer kind no config has."""
     kinds = set()
+    families = {}
     for arch in tconfigs.ARCHS:
         cfg = tconfigs.reduce_for_smoke(tconfigs.get_config(arch))
-        if cfg.family in ("audio", "vlm"):
-            continue
-        tregistry.get_api(cfg)
-        tdlm.init_params(cfg, device="cpu")
+        api = tregistry.get_api(cfg)
+        params = api.init_params(cfg, device="cpu")
+        assert tdlm.param_count(params) > 0, arch
+        families[cfg.family] = api.init_params.__module__
         kinds |= {(l.kind, l.mlp) for l in cfg.layer_list()}
+    assert families["audio"] == "repro_torch.models.encdec"
+    assert families["vlm"] == "repro_torch.models.vlm"
     assert {k for k, _ in kinds} == {"attn", "mla", "mamba", "mlstm", "slstm"}
     assert {m for _, m in kinds} == {"dense", "moe", "none"}
+    cfg = tconfigs.reduce_for_smoke(tconfigs.get_config(ARCH))
+    layer = dataclasses.replace(cfg.segments[0].layers[0], kind="rwkv")
+    with pytest.raises(ValueError, match="rwkv"):
+        tdlm.init_layer(torch.Generator().manual_seed(0), layer, cfg)
 
 
 def test_init_keeps_the_reference_tree(models):
