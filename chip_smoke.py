@@ -29,6 +29,13 @@ internvl2-1b (24 layers, GQA group 7, 256 patches ahead of prompts of 1024)
 at full width, bf16; and training gemma3-1b (batch 4 x 1024 tokens, remat on,
 chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
+then holds the cost and layout tools to what the card held:
+``serve_model_from_config`` priced on the meta device for the four
+full-width served models (weight bytes equal to the params', KV bytes to
+the caches'), the dry-run on a 1 x 1 mesh (argument bytes at most each
+phase's peak), the dry-run of every cell on the production meshes (host
+only, in a process of its own beside the card's phases) and gemma3-1b's
+params distributed over a one-card NCCL mesh. It
 times every kernel beside its plain version, a one-call library yardstick
 and its bound (the attention kernels also at phi3-mini's head_dim 96, the
 backward also split by kernel), runs the card-only pytest files, and prints
@@ -66,7 +73,10 @@ profiles, fp32 kernels vs plain on every row) ->
 attention times (decode also per call inside a graph and from HBM) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
-of one step) -> card-only pytest -> kernels summary -> import check.
+of one step) -> the pricer (``price_serve``) -> the one-card dry-run
+(``dryrun_1chip``) -> the production dry-run (``dryrun_production``,
+started after the build) -> the one-card mesh (``mesh_1card``) ->
+card-only pytest -> kernels summary -> import check.
 
 Launch counts on the serve path, zeroed just before the 64-token call and
 read just after it: 26 ``flash_attention`` (one prefill of 26 layers) and
@@ -84,6 +94,7 @@ and 26 x 6 = 156 ``flash_attention_bwd``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -1529,6 +1540,7 @@ def phase_serve(torch, device, FK, DK) -> dict:
     batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
                                             seed=SERVE["seed"]), 0)
     run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    _record_served(torch, cfg, params, batch, gen_n, run)
     gen, stats, launches = run["gen"], run["stats"], run["launches"]
     n_layers = cfg.n_layers
     # one eager warm-up step before the capture, then gen_n - 1 replays of a
@@ -1750,6 +1762,39 @@ def _serve_twice(torch, serve, cfg, params, batch, gen_n: int, FK, DK) -> dict:
             "allocated": allocated}
 
 
+# What each full-width serve phase held on the card (``_record_served``), and
+# the training phase's peak: the pricer and the dry-run are held to them.
+HELD: dict = {}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch._tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _record_served(torch, cfg, params, batch, gen_n: int, run: dict) -> None:
+    """The bytes of the params the serve phase holds on the card, the bytes
+    of the caches its prefill makes (one more prefill of the same inputs,
+    as ``serve_batch`` runs it), its batch and cache length, its peak
+    memory and its decode rate."""
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.train_step import device_batch, make_prefill
+    inputs = device_batch(cfg, {k: v for k, v in batch.items()
+                                if k in ("tokens", "frames", "patches")},
+                          next(iter(params.values())).device)
+    max_len = _first_decode_pos(cfg, inputs) + gen_n
+    with torch.no_grad():
+        _, caches = make_prefill(cfg, get_api(cfg))(params, inputs, max_len)
+    HELD[cfg.name] = {
+        "param_bytes": _tree_bytes(params), "cache_bytes": _tree_bytes(caches),
+        "batch": inputs["tokens"].shape[0], "prompt": inputs["tokens"].shape[1],
+        "gen": gen_n, "max_len": max_len,
+        "peak_mem_bytes": run["peak_mem_bytes"],
+        "tokens_per_s": run["stats"]["tokens_per_s"]}
+    del caches, inputs
+    torch.cuda.empty_cache()
+
+
 def _serve_fields(run: dict) -> dict:
     """The serve metrics of a ``_serve_twice`` run."""
     return {**{k: run["stats"][k] for k in (
@@ -1793,6 +1838,7 @@ def phase_serve_olmoe(torch, device, FK, DK) -> dict:
     batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
                                             seed=OLMOE["seed"]), 0)
     run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    _record_served(torch, cfg, params, batch, gen_n, run)
     gen, launches = run["gen"], run["launches"]
     check(launches == {"flash_attention": n_layers,
                        "decode_attention": n_layers * gen_n},
@@ -2096,6 +2142,7 @@ def _phase_serve_family(torch, device, FK, DK, spec: dict, phase: str) -> dict:
     inputs = device_batch(cfg, batch, device)
     max_len = _first_decode_pos(cfg, inputs) + gen_n
     run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    _record_served(torch, cfg, params, batch, gen_n, run)
     gen, launches = run["gen"], run["launches"]
     check(launches == {"flash_attention": n_layers,
                        "decode_attention": n_layers * gen_n},
@@ -2472,6 +2519,7 @@ def phase_train(torch, device, FK, card) -> dict:
     loop_s = time.perf_counter() - t0
     launches = dict(FK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    HELD["train " + cfg.name] = {"peak_mem_bytes": peak, "batch": b, "seq": s}
     n_layers = cfg.n_layers
     check(launches == {"flash_attention": 2 * n_layers * steps,
                        "flash_attention_bwd": n_layers * steps},
@@ -2536,6 +2584,216 @@ def phase_train(torch, device, FK, card) -> dict:
     return launches
 
 
+# -- the cost and layout tools: the pricer, the dry-run, the mesh -------------
+PRICED = (SERVE, OLMOE, WHISPER, INTERNVL)
+
+
+def phase_price_serve(card) -> dict:
+    """``serve_model_from_config`` at full width for the four served models,
+    at their serve phases' batch, prompt and generated lengths, on the meta
+    device (host only). Its weight bytes must equal the bytes of the params
+    the serve phase held on the card, and its KV bytes per token x batch x
+    cache length the bytes of that phase's caches (an integer: the per-token
+    figure is their quotient). Prints flops per token and the decode
+    efficiency they imply at the phase's measured rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.costs import serve_model_from_config
+    rows = {}
+    for spec in PRICED:
+        cfg = get_config(spec["arch"])
+        held = HELD[cfg.name]
+        t0 = time.perf_counter()
+        model = serve_model_from_config(cfg, batch=spec["batch"],
+                                        prompt_len=spec["prompt"],
+                                        gen_tokens=spec["gen"],
+                                        seed=spec["seed"])
+        price_s = time.perf_counter() - t0
+        kv_total = model.kv_bytes_per_token * held["batch"] * held["max_len"]
+        rows[spec["arch"]] = {
+            "price_s": price_s, "batch": held["batch"],
+            "max_len": held["max_len"],
+            "weight_bytes": model.weight_bytes,
+            "param_bytes_on_card": held["param_bytes"],
+            "kv_bytes_per_token": model.kv_bytes_per_token,
+            "kv_bytes_x_batch_x_max_len": kv_total,
+            "cache_bytes_on_card": held["cache_bytes"],
+            "prefill_flops_per_token": model.prefill_flops_per_token,
+            "decode_flops_per_token": model.decode_flops_per_token,
+            "decode_tokens_per_s": held["tokens_per_s"],
+            "decode_efficiency": model.decode_flops_per_token
+            * held["tokens_per_s"] / PEAK_BF16_FLOPS}
+        check(model.weight_bytes == held["param_bytes"],
+              f"{cfg.name}: priced weight bytes {model.weight_bytes} differ "
+              f"from the {held['param_bytes']} held on the card")
+        check(round(kv_total) == held["cache_bytes"]
+              and abs(kv_total - held["cache_bytes"]) <= 1e-9 * kv_total,
+              f"{cfg.name}: priced KV bytes {kv_total} differ from the "
+              f"{held['cache_bytes']} of the caches on the card")
+    emit("price_serve", card=card, peak_flops=PEAK_BF16_FLOPS, models=rows)
+    return rows
+
+
+def phase_dryrun_1chip(card) -> dict:
+    """``run_cell`` on a (data 1, model 1) mesh with the card's ``HW`` for
+    the four serve cells (a decode step at the serve phase's batch and cache
+    length) and gemma3-1b's training cell (4 x 1024, AdamW). The predicted
+    per-device argument bytes (params, caches or optimizer state, inputs)
+    must be at most the peak the matching phase measured on the card; the
+    gap is activations and temporaries, which a shape-only run does not
+    see."""
+    from repro_torch.analysis.roofline import HW
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import MeshShape
+    one = MeshShape((1, 1), ("data", "model"))
+    cells = []
+    for spec in PRICED:
+        held = HELD[get_config(spec["arch"]).name]
+        cells.append((spec["arch"], ShapeSpec("serve_decode", held["max_len"],
+                                              held["batch"], "decode"), held))
+    held = HELD["train " + get_config(TRAIN["arch"]).name]
+    cells.append((TRAIN["arch"], ShapeSpec("train", held["seq"], held["batch"],
+                                           "train"), held))
+    rows = []
+    for arch, shape, held in cells:
+        t0 = time.perf_counter()
+        r = run_cell(arch, shape, False, {"q_chunk": 0}, verbose=False,
+                     mesh=one, hw=HW())
+        args = r["memory"]["argument_size_in_bytes"]
+        rows.append({"arch": arch, "kind": shape.kind,
+                     "batch": shape.global_batch, "seq": shape.seq_len,
+                     "argument_bytes": args,
+                     "output_bytes": r["memory"]["output_size_in_bytes"],
+                     "alias_bytes": r["memory"]["alias_size_in_bytes"],
+                     "peak_mem_bytes_on_card": held["peak_mem_bytes"],
+                     "argument_over_peak": args / held["peak_mem_bytes"],
+                     "bottleneck": r["roofline"]["bottleneck"],
+                     "step_time_lower_bound_s":
+                         r["roofline"]["step_time_lower_bound_s"],
+                     "wall_s": time.perf_counter() - t0})
+        check(args <= held["peak_mem_bytes"],
+              f"{arch} {shape.kind}: predicted argument bytes {args} exceed "
+              f"the {held['peak_mem_bytes']} peak measured on the card")
+    emit("dryrun_1chip", card=card, cells=rows)
+    return rows
+
+
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+
+
+def start_dryrun_production() -> dict:
+    """Start the production dry-run as a user runs it, ``python -m
+    repro_torch.launch.dryrun --arch all --shape all --both-meshes``, in a
+    process of its own beside the card's phases: it is host only (meta
+    tensors, no device; the card is hidden from it) and takes minutes of
+    one core. Killed at exit if still running."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(DRYRUN_OUT)
+    log = open(os.path.join(DRYRUN_OUT, "dryrun.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--both-meshes", "--out", DRYRUN_OUT],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "log": log, "t0": time.time()}
+
+
+def phase_dryrun_production(dry: dict, card) -> dict:
+    """Every arch x shape on the shape-only 16x16 and 2x16x16 meshes with the
+    card's ``HW`` and the reference's dry-run knobs (each program priced
+    once for both meshes), from the process ``start_dryrun_production``
+    began: fits or not (arguments + outputs - aliases against 80 GB, a
+    lower bound), the bottleneck, the step time's lower bound. Every cell
+    must run or be a documented skip."""
+    rc = dry["proc"].wait(timeout=900)
+    joined = time.time() - dry["t0"]
+    dry["log"].close()
+    # the process's own time: from its start to its last line (its summary)
+    wall = os.path.getmtime(os.path.join(DRYRUN_OUT, "dryrun.log")) - dry["t0"]
+    with open(os.path.join(DRYRUN_OUT, "dryrun.log")) as f:
+        summary = [l for l in f.read().splitlines()
+                   if l.startswith("DRYRUN SUMMARY")]
+    rows = []
+    for name in sorted(os.listdir(DRYRUN_OUT)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(DRYRUN_OUT, name)) as f:
+            r = json.load(f)
+        row = {k: r[k] for k in ("arch", "shape", "mesh")}
+        if "skipped" in r:
+            rows.append({**row, "skipped": r["skipped"]})
+            continue
+        rows.append({**row, "fits": r["fits_lower_bound"],
+                     "resident_bytes": r["resident_bytes_lower_bound"],
+                     "bottleneck": r["roofline"]["bottleneck"],
+                     "lower_bound_s": r["roofline"]["step_time_lower_bound_s"],
+                     "price_s": r["price_s"]})
+    emit("dryrun_production", card=card, rc=rc, wall_s=wall,
+         joined_after_s=joined, summary=summary, cells=rows)
+    check(rc == 0 and len(rows) == 80 and all(
+        "skipped" in r or "fits" in r for r in rows),
+        f"the production dry-run failed (rc {rc}, {len(rows)} cells): "
+        f"{summary}")
+    return {"wall_s": wall, "cells": len(rows)}
+
+
+def phase_mesh_1card(torch, device) -> dict:
+    """``make_mesh_for(1)`` on the card over NCCL; gemma3-1b's params (full
+    width, bf16, the serve phase's seed) distributed by ``param_shardings``:
+    every local shard equals its original bit for bit, and ``serve_batch``
+    over the local shards (one prefill, one graphed decode step) gives the
+    original params' tokens. The process group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.parallel.sharding import (ShardingRules,
+                                               distribute_params,
+                                               param_shardings)
+
+    cfg = get_config(SERVE["arch"])
+    params = dlm.init_params(cfg, seed=SERVE["seed"], device=device)
+    batch = make_batch(cfg, SyntheticConfig(global_batch=SERVE["batch"],
+                                            seq_len=128, seed=SERVE["seed"]), 0)
+    t0 = time.perf_counter()
+    mesh = make_mesh_for(1)
+    try:
+        rules = ShardingRules(mesh=mesh)
+        placements = []       # a leaf's placements are a tuple: collect them
+        tree_map(lambda _, pl: placements.append(pl), params,
+                 param_shardings(rules, params))
+        local = tree_map(lambda d: d.to_local(),
+                         distribute_params(rules, params))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    mesh_s = time.perf_counter() - t0
+    exact = all(torch.equal(a, b) for a, b in zip(leaves(local),
+                                                  leaves(params)))
+    gen_a, _ = serve.serve_batch(cfg, params, batch, 2, log=lambda *_: None)
+    gen_b, _ = serve.serve_batch(cfg, local, batch, 2, log=lambda *_: None)
+    n_sharded = sum(any(p.is_shard() for p in pl) for pl in placements)
+    emit("mesh_1card", backend=backend, mesh=list(mesh.mesh.shape),
+         leaves=len(placements), sharded_leaves=n_sharded,
+         local_equals_original=exact,
+         tokens_equal=bool((gen_a == gen_b).all()), mesh_s=mesh_s)
+    del params, local
+    torch.cuda.empty_cache()
+    check(backend == "nccl", f"the one-card mesh runs over {backend}, not NCCL")
+    check(n_sharded > 0, "no param is placed as a shard on the one-card mesh")
+    check(exact, "a local shard on the one-card mesh differs from its param")
+    check(bool((gen_a == gen_b).all()),
+          "serving the mesh's local shards gave other tokens")
+    return {"local_equals_original": exact}
+
+
 def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
@@ -2544,7 +2802,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_serve_sim_gpu.py",
              "tests/test_torch_families_gpu.py",
              "tests/test_torch_encdec_vlm_gpu.py",
-             "tests/test_torch_train_families_gpu.py"]
+             "tests/test_torch_train_families_gpu.py",
+             "tests/test_torch_kernel_dispatch_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -2582,6 +2841,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_all(SOURCES)
     emit("build_all", seconds=time.perf_counter() - t0)
+    # the production dry-run runs on the host beside every card phase below
+    dry = start_dryrun_production()
     for name in SOURCES:
         info = _build.BUILD_INFO[name]
         emit("build", kernel=name, seconds=info["seconds"],
@@ -2643,6 +2904,13 @@ def main() -> None:
     bwd_times = phase_flash_bwd_times(torch, FK, FR, card)
     # 10. the training main path, counts zeroed before and read after
     train_launches = phase_train(torch, device, FK, card)
+    # 10b. the cost and layout tools: the pricer and the one-card dry-run
+    # held to what the serve and train phases held on the card, the
+    # production dry-run (host only), the one-card NCCL mesh
+    phase_price_serve(card)
+    phase_dryrun_1chip(card)
+    phase_dryrun_production(dry, card)
+    phase_mesh_1card(torch, device)
     # 11. the card-only pytest files
     phase_gpu_pytest()
     # 12. kernels summary. gcn_spmm: headline at bucket 1024, the largest

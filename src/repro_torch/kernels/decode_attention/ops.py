@@ -2,7 +2,9 @@
 ``repro/kernels/decode_attention/ops.py``).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
-version in ``ref.py``; any other device raises. The kernel reads a boolean
+version in ``ref.py``. A meta tensor goes to the plain version too: it
+computes nothing, and a shape-only run (``analysis.program_cost``) prices the
+plain function's work there. Any other device raises. The kernel reads a boolean
 slot mask as it is, so a bool ``valid`` costs no extra launch. It leaves
 slots past T out, so nothing is padded.
 """
@@ -21,6 +23,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         return _k.decode_attention(
             q, k, v, valid if valid.dtype == torch.bool else valid > 0)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return _ref.decode_attention_ref(q, k, v, valid)
-    raise ValueError(f"decode_attention runs on CUDA or CPU tensors, got {q.device}")
+    raise ValueError(f"decode_attention runs on CUDA or CPU tensors (or meta "
+                     f"for pricing), got {q.device}")

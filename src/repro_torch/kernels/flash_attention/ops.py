@@ -3,7 +3,9 @@
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 version in ``ref.py`` (the reference's ``interpret = backend != "tpu"``
-switch). Any other device raises. The kernel reads the model layout and
+switch). A meta tensor goes to the plain version too: it computes nothing,
+and a shape-only run (``analysis.program_cost``) prices the plain function's
+work there. Any other device raises. The kernel reads the model layout and
 masks its own ragged edges, so unlike the TPU wrapper nothing is transposed
 or padded.
 
@@ -54,6 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window)
         return _k.flash_attention(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return _ref.attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+    raise ValueError(f"flash_attention runs on CUDA or CPU tensors (or meta "
+                     f"for pricing), got {q.device}")

@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 version in ``ref.py`` (the reference's ``interpret = backend != "tpu"``
-switch). Any other device raises. The kernel masks its own ragged edges, so
+switch). A meta tensor goes to the plain version too: it computes nothing,
+and a shape-only run (``analysis.program_cost``) prices the plain function's
+work there. Any other device raises. The kernel masks its own ragged edges, so
 unlike the TPU wrapper nothing is padded.
 """
 from __future__ import annotations
@@ -16,9 +18,10 @@ from repro_torch.kernels.gcn_spmm import ref as _ref
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
-    raise ValueError(f"gcn_spmm runs on CUDA or CPU tensors, got {t.device}")
+    raise ValueError(f"gcn_spmm runs on CUDA or CPU tensors (or meta for "
+                     f"pricing), got {t.device}")
 
 
 def spmm(adj: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:

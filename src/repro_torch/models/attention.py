@@ -29,9 +29,10 @@ import torch
 from repro_torch.configs.base import AttnSpec, MLASpec
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import common as cc
 from repro_torch.models.common import RUNTIME as FLAGS  # launcher-set knobs
 from repro_torch.models.common import (apply_norm, apply_rope, causal_mask,
-                                       dense_init)
+                                       dense_init, logical_constraint)
 
 NEG_INF = -1e30
 
@@ -109,6 +110,9 @@ def attn_full(p, spec: AttnSpec, x, positions, return_kv: bool = False):
     """Training / prefill self-attention (causal unless spec.causal=False)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, spec, x, positions)
+    q = logical_constraint(q, cc.BATCH, None, cc.HEADS, None)
+    k = logical_constraint(k, cc.BATCH, None, cc.HEADS, None)
+    v = logical_constraint(v, cc.BATCH, None, cc.HEADS, None)
     q_chunk = FLAGS["q_chunk"]
     if FLAGS["use_flash"] and spec.causal:
         out = flash_ops.flash_attention(q, k, v, window=spec.window)
@@ -122,6 +126,7 @@ def attn_full(p, spec: AttnSpec, x, positions, return_kv: bool = False):
             mask = torch.ones(shape, dtype=torch.bool, device=x.device)
         out = _gqa_attend(q, k, v, mask)
     y = out.reshape(b, s, -1) @ p["wo"]
+    y = logical_constraint(y, cc.BATCH, cc.SEQ, cc.EMBED)
     if return_kv:
         return y, (k, v)
     return y
@@ -287,6 +292,8 @@ def mla_full(p, spec: MLASpec, x, positions):
     kv = (c_kv @ p["wkv_b"]).reshape(b, s, h,
                                      spec.qk_nope_dim + spec.v_head_dim)
     k_nope, v = kv.split([spec.qk_nope_dim, spec.v_head_dim], dim=-1)
+    k_nope = logical_constraint(k_nope, cc.BATCH, None, cc.HEADS, None)
+    v = logical_constraint(v, cc.BATCH, None, cc.HEADS, None)
     scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
     q_chunk = FLAGS["q_chunk"]
     if q_chunk and s % q_chunk == 0 and s > q_chunk:

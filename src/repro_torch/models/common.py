@@ -1,11 +1,16 @@
-"""Shared layer primitives: inits, norms, activations, RoPE, masks, loss.
-Port of ``repro/models/common.py``.
+"""Shared layer primitives: inits, norms, activations, RoPE, logical
+sharding annotations, masks, loss. Port of ``repro/models/common.py``.
 
-Parameters are plain nested dicts of tensors. The reference's sharding
-annotations (``logical_constraint``) have no counterpart on one card, so
-the port leaves them out. Every init draws from an explicit
-``torch.Generator``; ``jax.random`` draws other numbers, so parity tests
-inject the reference's params instead of comparing two inits.
+Parameters are plain nested dicts of tensors. Activation sharding hints use
+``logical_constraint`` with *logical axis names*; ``parallel/sharding.py``
+resolves them against the active mesh (and drops non-divisible axes). With
+no rule set pushed the call returns its input at once; a plain tensor is
+left as it is, a ``DTensor`` is redistributed to the resolved placements.
+
+Every init draws from an explicit ``torch.Generator`` (``generator``);
+``jax.random`` draws other numbers, so parity tests inject the reference's
+params instead of comparing two inits. On the meta device an init draws
+nothing: it gives the tree's shapes and dtypes only.
 """
 from __future__ import annotations
 
@@ -34,6 +39,62 @@ RUNTIME = {"use_flash": False, "q_chunk": 0, "ssm_chunk": 0,
            "moe_combine_bf16": False, "moe_capacity_factor": 0.0}
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# Logical activation axes -> resolved by parallel/sharding.py
+BATCH = "act_batch"
+SEQ = "act_seq"
+HEADS = "act_heads"
+KV_SEQ = "act_kv_seq"
+FF = "act_ff"
+EXPERT = "act_expert"
+EMBED = "act_embed"
+VOCAB = "act_vocab"
+
+_MESH_RULES_STACK: list = []
+
+
+def push_logical_rules(rules):
+    """Make ``rules`` (``parallel.sharding.activation_resolver``'s
+    ``resolve(shape, axes) -> PartitionSpec | None``) the active rule set."""
+    _MESH_RULES_STACK.append(rules)
+
+
+def pop_logical_rules():
+    _MESH_RULES_STACK.pop()
+
+
+def logical_constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Annotate activation sharding if a rule set is active (no-op
+    otherwise). The resolved spec places a ``DTensor`` on its own mesh (the
+    reference's ``with_sharding_constraint``); a plain tensor lives on one
+    device and is returned as it is."""
+    if not _MESH_RULES_STACK:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = _MESH_RULES_STACK[-1](tuple(x.shape), axes)
+    if spec is None:
+        return x
+    from repro_torch.parallel.sharding import placements
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+class _ShapeOnlyGenerator(torch.Generator):
+    """The generator of a meta-device init: meta tensors hold no data, so
+    nothing is drawn; ``device`` puts every leaf on the meta device."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The init generator on ``device`` seeded with ``seed``; on the meta
+    device one that draws nothing (torch has no meta generator)."""
+    if device.type == "meta":
+        return _ShapeOnlyGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def truncnorm_init(gen: torch.Generator, shape, scale=0.02,

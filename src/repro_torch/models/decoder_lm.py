@@ -38,11 +38,13 @@ from repro_torch._tree import (leaves, tensor_from_numpy, tensor_to_numpy,
                                tree_map)
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common as cc
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (DTYPES, RUNTIME, apply_norm,
-                                       cross_entropy, layernorm_params,
+                                       cross_entropy, generator,
+                                       layernorm_params, logical_constraint,
                                        rmsnorm_params, truncnorm_init)
 
 PyTree = Any
@@ -162,18 +164,24 @@ def _mixer_prefill(p, layer: LayerSpec, h, positions, max_len: int):
     raise ValueError(layer.kind)
 
 
+def _normed(p_norm, cfg: ModelConfig, x):
+    """The norm's output, pinned as the sequence-parallel boundary (the
+    reference's constraint on the low-precision norm output)."""
+    return logical_constraint(apply_norm(p_norm, x, cfg.norm),
+                              cc.BATCH, cc.SEQ, cc.EMBED)
+
+
 def _mixer_branch(p, layer: LayerSpec, cfg: ModelConfig, x, positions):
-    return _mixer_full(p, layer, apply_norm(p["norm1"], x, cfg.norm),
-                       positions)
+    return _mixer_full(p, layer, _normed(p["norm1"], cfg, x), positions)
 
 
 def _mlp_branch(p, cfg: ModelConfig, x):
-    return mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.act)
+    return mlp_mod.mlp(p["mlp"], _normed(p["norm2"], cfg, x), cfg.act)
 
 
 def _moe_branch(p, layer: LayerSpec, cfg: ModelConfig, x):
     """(y, aux) of the MoE layer."""
-    return mlp_mod.moe(p["moe"], layer.moe, apply_norm(p["norm2"], x, cfg.norm),
+    return mlp_mod.moe(p["moe"], layer.moe, _normed(p["norm2"], cfg, x),
                        cfg.act, seq_chunk=cfg.moe_seq_chunk)
 
 
@@ -196,7 +204,7 @@ def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
     "outputs")."""
     cache = None
     if want_cache:
-        h = apply_norm(p["norm1"], x, cfg.norm)
+        h = _normed(p["norm1"], cfg, x)
         y, cache = _mixer_prefill(p, layer, h, positions, max_len)
     else:
         y = _branch(_mixer_branch, remat_branches, p, layer, cfg, x, positions)
@@ -207,6 +215,7 @@ def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
     elif layer.mlp == "moe":
         y2, aux = _branch(_moe_branch, remat_branches, p, layer, cfg, x)
         x = x + y2
+    x = logical_constraint(x, cc.BATCH, cc.SEQ, cc.EMBED)
     return x, aux, cache
 
 
@@ -270,7 +279,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> PyTree:
     ``seed``. ``jax.random`` draws other numbers: compare with the
     reference by injecting its params (``params_from_numpy``)."""
     dev = _device.resolve(device)
-    return init_params_from(cfg, torch.Generator(device=dev).manual_seed(seed))
+    return init_params_from(cfg, generator(dev, seed))
 
 
 def init_params_from(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
@@ -354,7 +363,9 @@ def backbone_full(params, cfg: ModelConfig, x, positions, want_cache: bool,
 def _logits(params, cfg: ModelConfig, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
-    return logits.float() if cfg.logits_fp32 else logits
+    if cfg.logits_fp32:
+        logits = logits.float()
+    return logical_constraint(logits, cc.BATCH, None, cc.VOCAB)
 
 
 def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
@@ -362,6 +373,7 @@ def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
     """Embeddings through every segment and the final norm."""
     if embeds is None:
         embeds = params["embed"][tokens]
+    embeds = logical_constraint(embeds, cc.BATCH, cc.SEQ, cc.EMBED)
     b, s = embeds.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=embeds.device)[None].expand(b, s)
@@ -380,6 +392,7 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
 def _ce_chunk(x_blk, l_blk, head):
     """Summed NLL and label count of one sequence chunk, fp32 logits."""
     logits = (x_blk @ head.to(x_blk.dtype)).float()
+    logits = logical_constraint(logits, cc.BATCH, None, cc.VOCAB)
     m = (l_blk >= 0).float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, l_blk.clamp(min=0)[..., None].long())[..., 0]

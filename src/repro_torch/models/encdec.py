@@ -28,7 +28,7 @@ from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import decoder_lm as dlm
-from repro_torch.models.common import apply_norm, cross_entropy
+from repro_torch.models.common import apply_norm, cross_entropy, generator
 
 PyTree = Any
 
@@ -50,7 +50,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> PyTree:
     stacked per segment): the reference's tree, drawn from one generator
     seeded with ``seed`` on ``device``."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     params = dlm.init_params_from(cfg, gen)
     dt = dlm._dtype(cfg)
     params["enc_segments"] = [

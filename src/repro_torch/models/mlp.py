@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MoESpec
 from repro_torch.models import common as cc
-from repro_torch.models.common import activate, dense_init, truncnorm_init
+from repro_torch.models.common import (activate, dense_init, logical_constraint,
+                                       truncnorm_init)
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +57,7 @@ def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
         h = activate(x @ p["w_gate"], act) * h
     else:
         h = activate(h, act)
+    h = logical_constraint(h, cc.BATCH, None, cc.FF)
     return h @ p["w_down"]
 
 
@@ -111,6 +113,7 @@ def _expert_ffn(p, x_gecd, act: str):
         h = activate(g, act) * h
     else:
         h = activate(h, act)
+    h = logical_constraint(h, cc.BATCH, cc.EXPERT, None, None)
     return torch.einsum("gecf,efd->gecd", h, p["w_down"])
 
 
@@ -162,6 +165,7 @@ def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
     vals = torch.where(keep, gate_vals, 0.0).to(rdt)
     combine = torch.zeros((g_, n, e * capacity), dtype=rdt, device=x.device)
     combine = combine.scatter_(2, flat, vals).view(g_, n, e, capacity)
+    combine = logical_constraint(combine, cc.BATCH, None, cc.EXPERT, None)
     dispatch = combine > 0
     if decisions is not None:
         top = sorted_vals[..., :spec.top_k + 1]
@@ -177,6 +181,8 @@ def _moe_grouped(p, spec: MoESpec, x_gnd, act: str, capacity: int,
     dispatch, combine, aux = _route(p["router"], x_gnd, spec, capacity,
                                     decisions)
     dispatched = torch.einsum("gnec,gnd->gecd", dispatch.to(x_gnd.dtype), x_gnd)
+    dispatched = logical_constraint(dispatched, cc.BATCH, cc.EXPERT, None,
+                                    None)
     del dispatch
     out = _expert_ffn(p, dispatched, act)
     y = torch.einsum("gnec,gecd->gnd", combine.to(x_gnd.dtype), out)

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MambaSpec
 from repro_torch.models import common as cc
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, logical_constraint
 
 
 def dt_rank(spec: MambaSpec, d_model: int) -> int:
@@ -126,10 +126,12 @@ def _scan_ssm(p, spec: MambaSpec, u):
 def _mamba(p, spec: MambaSpec, x):
     """(y, pre-conv activations u_pre, final state)."""
     u_pre, gate = (x @ p["in_proj"]).chunk(2, dim=-1)        # (B,S,di) each
+    u_pre = logical_constraint(u_pre, cc.BATCH, None, cc.FF)
     u = causal_conv(p["conv_w"], p["conv_b"], u_pre)
     y, h_last = _scan_ssm(p, spec, u)
     y = (y + p["d_skip"] * u.float()).to(x.dtype)
     y = y * F.silu(gate)
+    y = logical_constraint(y, cc.BATCH, None, cc.FF)
     return y @ p["out_proj"], u_pre, h_last
 
 

@@ -17,7 +17,8 @@ import torch
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder_lm as dlm
-from repro_torch.models.common import activate, cross_entropy, dense_init
+from repro_torch.models.common import (activate, cross_entropy, dense_init,
+                                       generator)
 
 PyTree = Any
 
@@ -26,7 +27,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> PyTree:
     """``decoder_lm``'s tree plus ``projector.{w1, w2}``, drawn from one
     generator seeded with ``seed`` on ``device``."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     params = dlm.init_params_from(cfg, gen)
     dt = dlm._dtype(cfg)
     params["projector"] = {

@@ -127,9 +127,12 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int, state=None):
                  "m": torch.full((b, nh), -1e30, device=q.device)}
     c, n, m = state["c"], state["n"], state["m"]
     hs = []
-    for c0 in range(0, s, chunk):
-        args = (c, n, m) + tuple(t[:, c0:c0 + chunk]
-                                 for t in (q, k, v, i_pre, f_pre))
+    # split, not a slice per chunk: split's backward concatenates the
+    # chunks' gradients, where each slice's would fill a zero tensor of the
+    # whole sequence (quadratic in the number of chunks)
+    for parts in zip(*(t.split(chunk, dim=1)
+                       for t in (q, k, v, i_pre, f_pre))):
+        args = (c, n, m) + parts
         h, c, n, m = checkpoint(_mlstm_chunk, *args, use_reentrant=False,
                                 preserve_rng_state=False) \
             if torch.is_grad_enabled() else _mlstm_chunk(*args)
@@ -291,12 +294,14 @@ def _slstm_ffn(p, h):
 def slstm_prefill(p, spec: XLSTMSpec, x):
     """Sequential loop over the sequence (a true recurrence). x: (B,S,d).
     Returns (y, final state)."""
-    b, s, d = x.shape
+    b, _, d = x.shape
     state = init_slstm_state(spec, d, b, x.device)
-    xf = x.float()
     hs = []
-    for t in range(s):
-        state, h_t = _slstm_step(p, spec, state, xf[:, t])
+    # unbind, not x[:, t]: unbind's backward stacks the steps' gradients,
+    # where each index's would fill a zero tensor of the whole sequence
+    # (quadratic in its length)
+    for x_t in x.float().unbind(1):
+        state, h_t = _slstm_step(p, spec, state, x_t)
         hs.append(h_t)
     return _slstm_ffn(p, torch.stack(hs, dim=1).to(x.dtype)), state
 

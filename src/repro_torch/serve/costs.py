@@ -23,8 +23,9 @@ Three ways to build one, in increasing fidelity:
   config, run the HLO analyzer, and measure KV bytes from the real decode
   cache pytree via ``jax.eval_shape`` (no allocation).
 
-Port of ``repro/serve/costs.py``. ``serve_model_from_config`` needs a pricer
-for the port's torch programs, which does not exist yet, so it raises.
+Port of ``repro/serve/costs.py``. ``serve_model_from_config`` runs the
+port's programs on the meta device through ``analysis.program_cost``, the
+counterpart of the reference's HLO analyzer.
 """
 from __future__ import annotations
 
@@ -117,14 +118,50 @@ def serve_model_from_hlo(name: str, prefill_analysis: dict,
 def serve_model_from_config(cfg, *, batch: int = 2, prompt_len: int = 16,
                             gen_tokens: int = 8, seed: int = 0,
                             name: str | None = None, **kw) -> ServeModel:
-    """Cost card from the lowered prefill / decode programs of ``cfg``. The
-    reference prices them from XLA's HLO (``analysis.hlo_cost``); the port
-    has no pricer for its torch programs yet, so this raises."""
-    raise NotImplementedError(
-        "serve_model_from_config prices a model from its compiled programs, "
-        "which repro_torch cannot do yet (ROADMAP.md queue 1, item 22: a "
-        "torch pricer for the prefill and decode steps); use "
-        "serve_model_from_task or serve_model_from_hlo")
+    """Run the real prefill/decode programs for ``cfg`` on the meta device,
+    price them with ``analysis.program_cost`` (the port's counterpart of the
+    reference's loop-aware HLO analyzer), and measure weight/KV bytes from
+    the real parameter and cache trees (shape-only; nothing is allocated or
+    drawn, so a full-width model prices on the host)."""
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.analysis import program_cost
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.models.common import DTYPES
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.train_step import make_decode_step, make_prefill
+
+    api = get_api(cfg)
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    max_len = extra + prompt_len + gen_tokens
+    batch_np = make_batch(cfg, SyntheticConfig(global_batch=batch,
+                                               seq_len=prompt_len,
+                                               seed=seed), 0)
+    # tokens as make_batch gives them, frames / patches in the activation
+    # dtype (train_step.device_batch)
+    inputs = {k: torch.empty(v.shape, device="meta", dtype=(
+                  DTYPES[cfg.dtype] if k in ("frames", "patches")
+                  else torch.from_numpy(v[:0]).dtype))
+              for k, v in batch_np.items() if k != "labels"}
+    params = api.init_params(cfg, seed=seed, device="meta")
+
+    def nbytes(tree) -> float:
+        return float(sum(t.numel() * t.element_size() for t in leaves(tree)))
+
+    prefill, (_, caches) = program_cost.measure(make_prefill(cfg, api),
+                                                params, inputs, max_len)
+    kv_bytes = nbytes(caches) / (batch * max_len)
+
+    token = torch.empty((batch, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    decode = program_cost.analyze(make_decode_step(cfg, api), params, token,
+                                  pos, caches)
+
+    return serve_model_from_hlo(
+        name or getattr(cfg, "name", "model"), prefill, decode,
+        prefill_tokens=batch * prompt_len, decode_batch=batch,
+        kv_bytes_per_token=kv_bytes, weight_bytes=nbytes(params), **kw)
 
 
 def serve_task_for(model: ServeModel, n_replicas: int,

@@ -107,8 +107,14 @@ def test_ops_route_cpu_tensors_to_the_plain_version_without_a_launch():
     assert tkernel.LAUNCHES == before
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device the port does not run on (the CPU
+    build of torch can make none): the dispatch reads only ``device``. Meta
+    tensors go to the plain version, for shape-only pricing."""
+    device = torch.device("xpu")
+
+
 def test_ops_refuse_devices_other_than_cuda_and_cpu():
-    q = torch.empty(1, 1, 2, 16, device="meta")
-    k = torch.empty(1, 8, 1, 16, device="meta")
+    q = k = _OnOtherDevice()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tdec.decode_attention(q, k, k, torch.ones(8, dtype=torch.int32))

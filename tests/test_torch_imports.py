@@ -18,6 +18,7 @@ from repro_torch.kernels.decode_attention import kernel as tdec_kernel
 from repro_torch.kernels.flash_attention import kernel as tflash_kernel
 from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.kernels.gcn_spmm import ops as tops
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain_launch
 from repro_torch.models import decoder_lm as tdlm
@@ -69,7 +70,7 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.sim.scenarios", "repro_torch.sim.evaluate",
               "repro_torch.serve", "repro_torch.serve.traffic",
               "repro_torch.serve.costs", "repro_torch.serve.autoscale",
-              *SLICE_MODULES, *MODEL_MODULES):
+              *SLICE_MODULES, *MODEL_MODULES, *TOOLS_MODULES):
         assert m in mods, m
 
 
@@ -94,6 +95,16 @@ MODEL_MODULES = (
     "repro_torch.models.vlm", "repro_torch.models.registry",
 )
 
+# The cost and layout tools: the pricers, the sharding rules, the pipeline,
+# the meshes, the specs and the dry-run.
+TOOLS_MODULES = (
+    "repro_torch.analysis", "repro_torch.analysis.hlo_cost",
+    "repro_torch.analysis.roofline", "repro_torch.analysis.program_cost",
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+    "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+)
+
 _IMPORT_ONE = """
 import importlib, sys
 mod = importlib.import_module(sys.argv[1])
@@ -108,6 +119,18 @@ assert not bad, bad
 @pytest.mark.parametrize("module", MODEL_MODULES)
 def test_model_module_imports_alone_without_jax_or_repro(module):
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", TOOLS_MODULES)
+def test_tools_module_imports_alone_without_jax_or_repro(module):
+    """Importing one starts no process group and touches no device."""
+    code = _IMPORT_ONE + (
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code, module],
                           env=dict(os.environ, PYTHONPATH=SRC),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -217,6 +240,9 @@ ENTRY_POINTS = {
     # a training run as a user starts one
     "train_loop": lambda *_: ttrain_launch.train_loop(_lm_cfg(), 1, 1, 8),
     "train.main": lambda *_: ttrain_launch.main(["--arch", "gemma3-1b", "--smoke"]),
+    # a mesh as a user makes one: NCCL on the card unless asked for gloo
+    "make_mesh_for": lambda *_: tmesh.make_mesh_for(1),
+    "device_mesh": lambda *_: tmesh.device_mesh((1, 1), ("data", "model")),
 }
 
 
@@ -300,9 +326,15 @@ def test_train_runs_on_cpu_when_asked(capsys):
     assert "loss " in capsys.readouterr().out
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device the port does not run on (the CPU
+    build of torch can make none): the dispatch reads only ``device``. Meta
+    tensors go to the plain version, for shape-only pricing."""
+    device = torch.device("xpu")
+
+
 def test_ops_refuse_devices_other_than_cuda_and_cpu():
-    a = torch.empty(4, 4, device="meta")
-    h = torch.empty(4, 3, device="meta")
+    a = h = _OnOtherDevice()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tops.spmm(a, h)
 

@@ -13,6 +13,8 @@ import torch
 
 torch.set_num_threads(1)
 
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
 from repro.core import cost_model as jcm
 from repro.serve import autoscale as jautoscale
 from repro.serve import costs as jcosts
@@ -118,9 +120,55 @@ def test_serve_model_from_hlo_matches_reference():
         == dataclasses.asdict(jcosts.serve_model_from_hlo("m", pre, dec, **kw))
 
 
-def test_serve_model_from_config_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tcosts.serve_model_from_config(object())
+def _smoke(configs, arch):
+    return dataclasses.replace(configs.reduce_for_smoke(configs.get_config(arch)),
+                               remat=False)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "whisper-small",
+                                  "internvl2-1b"])
+def test_serve_model_from_config_matches_reference(arch):
+    """The reference lowers its prefill and decode step and prices the HLO;
+    the port runs its own on the meta device through
+    ``analysis.program_cost``. Weight and KV bytes come from the same trees
+    and are equal. Decode flops per token are equal. Prefill flops differ by
+    exactly the head on every position but the last: the reference's
+    prefill computes (B, T, V) logits and keeps the last row, the port's
+    runs the head on the last position only (``decoder_lm.prefill``), where
+    T is the prompt plus a VLM's patches. Those 2 x B x (T - 1) x d x V
+    flops are the stated tolerance, and nothing else differs."""
+    kw = dict(batch=2, prompt_len=16, gen_tokens=8)
+    jcard = jcosts.serve_model_from_config(_smoke(jconfigs, arch), **kw)
+    cfg = _smoke(tconfigs, arch)
+    tcard = tcosts.serve_model_from_config(cfg, **kw)
+    assert tcard.weight_bytes == jcard.weight_bytes
+    assert tcard.kv_bytes_per_token == jcard.kv_bytes_per_token
+    assert tcard.decode_flops_per_token == jcard.decode_flops_per_token
+    t = kw["prompt_len"] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    head = 2 * kw["batch"] * (t - 1) * cfg.d_model * cfg.vocab_size
+    assert tcard.prefill_flops_per_token \
+        + head / (kw["batch"] * kw["prompt_len"]) \
+        == jcard.prefill_flops_per_token
+    if arch == "gemma3-1b":   # the reference's figures at this call
+        assert (jcard.prefill_flops_per_token, jcard.decode_flops_per_token,
+                jcard.kv_bytes_per_token, jcard.weight_bytes) \
+            == (303104.0, 292864.0, 776.0, 554368.0)
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_serve_model_from_config_prices_every_family(arch):
+    """Every config of ``configs.ARCHS``, reduced, prices on the meta
+    device: positive flops, the param tree's bytes, KV bytes per token of
+    the prefill's caches."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch.specs import param_struct
+    cfg = _smoke(tconfigs, arch)
+    card = tcosts.serve_model_from_config(cfg, batch=2, prompt_len=8,
+                                          gen_tokens=4)
+    assert card.prefill_flops_per_token > 0 and card.decode_flops_per_token > 0
+    assert card.kv_bytes_per_token > 0
+    assert card.weight_bytes == sum(t.numel() * t.element_size()
+                                    for t in leaves(param_struct(cfg)))
 
 
 def test_serve_package_exports_only_the_ported_modules():
