@@ -17,7 +17,9 @@ least-loaded / Hulk routing on the three serving scenarios, runs the
 colocated scenarios (a training and a serving tenant on one fabric), the
 chaos, controller and generator suites, and serves the 1024-node fleet at
 20 requests/s through a replica failure, the Hulk GNN aggregating
-through ``gcn_spmm`` in each; serving gemma3-1b (26 layers,
+through ``gcn_spmm`` in each, inside the per-bucket CUDA graphs of
+``core/train.py`` (one "jit" line per phase: the forwards per bucket,
+traces and cache hits); serving gemma3-1b (26 layers,
 d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
 decode step; serving olmoe-1b-7b at full width (16 layers, 64 experts top-8,
@@ -27,7 +29,8 @@ xlstm-125m reduced and xlstm-125m at full size; serving whisper-small (12
 encoder and 12 decoder layers, 1,500 frames, prompts of 384) and
 internvl2-1b (24 layers, GQA group 7, 256 patches ahead of prompts of 1024)
 at full width, bf16; and training gemma3-1b (batch 4 x 1024 tokens, remat on,
-chunked CE) for 6 steps through ``launch/train.py::train_loop`` with a
+chunked CE) for 6 steps through ``launch/train.py::train_loop``, which
+replays one captured CUDA graph of the donating step (``TrainGraph``), with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
 then holds the cost and layout tools to what the card held:
 ``serve_model_from_config`` priced on the meta device for the four
@@ -59,7 +62,9 @@ colocated scenarios x policies (both tenants' GNNs on the card) -> chaos
 (``fuzz`` 25 seeds, ``fuzz_controller``, ``generate.fuzz_one`` 0-2) ->
 serving at 1024 nodes (launches at the placement, the failure and after;
 fused against plain hosts) -> gcn_spmm times and a bit-for-bit repeat at
-buckets 1024 and 2048 -> kernel check (attention) -> gemma3-1b serve (launch counts,
+buckets 1024 and 2048 -> ``predict_logits`` per call through the bucket
+graphs against the eager paths (``gnn_graphs``) -> kernel check
+(attention) -> gemma3-1b serve (launch counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
 olmoe-1b-7b serve (launch counts, a repeat call, graphed vs eager,
@@ -90,7 +95,10 @@ layers: the encoder is non-causal and plain) and 12 x 64 = 768; on
 internvl2-1b's, 24 and 24 x 64 = 1,536. On the train path, zeroed just before
 the 6 straight steps and read just after: 26 x 2 x 6 = 312
 ``flash_attention`` (each layer's forward and its recompute under remat)
-and 26 x 6 = 156 ``flash_attention_bwd``.
+and 26 x 6 = 156 ``flash_attention_bwd``: the eager first step, then 5
+replays of a graph that holds one step; the capture runs nothing. On the
+planner's paths a bucket graph's replay counts its 3 ``scaled_spmm``
+launches, as the eager forward did.
 """
 from __future__ import annotations
 
@@ -136,6 +144,37 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def jit_counts(phase: str):
+    """Emit, after the block, the per-bucket GNN forwards it ran through
+    ``core/train.py``'s cache: ``trace_counts()`` (reset before the block),
+    and per bucket the calls, traces (``compiles``) and ``cache_hits``, as
+    the recorder counts ``plan.jit.bucket{b}.*`` (read from the cache's
+    lookup, so that runs under recorders of their own count too)."""
+    from repro_torch.core import train as gnn_train
+    real = gnn_train._bucketed_forward
+    counts = {"calls": {}, "compiles": {}, "cache_hits": {}}
+
+    def counted(cfg, bucket, *args):
+        fwd, traced = real(cfg, bucket, *args)
+        for key in ("calls", "compiles" if traced else "cache_hits"):
+            counts[key][str(bucket)] = counts[key].get(str(bucket), 0) + 1
+        return fwd, traced
+
+    gnn_train.reset_trace_counts()
+    gnn_train._bucketed_forward = counted
+    try:
+        yield counts
+    finally:
+        gnn_train._bucketed_forward = real
+    traces: dict = {}
+    for (_, bucket), n in gnn_train.trace_counts().items():
+        traces[str(bucket)] = traces.get(str(bucket), 0) + n
+    check(traces == counts["compiles"],
+          f"{phase}: trace_counts() {traces} against compiles {counts}")
+    emit("jit", of=phase, trace_counts=traces, **counts)
 
 
 def plan_invariants(graph, assignment, tasks) -> None:
@@ -1224,6 +1263,8 @@ def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": c["nbytes"], "flops": c["flops"]}
+            if name == "scaled_spmm":   # per call inside a graph of 100
+                row["ms_graphed"] = _time_graphed_ms(torch, c["kernel"])
             emit("times", kernel=name, card=card, **_shares(row))
             out.setdefault(name, {})[b] = row
             if b >= 1024:   # split-K over a cluster: no atomics, same bits
@@ -1232,6 +1273,86 @@ def phase_times(torch, K, R, params, cfg, graphs, device, card) -> dict:
                 same = torch.equal(first, second)
                 emit("determinism", kernel=name, bucket=b, bit_identical=same)
                 check(same, f"two {name} calls at bucket {b} differ")
+    return out
+
+
+GRAPH_BUCKETS = (64, 1024, 2048)
+N_CALLS = 30
+
+
+def _per_call_ms(torch, fn, n=N_CALLS) -> tuple[float, float]:
+    """Median host ms (the host clock around a call, which ends in a
+    blocking copy of the logits to the host) and device ms (CUDA events on
+    the current stream around it) of one call, after two warm calls."""
+    fn()
+    fn()
+    host, dev = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(dev)
+
+
+def phase_gnn_graphs(torch, device, params, cfg, graphs, card) -> dict:
+    """``predict_logits`` per call at buckets 64 (paper_fleet46), 1024
+    (random_fleet(1024)) and 2048 (that fleet after the join, 1025 nodes),
+    with fleet46's trained GNN and ``use_pallas``: through the bucket's
+    CUDA graph (``bucketed=True``, captured by an earlier call), the legacy
+    eager forward on the unpadded graph (``bucketed=False``) and the eager
+    padded forward (what ``predict_logits`` ran before it had bucket
+    graphs: pad on the host, copy in, ``gnn.apply``, copy the logits out).
+    Each as host ms and device ms per call (``_per_call_ms``), and the
+    forward alone as device time (``_time_ms``): one replay against
+    ``gnn.apply`` on the graph's static inputs. The graph's logits equal
+    the eager padded forward's bit for bit."""
+    import numpy as np
+    from repro_torch.core import gnn
+    from repro_torch.core import train as gnn_train
+
+    kcfg = dataclasses.replace(cfg, use_pallas=True)
+    out = {}
+    for b in GRAPH_BUCKETS:
+        graph = graphs[b]
+
+        def eager_padded(graph=graph):
+            f, l, m = (torch.from_numpy(a).to(device)
+                       for a in gnn_train._pad_graph(graph))
+            with torch.no_grad():
+                logits = gnn.apply(params, kcfg, f, l, node_mask=m)
+            return logits[:graph.n].cpu().numpy()
+
+        graphed = lambda graph=graph: gnn_train.predict_logits(
+            params, kcfg, graph, device=device)
+        unpadded = lambda graph=graph: gnn_train.predict_logits(
+            params, kcfg, graph, bucketed=False, device=device)
+        got, want = graphed(), eager_padded()
+        check(np.array_equal(got, want), f"bucket {b}: the graph's logits "
+              f"differ from the eager padded forward's by "
+              f"{float(np.abs(got - want).max())}")
+        d_in = gnn.d_in_of(params)
+        (fwd,) = gnn_train._FORWARDS[(kcfg, b, d_in)].values()
+        check(fwd.graph is not None, f"bucket {b} has no captured graph")
+        row = {"bucket": b, "n_real": graph.n}
+        for name, fn in (("graphed", graphed), ("unpadded", unpadded),
+                         ("eager_padded", eager_padded)):
+            row[f"{name}_host_ms"], row[f"{name}_device_ms"] = \
+                _per_call_ms(torch, fn)
+        with torch.no_grad():
+            row["replay_ms"] = _time_ms(torch, fwd.graph.replay)
+            row["eager_forward_ms"] = _time_ms(torch, lambda: gnn.apply(
+                fwd.params, kcfg, fwd.feats, fwd.lat, node_mask=fwd.node_mask))
+        row["host_speedup_vs_eager_padded"] = (row["eager_padded_host_ms"]
+                                              / row["graphed_host_ms"])
+        emit("gnn_graphs", card=card, **row)
+        out[b] = row
     return out
 
 
@@ -2307,6 +2428,10 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["nbytes"], "flops": c["flops"]}
+        if name == "flash_attention" and label in ("global", "local"):
+            # gemma3-1b's training shape too (B 4, S 1024): per call inside
+            # a graph of 100, as the training graph runs it
+            row["ms_graphed"] = _time_graphed_ms(torch, c["kernel"])
         if name == "decode_attention":
             row.update(
                 ms_graphed=_time_graphed_ms(torch, c["kernel"]),
@@ -2491,10 +2616,14 @@ def phase_train(torch, device, FK, card) -> dict:
     through ``train_loop``: 6 straight steps with a checkpoint every 3 into
     build/train_ckpt, then, with step 6's checkpoint removed, a fresh loop
     that resumes from step 3 to 6, whose losses must equal the straight
-    run's at tests/test_train_resume.py's rtol 1e-5 / atol 1e-6. Launch
+    run's at tests/test_train_resume.py's rtol 1e-5 / atol 1e-6. On the
+    card ``train_loop`` runs its first step eagerly and replays a captured
+    graph of the donating step from the second on (``TrainGraph``). Launch
     counts of the straight run, step times (each step's own wall time:
-    ``log_every`` 1 reads its metrics on the host), tokens/s, peak device
-    memory, and a profile of one more step."""
+    ``log_every`` 1 reads its metrics on the host; step 0 holds the warm-up
+    and the capture), tokens/s, peak device memory, and a profile of one
+    more step, eager (the pure step) and graphed (a replay), each with its
+    peak memory."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticConfig, make_batch
@@ -2555,7 +2684,25 @@ def phase_train(torch, device, FK, card) -> dict:
     saved = {k: cc.RUNTIME[k] for k in ("use_flash", "q_chunk")}
     cc.RUNTIME.update(use_flash=True, q_chunk=0)   # as train_loop sets on CUDA
     try:
+        # the eager (pure) step, then the graphed donating step on the same
+        # state and batch; each one's peak counted from its own start
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         prof = _profile_train_step(torch, make_train_step(cfg, opt_cfg), state, batch)
+        prof["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graph = launch_train.TrainGraph(
+            make_train_step(cfg, opt_cfg, donate=True), state)
+        t0 = time.perf_counter()
+        float(graph(batch)["loss"])      # the eager first step and the capture
+        first_ms = (time.perf_counter() - t0) * 1e3
+        prof_graph = _profile_train_step(
+            torch, lambda st, bt: (st, graph(bt)), state, batch)
+        prof_graph["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        prof_graph["first_call_ms"] = first_ms
+        prof_graph["reserved_bytes"] = torch.cuda.memory_reserved()
+        graph.release()
     finally:
         cc.RUNTIME.update(saved)
     del state
@@ -2563,8 +2710,9 @@ def phase_train(torch, device, FK, card) -> dict:
     torch.cuda.empty_cache()
 
     step_ms = [h["step_s"] * 1e3 for h in straight]
-    warm_ms = statistics.median(step_ms[1:])
+    warm_ms = statistics.median(step_ms[1:])   # the graph's replays
     emit("train", arch=TRAIN["arch"], dtype=cfg.dtype, layers=n_layers,
+         graphed=True, first_step_ms=step_ms[0],
          d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
          remat=cfg.remat, ce_chunk=cfg.ce_chunk, batch=b, seq=s, steps=steps,
          card=card, step_ms=step_ms, step_ms_median_warm=warm_ms,
@@ -2579,7 +2727,8 @@ def phase_train(torch, device, FK, card) -> dict:
          resumed_loss_abs_err=loss_err, resume_rtol=1e-5, resume_atol=1e-6,
          launches=launches,
          launches_per_step={k: n / steps for k, n in launches.items()})
-    emit("train_profile", card=card, **prof)
+    emit("train_profile", card=card, step="eager", **prof)
+    emit("train_profile", card=card, step="graphed", **prof_graph)
     check(resume_ok, f"resumed losses differ from the straight run's: {loss_err}")
     return launches
 
@@ -2803,7 +2952,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_families_gpu.py",
              "tests/test_torch_encdec_vlm_gpu.py",
              "tests/test_torch_train_families_gpu.py",
-             "tests/test_torch_kernel_dispatch_gpu.py"]
+             "tests/test_torch_kernel_dispatch_gpu.py",
+             "tests/test_torch_graphs_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -2852,26 +3002,35 @@ def main() -> None:
     errs = phase_kernel_check(torch, K, R)
     # 3. + 4. the planner's main path, counts zeroed before and read after
     # each plan
-    params46, cfg46, fleet46, l46 = phase_fleet46(torch, device)
-    fleet1024, l1024, params1024, kcfg1024 = phase_1024(torch, device)
+    # each through the bucket graphs; every phase's forwards per bucket
+    # (calls, traces, cache hits) on a "jit" line
+    with jit_counts("fleet46_plan"):
+        params46, cfg46, fleet46, l46 = phase_fleet46(torch, device)
+    with jit_counts("plan_1024"):
+        fleet1024, l1024, params1024, kcfg1024 = phase_1024(torch, device)
     launches = {k: l46[k] + l1024[k] for k in l46}
     # 4b. elastic recovery on the 1024-node fleet, counts zeroed before and
     # read after each event; then the simulator's core on its survivors
-    l_recover, joined, (survivors, recovered) = phase_recover_1024(
-        torch, device, params1024, kcfg1024, fleet1024)
+    with jit_counts("recover_1024"):
+        l_recover, joined, (survivors, recovered) = phase_recover_1024(
+            torch, device, params1024, kcfg1024, fleet1024)
     phase_net_1024(survivors, recovered)
     # 4c. the fleet evaluation, the online controller and the 1024-node
     # simulation, their Hulk GNNs aggregating through scaled_spmm; counts
     # zeroed before and read after each run
-    l_sim = {"sim_scenarios": phase_sim_scenarios(device),
-             "drift_controller": phase_drift_controller(),
-             "sim_1024": phase_sim_1024(params1024, kcfg1024)}
-    # 4d. GNN-placed serving, colocation, the chaos suites and serving at
-    # 1024 nodes; counts zeroed before and read after each run
-    l_sim.update(serve_scenarios=phase_serve_scenarios(device),
-                 colocated=phase_colocated(device),
-                 chaos=phase_chaos(),
-                 serve_1024=phase_serve_1024(device))
+    l_sim = {}
+    for name, run in (
+            ("sim_scenarios", lambda: phase_sim_scenarios(device)),
+            ("drift_controller", phase_drift_controller),
+            ("sim_1024", lambda: phase_sim_1024(params1024, kcfg1024)),
+            # 4d. GNN-placed serving, colocation, the chaos suites and
+            # serving at 1024 nodes
+            ("serve_scenarios", lambda: phase_serve_scenarios(device)),
+            ("colocated", lambda: phase_colocated(device)),
+            ("chaos", phase_chaos),
+            ("serve_1024", lambda: phase_serve_1024(device))):
+        with jit_counts(name):
+            l_sim[name] = run()
     # 5. gcn_spmm times
     card = card_identity()
     from repro_torch.sim import scenarios as sc
@@ -2880,6 +3039,9 @@ def main() -> None:
                          16: sc.get_scenario("preemption_storm").fleet(0),
                          64: fleet46, 1024: fleet1024, 2048: joined}, device,
                         card)
+    # 5b. predict_logits through the bucket graphs against the eager paths
+    phase_gnn_graphs(torch, device, params46, cfg46,
+                     {64: fleet46, 1024: fleet1024, 2048: joined}, card)
     # 6. attention kernel check
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
     # 7. the serving main path, counts zeroed before and read after

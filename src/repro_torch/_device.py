@@ -1,7 +1,9 @@
 """Device resolution for the port's entry points: CUDA unless asked otherwise.
 
 There is no fallback: ``device=None`` means the CUDA device, and a machine
-without one raises instead of quietly running on the CPU.
+without one raises instead of quietly running on the CPU. ``side_stream``
+is the one stream per device on which the port's CUDA graphs warm up and
+are captured.
 """
 from __future__ import annotations
 
@@ -28,3 +30,14 @@ def of(tree) -> torch.device:
     while not isinstance(tree, torch.Tensor):
         tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
     return tree.device
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One warm-up and capture stream per CUDA device, reused: every new
+    stream would get its own cuBLAS workspace, which stays allocated."""
+    if device.index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device.index]

@@ -6,9 +6,14 @@ the paper's hyperparameters (lr 0.01, ~188k params, 10 steps to ~99% node
 accuracy on the running example).
 
 * **Inference** — ``predict`` / ``predict_logits`` pad every graph into a
-  power-of-two node bucket with an explicit ``node_mask`` (the same buckets
-  as the reference, whose jit compiles once per bucket). PyTorch runs
-  eagerly, so nothing is compiled or cached per bucket here.
+  power-of-two node bucket with an explicit ``node_mask`` and run one cached
+  forward per ``(cfg, bucket, d_in)``, the counterpart of the reference's
+  per-bucket ``jax.jit``. On the card the cached forward is a CUDA graph of
+  ``gnn.apply`` (``BucketGraph``); on the CPU it is the eager forward.
+  ``trace_counts()`` counts the cached forwards made per ``(cfg, bucket)``,
+  call for call as the reference counts its traces. ``bucketed=False`` (or
+  ``FLAGS["bucketed_predict"]``) is the legacy eager path on the unpadded
+  graph.
 * **Training** — same-bucket ``GraphExample``s are stacked into ``(G, n, ·)``
   tensors. ``joint`` (the default when every graph lands in one bucket)
   takes one Adam step per epoch on the mean masked loss across graphs;
@@ -28,6 +33,7 @@ Label provenance and the feature-version shim:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Sequence
 
@@ -36,12 +42,18 @@ import torch
 
 from repro_torch import _device
 from repro_torch import obs as obs_mod
-from repro_torch._tree import leaves, tree_map
+from repro_torch._tree import leaves, map_with_path, tree_map
 from repro_torch.core import cost_model as cm
 from repro_torch.core import gnn
 from repro_torch.core import labels as labels_mod
 from repro_torch.core.graph import ClusterGraph, random_fleet, version_for_dim
+from repro_torch.kernels.gcn_spmm import kernel as spmm_kernel
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+
+# Benchmark switch (the reference's benchmarks/plan_bench.py flips it):
+# turning ``bucketed_predict`` off restores the legacy eager per-subgraph
+# inference path for before/after comparisons.
+FLAGS = {"bucketed_predict": True}
 
 BUCKET_MIN = 8
 
@@ -113,20 +125,42 @@ def make_dataset(n_graphs: int, tasks: Sequence[cm.ModelTask], n_nodes: int = 24
 
 
 # ---------------------------------------------------------------------------
-# Bucketed inference
+# Bucketed, cached inference
 # ---------------------------------------------------------------------------
 def bucket_for(n: int) -> int:
     """Power-of-two node bucket (>= BUCKET_MIN) a graph of n nodes pads into."""
     return max(BUCKET_MIN, 1 << (int(n) - 1).bit_length())
 
 
-def _pad_graph(graph: ClusterGraph,
-               feature_version: int = 1) -> tuple[np.ndarray, np.ndarray,
-                                                  np.ndarray]:
-    feats = graph.node_features(feature_version)
-    lat = graph.latency.astype(np.float32)
+_TRACE_COUNTS: collections.Counter = collections.Counter()
+# (cfg, bucket, d_in) -> {params' device, leaf shapes and dtypes: forward}
+_FORWARDS: dict = {}
+
+
+def _keyed_leaves(params) -> list:
+    """The leaves of a param tree in the order of their sorted key paths:
+    a tree from ``params_from_numpy`` (keys sorted, as jax flattens a dict)
+    and one from ``gnn.init`` line up leaf for leaf."""
+    out = []
+    map_with_path(lambda path, p: out.append((tuple(map(str, path)), p)),
+                  params)
+    return [p for _, p in sorted(out, key=lambda x: x[0])]
+
+
+def trace_counts() -> dict:
+    """(cfg, bucket) -> number of cached forwards made (traces)."""
+    return dict(_TRACE_COUNTS)
+
+
+def reset_trace_counts() -> None:
+    _TRACE_COUNTS.clear()
+
+
+def _pad_arrays(feats: np.ndarray, lat: np.ndarray,
+                b: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A graph's features and latency zero-padded to ``b`` nodes, and its
+    node mask."""
     n, d = feats.shape
-    b = bucket_for(n)
     pf = np.zeros((b, d), np.float32)
     pf[:n] = feats
     pl = np.zeros((b, b), np.float32)
@@ -136,32 +170,166 @@ def _pad_graph(graph: ClusterGraph,
     return pf, pl, node_mask
 
 
+def _pad_graph(graph: ClusterGraph,
+               feature_version: int = 1) -> tuple[np.ndarray, np.ndarray,
+                                                  np.ndarray]:
+    return _pad_arrays(graph.node_features(feature_version),
+                       graph.latency.astype(np.float32), bucket_for(graph.n))
+
+
+def _shared_pool(dev: torch.device):
+    """The memory pool of the device's bucket graphs: that of any captured
+    one (a pool lives as long as a graph holds it), or None for a new one."""
+    for per_key in _FORWARDS.values():
+        for fwd in per_key.values():
+            if isinstance(fwd, BucketGraph) and fwd.graph is not None \
+                    and fwd.feats.device == dev:
+                return fwd.graph.pool()
+    return None
+
+
+class BucketGraph:
+    """``gnn.apply`` at one ``(cfg, bucket, d_in)`` captured as a CUDA graph
+    and replayed, the counterpart of the reference's jitted forward.
+
+    Its inputs live in static buffers: ``feats (b, d_in)``, ``lat (b, b)``,
+    ``node_mask (b,)`` and a copy of the params, because a graph reads its
+    tensors by address while the reference's params are arguments. Each
+    call copies the caller's params in (one ``_foreach_copy_``), copies the
+    graph's features and latency from the host into the static buffers'
+    leading rows and columns and zeroes the rest (the padding), replays,
+    and returns the static logits. The first call is the warm-up: it runs
+    the forward eagerly on the side stream, on the static buffers, and
+    returns those logits; then the graph is captured, which runs nothing.
+    Every bucket graph of a device is captured into one shared memory pool
+    (``_shared_pool``): they replay one at a time on one stream, and what
+    outlives a replay (the static buffers and logits) stays referenced
+    here, so no later capture reuses it.
+
+    Launch counting: the warm-up's kernels count as they run; the capture
+    records ``held`` (wrapper -> launches in the graph, from
+    ``spmm_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+
+    def __init__(self, cfg: gnn.GNNConfig, params, bucket: int, d_in: int):
+        dev = _device.of(params)
+        self.cfg = cfg
+        self.params = tree_map(torch.clone, params)
+        self._leaves = _keyed_leaves(self.params)
+        self.feats = torch.zeros((bucket, d_in), device=dev)
+        self.lat = torch.zeros((bucket, bucket), device=dev)
+        self.node_mask = torch.zeros((bucket,), device=dev)
+        self.graph = None
+        self.logits = None
+        self.held: dict = {}
+
+    def _load(self, params, feats: np.ndarray, lat: np.ndarray) -> None:
+        torch._foreach_copy_(self._leaves, _keyed_leaves(params))
+        n = feats.shape[0]
+        self.feats[:n].copy_(torch.from_numpy(feats))
+        self.lat[:n, :n].copy_(torch.from_numpy(lat))
+        for pad in (self.feats[n:], self.lat[n:], self.lat[:n, n:],
+                    self.node_mask[n:]):
+            pad.zero_()
+        self.node_mask[:n].fill_(1.0)
+
+    def _forward(self) -> torch.Tensor:
+        return gnn.apply(self.params, self.cfg, self.feats, self.lat,
+                         node_mask=self.node_mask)
+
+    def __call__(self, params, feats: np.ndarray,
+                 lat: np.ndarray) -> torch.Tensor:
+        self._load(params, feats, lat)
+        if self.graph is not None:
+            self.graph.replay()
+            spmm_kernel.count_replays(self.held)
+            return self.logits
+        dev = self.feats.device
+        pool = _shared_pool(dev)
+        side = _device.side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = dict(spmm_kernel.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            logits = self._forward()   # the warm-up, and this call's answer
+            # capture_begin, not torch.cuda.graph(): that one empties the
+            # allocator's cache first (see launch/serve.py::DecodeGraph)
+            graph.capture_begin(pool=pool)
+            try:
+                self.logits = self._forward()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+        self.held = {k: spmm_kernel.CAPTURED[k] - n for k, n in before.items()}
+        return logits
+
+
+def _eager_forward(cfg: gnn.GNNConfig, bucket: int):
+    """The CPU's cached forward: the padded forward, run eagerly."""
+    def fwd(params, feats, lat):
+        f, l, m = (torch.from_numpy(a) for a in _pad_arrays(feats, lat, bucket))
+        return gnn.apply(params, cfg, f, l, node_mask=m)
+    return fwd
+
+
+def _bucketed_forward(cfg: gnn.GNNConfig, bucket: int, params, d_in: int):
+    """The cached forward of ``(cfg, bucket, d_in)`` for params of this
+    device, leaf shapes and dtypes, and whether this call made it (a trace,
+    counted under ``(cfg, bucket)``). A param tree of other shapes or dtypes
+    (bf16, say) gets a forward of its own, as a jax retrace does. The
+    forward takes the params and the graph's unpadded features and latency
+    (numpy) and returns the bucket's logits."""
+    per_key = _FORWARDS.setdefault((cfg, bucket, d_in), {})
+    dev = _device.of(params)
+    sig = (dev, tuple((tuple(p.shape), p.dtype) for p in _keyed_leaves(params)))
+    fwd = per_key.get(sig)
+    if fwd is not None:
+        return fwd, False
+    fwd = (BucketGraph(cfg, params, bucket, d_in) if dev.type == "cuda"
+           else _eager_forward(cfg, bucket))
+    per_key[sig] = fwd
+    _TRACE_COUNTS[(cfg, bucket)] += 1
+    return fwd, True
+
+
 @torch.no_grad()
 def predict_logits(params, cfg: gnn.GNNConfig, graph: ClusterGraph, *,
-                   device=None) -> np.ndarray:
-    """Logits for every node of the bucket-padded graph, computed on
-    ``device`` (CUDA by default), where ``params`` must lie. The
-    feature-version shim lives here: the feature schema is derived from the
-    params (``gnn.d_in_of`` -> ``graph.version_for_dim``), so a v1
-    checkpoint keeps seeing v1 features after the v2 telemetry columns were
-    added."""
+                   bucketed: bool | None = None, device=None) -> np.ndarray:
+    """Logits for every node, computed on ``device`` (CUDA by default),
+    where ``params`` must lie. ``bucketed`` (default
+    ``FLAGS["bucketed_predict"]``): pad into the node bucket and run the
+    bucket's cached forward (a CUDA graph on the card); ``False`` is the
+    legacy eager forward on the unpadded graph, with no mask, no cache and
+    no metrics. The feature-version shim lives here: the feature schema is
+    derived from the params (``gnn.d_in_of`` -> ``graph.version_for_dim``),
+    so a v1 checkpoint keeps seeing v1 features after the v2 telemetry
+    columns were added."""
     dev = _device.resolve(device)
     if _device.of(params) != dev:
         raise ValueError(f"params lie on {_device.of(params)}, not on {dev}")
-    feats, lat, node_mask = _pad_graph(graph, version_for_dim(gnn.d_in_of(params)))
-    t = lambda a: torch.from_numpy(a).to(dev)
-    logits = gnn.apply(params, cfg, t(feats), t(lat), node_mask=t(node_mask))
+    version = version_for_dim(gnn.d_in_of(params))
+    if bucketed is None:
+        bucketed = FLAGS["bucketed_predict"]
+    feats = graph.node_features(version)
+    lat = graph.latency.astype(np.float32)
+    if not bucketed:  # legacy eager path, kept for before/after benchmarks
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return gnn.apply(params, cfg, t(feats), t(lat)).cpu().numpy()
+    b = bucket_for(graph.n)
+    fwd, traced = _bucketed_forward(cfg, b, params, feats.shape[1])
+    logits = fwd(params, feats, lat)
     rec = obs_mod.current()
     if rec.enabled:
-        # the reference also counts .compiles / .cache_hits of its per-bucket
-        # jit; an eager forward compiles nothing, so only calls are counted
-        rec.metrics.inc(f"plan.jit.bucket{node_mask.shape[0]}.calls")
+        rec.metrics.inc(f"plan.jit.bucket{b}.calls")
+        rec.metrics.inc(f"plan.jit.bucket{b}."
+                        + ("compiles" if traced else "cache_hits"))
     return logits[:graph.n].cpu().numpy()
 
 
 def predict(params, cfg: gnn.GNNConfig, graph: ClusterGraph, *,
-            device=None) -> np.ndarray:
-    return np.argmax(predict_logits(params, cfg, graph, device=device), axis=-1)
+            bucketed: bool | None = None, device=None) -> np.ndarray:
+    return np.argmax(predict_logits(params, cfg, graph, bucketed=bucketed,
+                                    device=device), axis=-1)
 
 
 # ---------------------------------------------------------------------------

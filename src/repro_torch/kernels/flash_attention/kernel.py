@@ -11,7 +11,10 @@ fp32 tolerance); the C entry point picks one by type. The forward can also
 return the per-row log-sum-exp (fp32, (B, H, S)) that ``flash_attention_bwd``
 reads; each backward call (bf16: a prep pass, dK/dV, dQ and, when H > KV, the
 sum of the heads' partials; fp32: delta, dK/dV, dQ) adds one to
-``LAUNCHES["flash_attention_bwd"]``.
+``LAUNCHES["flash_attention_bwd"]``. A call made while the current stream
+captures a CUDA graph runs nothing: it adds to ``CAPTURED`` instead, and
+whoever replays the graph adds the launches it holds with ``count_replays``
+(``launch/train.py::TrainGraph``).
 
 Head dim 96 (phi3-mini), which the forward and the fp32 backward have no
 instantiation for, is padded here with zero columns to 128, and the kernels
@@ -32,8 +35,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# wrapper name -> number of kernel launches made through it
+# wrapper name -> number of kernel launches that ran on the card
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+# wrapper name -> number of launches recorded into CUDA graphs being captured
+CAPTURED = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
@@ -47,6 +52,20 @@ _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_replays(held: dict) -> None:
+    """Add the launches that one replay of a captured graph ran (``held``:
+    name -> launches, the growth of ``CAPTURED`` over its capture)."""
+    for name, n in held.items():
+        LAUNCHES[name] += n
+
+
+def _count(name: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,7 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  -1 if window is None else int(window), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     if res is not out:
         out.copy_(res[..., :d])
     return (out, lse) if return_lse else out
@@ -199,7 +218,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES["flash_attention_bwd"] += 1
+    _count("flash_attention_bwd")
     if dp != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

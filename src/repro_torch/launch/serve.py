@@ -43,17 +43,6 @@ def _clock(device: torch.device) -> float:
     return time.time()
 
 
-_SIDE_STREAMS: dict = {}
-
-
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """One warm-up and capture stream per device, reused: every new stream
-    would get its own cuBLAS workspace, which stays allocated."""
-    if device.index not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
-    return _SIDE_STREAMS[device.index]
-
-
 def _warmup_caches(caches):
     """The caches for ``DecodeGraph``'s eager warm-up step: a copy of every
     cache the step writes. The encoder-decoder's cross K/V are read-only
@@ -98,7 +87,7 @@ class DecodeGraph:
         self.tokens = torch.zeros((token.shape[0], steps), dtype=torch.int32,
                                   device=dev)
         scratch = _warmup_caches(caches)
-        side = _side_stream(dev)
+        side = _device.side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = dict(dec_kernel.CAPTURED)
         self.graph = torch.cuda.CUDAGraph()

@@ -7,9 +7,12 @@ Port of ``repro/launch/train.py``.
 Runs on the CUDA device unless ``--device`` says otherwise; with no card
 and no ``--device cpu`` it raises. On the card, attention goes through the
 hand-written flash kernels forward and backward (``use_flash``, the
-reference's accelerator branch); on the CPU, sequences longer than 512 run
-the chunked plain forms (q-chunked attention and MLA, the chunkwise Mamba
-scan and mLSTM, chunks of 256), as the reference does off its accelerator.
+reference's accelerator branch), and the loop replays one captured CUDA
+graph of the donating step (``TrainGraph``), the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``; on the CPU the step
+runs eagerly, and sequences longer than 512 run the chunked plain forms
+(q-chunked attention and MLA, the chunkwise Mamba scan and mLSTM, chunks of
+256), as the reference does off its accelerator.
 Fault tolerance as in the reference: atomic keep-k checkpoints and
 auto-resume from the newest committed step; the data is a pure function of
 the step, so a resumed run replays the same batches. One card, no sharding.
@@ -20,15 +23,79 @@ import argparse
 import dataclasses
 import time
 
+import torch
+
 from repro_torch import _device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (device_batch, init_train_state,
                                              make_train_step)
+
+
+class TrainGraph:
+    """A donating train step (``make_train_step(..., donate=True)``)
+    captured once as a CUDA graph and replayed once per step.
+
+    ``state`` is the static state: the step updates its tensors in place,
+    so ``self.state`` always holds the newest params and moments (what a
+    checkpoint saves). Each call copies the batch into static buffers
+    (``tokens``, ``labels`` and a family's ``frames`` / ``patches``),
+    replays, and returns the static metric tensors. The first call is the
+    warm-up that autograd and the kernels need before a capture: it runs
+    the step eagerly on the side stream, in place on the state, and that
+    is this call's step; then the graph is captured, which runs nothing. So
+    no step is applied twice. A failed capture raises; nothing falls back to the
+    eager step. The graph holds the memory of the step's intermediates until
+    ``release``.
+
+    Launch counting: the warm-up's flash launches count as they run; the
+    capture records ``held`` (wrapper -> launches in the graph, from
+    ``flash_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+
+    def __init__(self, step_fn, state):
+        self.step_fn = step_fn
+        self.state = state
+        self.batch: dict = {}
+        self.metrics: dict = {}
+        self.graph = None
+        self.held: dict = {}
+
+    def __call__(self, batch: dict) -> dict:
+        if self.graph is not None:
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            self.graph.replay()
+            flash_kernel.count_replays(self.held)
+            return self.metrics
+        dev = next(iter(batch.values())).device
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        side = _device.side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = dict(flash_kernel.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            _, metrics = self.step_fn(self.state, self.batch)   # this step
+            # capture_begin, not torch.cuda.graph(): that one empties the
+            # allocator's cache first (see launch/serve.py::DecodeGraph)
+            graph.capture_begin()
+            try:
+                _, self.metrics = self.step_fn(self.state, self.batch)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+        self.held = {k: flash_kernel.CAPTURED[k] - n for k, n in before.items()}
+        return metrics
+
+    def release(self) -> None:
+        """Free the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
 
 
 def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
@@ -48,7 +115,12 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
     ``steps`` and resumed later sees the same LR schedule. Checkpoints are
     saved every ``ckpt_every`` steps and at the end (unless the end step is
     already committed). The RUNTIME knobs the loop sets are restored when it
-    returns."""
+    returns.
+
+    On the card the steps run through a ``TrainGraph`` built from the state
+    the loop starts from (fresh or restored): the first step runs eagerly
+    and the rest replay the graph, which is freed when the loop returns.
+    The returned state is the graph's static state."""
     dev = _device.resolve(device)
     api = get_api(cfg)
     sched = schedule_steps or steps
@@ -62,6 +134,7 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             if seq_len > 512 else {}
     saved_knobs = {k: cc.RUNTIME[k] for k in knobs}
     cc.RUNTIME.update(knobs)
+    graph = None
     try:
         state = init_train_state(cfg, seed, opt_cfg, dev)
         step_fn = make_train_step(cfg, opt_cfg, api)
@@ -77,6 +150,8 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
                     start_step, state, _ = latest
                     log(f"resumed from step {start_step}")
 
+        graph = (TrainGraph(make_train_step(cfg, opt_cfg, api, donate=True),
+                            state) if dev.type == "cuda" else None)
         history = []
         t0 = time.perf_counter()
         for step, batch in data.iter(start_step):
@@ -84,7 +159,10 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
                 break
             t_step = time.perf_counter()
             tb = device_batch(cfg, batch, dev)
-            state, metrics = step_fn(state, tb)
+            if graph is not None:
+                metrics = graph(tb)
+            else:
+                state, metrics = step_fn(state, tb)
             if step % log_every == 0 or step == steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
@@ -99,6 +177,8 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             mgr.save(steps, state, extra={"data_step": steps})
     finally:
         cc.RUNTIME.update(saved_knobs)
+        if graph is not None:
+            graph.release()
     return state, history
 
 

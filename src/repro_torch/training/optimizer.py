@@ -2,9 +2,13 @@
 ``repro/training/optimizer.py``).
 
 AdamW with decoupled weight decay, global-norm gradient clipping and a
-warmup+cosine LR schedule. The state mirrors the params tree. Every update
-returns new tensors (the reference is pure); the math is fp32 whatever the
-moment dtype.
+warmup+cosine LR schedule. The state mirrors the params tree.
+``adamw_update`` returns new tensors (the reference is pure);
+``adamw_update_`` computes the same numbers and writes them into the given
+params and state, the counterpart of the reference's donated buffers
+(``launch/train.py`` donates the train state to its jitted step). The math
+is fp32 whatever the moment dtype. Nothing here reads a tensor's value on
+the host, so a step can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -45,7 +49,9 @@ class AdamWConfig:
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup then cosine decay to min_lr_ratio (constant if total_steps=0)."""
     step = step.to(torch.float32)
-    peak = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=step.device)
+    # a fill, not torch.tensor(): a copy from the host would stop a capture
+    peak = torch.full((), cfg.learning_rate, dtype=torch.float32,
+                      device=step.device)
     if cfg.warmup_steps > 0:
         warm = peak * (step + 1.0) / float(cfg.warmup_steps)
     else:
@@ -124,6 +130,40 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamState,
     new_params = _map(upd_param, params, mu, nu)
     new_state = AdamState(step=step + 1, mu=mu, nu=nu)
     return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, grads: Params, state: AdamState,
+                  params: Params) -> dict:
+    """One AdamW step in place: the new params, ``mu``, ``nu`` and ``step``
+    are written into ``params`` and ``state``'s tensors. Returns the
+    metrics of ``adamw_update``, whose numbers it computes bit for bit: the
+    same fp32 expressions in the same order, leaf by leaf, so that the
+    temporaries of one leaf live at a time and the state is never held
+    twice."""
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.grad_clip_norm > 0 else None)
+    step = state.step
+    lr = _schedule(cfg, step)
+    t = (step + 1).to(torch.float32)
+    c1 = 1.0 - torch.pow(cfg.b1, t)
+    c2 = 1.0 - torch.pow(cfg.b2, t)
+
+    def upd(path, p, g, m, v):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        g = g.float()
+        m.copy_(cfg.b1 * m.float() + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v.float() + (1 - cfg.b2) * g * g)
+        update = (m.float() / c1) / (torch.sqrt(v.float() / c2) + cfg.eps)
+        if cfg.weight_decay > 0 and _decay_mask(path):
+            update = update + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * update)
+
+    _map(upd, params, grads, state.mu, state.nu)
+    step.add_(1)
+    return {"lr": lr, "grad_norm": gnorm}
 
 
 @torch.no_grad()

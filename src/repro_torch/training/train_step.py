@@ -4,9 +4,10 @@
 Every builder returns a plain function: ``make_train_step`` and
 ``make_eval_step`` over (state or params, batch), ``make_prefill`` and
 ``make_decode_step`` over (params, batch / token, caches). PyTorch runs
-them eagerly (the reference jits them); ``launch/serve.py`` captures the
-decode step in a CUDA graph on the card. A captured training step is later
-work. TrainState = (params, opt), as in the reference.
+them eagerly (the reference jits them); on the card ``launch/serve.py``
+captures the decode step in a CUDA graph, and ``launch/train.py`` the
+donating train step (``make_train_step(..., donate=True)``).
+TrainState = (params, opt), as in the reference.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES
 from repro_torch.models.registry import ModelApi, get_api
 from repro_torch.training.optimizer import (AdamState, AdamWConfig, adamw_init,
-                                            adamw_update)
+                                            adamw_update, adamw_update_)
 
 PyTree = Any
 
@@ -41,14 +42,21 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    api: ModelApi | None = None) -> Callable:
+                    api: ModelApi | None = None, *,
+                    donate: bool = False) -> Callable:
     """(state, batch) -> (state, metrics). ``batch``: {"tokens", "labels"}
     int tensors on the params' device, and a family's ``frames`` or
     ``patches`` (``device_batch``). One step: the loss, its gradient by
     ``torch.autograd.grad`` over every param leaf, then ``adamw_update``
     (global-norm clip, schedule, decoupled decay). ``metrics``: loss, ce,
     aux, grad_norm and lr as 0-d tensors on the device; reading one waits
-    for the step. The given state is not modified."""
+    for the step. The given state is not modified.
+
+    ``donate=True``: the step updates ``state``'s tensors in place
+    (``adamw_update_``, the same numbers bit for bit) and returns that same
+    state, the counterpart of the reference's ``jax.jit(step,
+    donate_argnums=(0,))``: the old and the new state are never held at
+    once, and a CUDA graph of the step reads and writes fixed buffers."""
     api = api or get_api(cfg)
 
     def train_step(state: TrainState, batch: dict):
@@ -57,9 +65,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         loss, metrics = api.loss_and_metrics(params, cfg, batch)
         grads = iter(torch.autograd.grad(loss, leaves(params)))
         grads = tree_map(lambda _: next(grads), params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if donate:
+            metrics.update(adamw_update_(opt_cfg, grads, state.opt,
+                                         state.params))
+            return state, metrics
         new_params, opt, om = adamw_update(opt_cfg, grads, state.opt,
                                            state.params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(om)
         return TrainState(params=new_params, opt=opt), metrics
 

@@ -1,32 +1,46 @@
 """Shared helpers of the port's parity tests: the port's GNN cache seeded
-with the reference's params, the metric names the port does not count, the
-byte-comparable projections of a serving run, and the models' RUNTIME
-knobs set on both packages at once.
+with the reference's params, both packages' per-bucket forward caches
+emptied at once, the byte-comparable projections of a serving run, and the
+models' RUNTIME knobs set on both packages at once.
 
 The reference trains its GNNs from ``jax.random``, which torch cannot
 reproduce, so the port's ``trained_gnn`` cache gets the reference's params
 (through ``gnn.params_from_numpy``, on the CPU) under the port's own key.
-The only metric names allowed to differ are ``plan.jit.bucket{b}.compiles``
-/ ``.cache_hits``, which the port's eager forward does not count.
+Every metric is compared, ``plan.jit.bucket{b}.compiles`` / ``.cache_hits``
+too: each counts against its package's process-wide forward cache, so a
+comparison empties both caches (``cold_forwards``) before each package's
+run, and the two runs count from the same start.
 """
 import contextlib
 import dataclasses
 import json
-import re
 
 import jax
 import numpy as np
 
+from repro.core import train as jtrain
 from repro.models import common as jcommon
 from repro.serve import evaluate as jse
 from repro.sim import evaluate as jev
 from repro.sim.chaos import canonical_records
 from repro_torch.core import gnn as tgnn
+from repro_torch.core import train as ttrain
 from repro_torch.models import common as tcommon
 from repro_torch.serve.costs import serve_task_for as t_serve_task_for
 from repro_torch.sim import evaluate as tev
 
-PORT_UNCOUNTED = re.compile(r"plan\.jit\.bucket\d+\.(compiles|cache_hits)$")
+
+def cold_forwards() -> None:
+    """Empty both packages' per-bucket forward caches: the next forward of
+    every ``(cfg, bucket, d_in)`` is a trace (a ``.compiles``) in each."""
+    jtrain._bucketed_forward.cache_clear()
+    ttrain._FORWARDS.clear()
+
+
+def cold(fn):
+    """``fn()`` run after ``cold_forwards()``."""
+    cold_forwards()
+    return fn()
 
 
 @contextlib.contextmanager
@@ -82,32 +96,19 @@ def seed_scenario_gnn(ref_scn, port_scn, label_mode: str = "analytic",
     return params, cfg
 
 
-def port_metrics(ref_metrics: dict) -> dict:
-    """The reference's metrics without the names the port does not count."""
-    return {k: v for k, v in ref_metrics.items()
-            if not PORT_UNCOUNTED.match(k)}
-
-
 def as_json(x) -> str:
     return json.dumps(x, sort_keys=True, default=float)
 
 
-def result_json(res, ref: bool) -> str:
-    """A ``ServeResult`` as canonical JSON; the reference's metrics lose the
-    names the port does not count."""
-    d = res.as_dict()
-    if ref:
-        d["metrics"] = port_metrics(d["metrics"])
-    return as_json(d)
+def result_json(res) -> str:
+    """A ``ServeResult`` as canonical JSON."""
+    return as_json(res.as_dict())
 
 
-def raw_json(raw: dict, ref: bool) -> str:
+def raw_json(raw: dict) -> str:
     """Everything a serving run returns but its records (those go through
     ``canonical_records``), as canonical JSON."""
-    d = {k: v for k, v in raw.items() if k != "records"}
-    if ref:
-        d["metrics"] = port_metrics(d["metrics"])
-    return as_json(d)
+    return as_json({k: v for k, v in raw.items() if k != "records"})
 
 
 def assert_same_serve_run(ref_raw: dict, port_raw: dict, what: str) -> None:
@@ -117,4 +118,4 @@ def assert_same_serve_run(ref_raw: dict, port_raw: dict, what: str) -> None:
     hosts = lambda raw: [r["machine"] for r in raw["replicas"]]
     assert hosts(port_raw) == hosts(ref_raw), f"{what}: replica hosts"
     assert canonical_records(port_raw) == canonical_records(ref_raw), what
-    assert raw_json(port_raw, False) == raw_json(ref_raw, True), what
+    assert raw_json(port_raw) == raw_json(ref_raw), what

@@ -17,7 +17,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from _torch_parity import assert_same_serve_run, seed_scenario_gnn
+from _torch_parity import assert_same_serve_run, cold, seed_scenario_gnn
 from repro.sim import chaos as jchaos
 from repro.sim import scenarios as jsc
 from repro_torch import obs as obs_mod
@@ -53,14 +53,14 @@ def test_fuzz_one_matches_reference(seed):
     """The port's fuzzer holds every invariant (it raises otherwise) and
     reports the reference's counts; each case's records are the
     reference's, on both serving paths."""
-    out = tchaos.fuzz_one(seed)
-    assert out == jchaos.fuzz_one(seed)
+    out = cold(lambda: tchaos.fuzz_one(seed))
+    assert out == cold(lambda: jchaos.fuzz_one(seed))
     plan = tchaos.random_fault_plan(seed, tchaos.paper_fig1_graph(seed))
     ref_plan = jchaos.random_fault_plan(seed, jchaos.paper_fig1_graph(seed))
     for resilient in (False, True):
         assert_same_serve_run(
-            jchaos.run_case(seed, ref_plan, resilient=resilient),
-            tchaos.run_case(seed, plan, resilient=resilient),
+            cold(lambda: jchaos.run_case(seed, ref_plan, resilient=resilient)),
+            cold(lambda: tchaos.run_case(seed, plan, resilient=resilient)),
             f"seed {seed} resilient={resilient}")
 
 

@@ -105,6 +105,15 @@ TOOLS_MODULES = (
     "repro_torch.launch.specs", "repro_torch.launch.dryrun",
 )
 
+# The compiled paths' modules: the per-bucket forward cache and its CUDA
+# graphs, the in-place AdamW, the donating step and the train graph.
+GRAPH_MODULES = (
+    "repro_torch.core.train", "repro_torch.training.optimizer",
+    "repro_torch.training.train_step", "repro_torch.launch.train",
+    "repro_torch.kernels.gcn_spmm.kernel",
+    "repro_torch.kernels.flash_attention.kernel",
+)
+
 _IMPORT_ONE = """
 import importlib, sys
 mod = importlib.import_module(sys.argv[1])
@@ -130,6 +139,19 @@ def test_tools_module_imports_alone_without_jax_or_repro(module):
     code = _IMPORT_ONE + (
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code, module],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", GRAPH_MODULES)
+def test_graph_module_imports_alone_without_jax_or_repro(module):
+    """Importing one touches no device and builds no kernel: the graphs are
+    made at their first call on the card."""
+    code = _IMPORT_ONE + (
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code, module],
                           env=dict(os.environ, PYTHONPATH=SRC),
                           capture_output=True, text=True, timeout=120)

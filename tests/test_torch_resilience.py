@@ -9,7 +9,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from _torch_parity import assert_same_serve_run
+from _torch_parity import assert_same_serve_run, cold_forwards
 from repro import obs as jobs
 from repro.core import cost_model as jcm
 from repro.core.graph import paper_fig1_graph as j_fig1
@@ -271,7 +271,9 @@ def test_resilient_run_matches_reference(kind, policy):
             fm.GrayFailure(at=0.1, machines=hosts[:1], slowdown=30.0),
             fm.MachineCrash(at=0.5, machines=hosts[1:2], recover_after=0.2)))
     jrec, trec = jobs.Recorder(), obs_mod.Recorder()
+    cold_forwards()
     _, jraw = _ref_serve(plan(jfm), resilience=jcfg, policy=policy, obs=jrec)
+    cold_forwards()
     _, traw = _serve(plan(fm), resilience=tcfg, policy=policy, obs=trec)
     assert_same_serve_run(jraw, traw, f"{kind}/{policy}")
     assert check_invariants(traw, trec) == check_invariants(jraw, jrec)

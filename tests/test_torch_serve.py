@@ -20,8 +20,8 @@ import torch
 torch.set_num_threads(1)
 
 import repro.serve.costs as jcosts
-from _torch_parity import (as_json, assert_same_serve_run, port_metrics,
-                               result_json, seed_serve_gnn)
+from _torch_parity import (as_json, assert_same_serve_run, cold, result_json,
+                           seed_serve_gnn)
 from repro.core import cost_model as jcm
 from repro.core import graph as jgraph
 from repro.core import train as jtrain
@@ -321,7 +321,8 @@ def test_hulk_autoscale_drives_elastic_on_join():
     import repro.serve as jserve
     import repro_torch.serve as tserve
     params, cfg = serve_gnn(CHAT, 2, seed=0)
-    raw = _join_case(tgraph, tserve, CHAT, params, cfg, ServeExecutor)
+    raw = cold(lambda: _join_case(tgraph, tserve, CHAT, params, cfg,
+                                  ServeExecutor))
     joins = [e for e in raw["scale_log"] if e["event"] == "join"]
     assert joins, "spare machine was never provisioned"
     assert joins[0]["machine"] == 2
@@ -329,8 +330,8 @@ def test_hulk_autoscale_drives_elastic_on_join():
         r.latency_s is not None or r.dropped
         for r in raw["records"].values())
     jparams, jcfg = jse.serve_gnn(J_CHAT, 2, seed=0)
-    jraw = _join_case(jgraph, jserve, J_CHAT, jparams, jcfg,
-                      jwl.ServeExecutor)
+    jraw = cold(lambda: _join_case(jgraph, jserve, J_CHAT, jparams, jcfg,
+                                   jwl.ServeExecutor))
     assert_same_serve_run(jraw, raw, "hulk join")
 
 
@@ -399,8 +400,10 @@ def _captured_serve(wl, fn):
 @pytest.fixture(scope="module")
 def evaluated():
     """``evaluate_all_serve(seed=0)`` in both packages, each run kept."""
-    ref, ref_runs = _captured_serve(jwl, lambda: jse.evaluate_all_serve(0))
-    port, port_runs = _captured_serve(twl, lambda: tse.evaluate_all_serve(0))
+    ref, ref_runs = _captured_serve(jwl, lambda: cold(
+        lambda: jse.evaluate_all_serve(0)))
+    port, port_runs = _captured_serve(twl, lambda: cold(
+        lambda: tse.evaluate_all_serve(0)))
     names = sorted(jsc.SERVE_SCENARIOS)
     assert list(ref) == list(port) == names
     assert len(ref_runs) == len(port_runs) == len(names) * len(POLICIES)
@@ -421,10 +424,9 @@ def test_scenario_policy_matches_reference(evaluated, name, policy):
     assert ref_raw["policy"] == port_raw["policy"] == policy
     assert_same_serve_run(ref_raw, port_raw, f"{name}/{policy}")
     slo = tsc.get_serve_scenario(name).slo_s
-    assert result_json(summarize(port_raw, slo), False) \
-        == result_json(jse.summarize(ref_raw, slo), True)
+    assert result_json(summarize(port_raw, slo)) \
+        == result_json(jse.summarize(ref_raw, slo))
     row_ref, row_port = ref[name][policy], port[name][policy]
-    row_ref = dict(row_ref, metrics=port_metrics(row_ref["metrics"]))
     assert as_json(row_port) == as_json(row_ref)
 
 

@@ -5,9 +5,9 @@ Systems A/B/C are numpy all the way down, so their rows must be equal byte
 for byte. The Hulk arm places through the GNN: both packages' caches hold
 the reference's trained params (``trained_gnn`` initialises from
 ``jax.random`` in one package and from a torch generator in the other), and
-then its row must be equal too. The only metric names allowed to differ are
-``plan.jit.bucket{b}.compiles`` / ``.cache_hits``, which the port's eager
-forward does not count. Every ``FleetSimulation`` run is also compared
+then its row must be equal too, every metric included (the per-bucket
+forward's ``plan.jit.bucket{b}.compiles`` / ``.cache_hits`` count from an
+empty forward cache in each package). Every ``FleetSimulation`` run is also compared
 through ``repro.sim.chaos.canonical_fleet`` and field by field.
 """
 import dataclasses
@@ -19,8 +19,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from _torch_parity import (PORT_UNCOUNTED, as_json, port_metrics,
-                           seed_scenario_gnn)
+from _torch_parity import as_json, cold, seed_scenario_gnn
 from repro.core import graph as jgraph
 from repro.core import train as jtrain
 from repro.sim import evaluate as jev
@@ -81,8 +80,10 @@ def evaluated():
     ref_params, ref_cfg = seed_scenario_gnn(jsc.get_scenario("cross_region_wan"),
                                         tsc.get_scenario("cross_region_wan"),
                                         "analytic")
-    ref, ref_runs = _captured_runs(jev, lambda: jev.evaluate_all(seed=0))
-    port, port_runs = _captured_runs(tev, lambda: tev.evaluate_all(seed=0))
+    ref, ref_runs = _captured_runs(jev, lambda: cold(
+        lambda: jev.evaluate_all(seed=0)))
+    port, port_runs = _captured_runs(tev, lambda: cold(
+        lambda: tev.evaluate_all(seed=0)))
     names = sorted(jsc.SCENARIOS)
     assert list(ref) == list(port) == names
     assert len(ref_runs) == len(port_runs) == 4 * len(names)
@@ -100,11 +101,7 @@ def test_evaluate_scenario_rows_match_reference(evaluated, name, system):
     jres, tres = runs[name, system]
     assert tres.system == jres.system
     assert canonical_fleet(tres) == canonical_fleet(jres), note
-    assert not any(PORT_UNCOUNTED.match(k) for k in tres.metrics)
-    jfields = dict(result_fields(jres), metrics=port_metrics(jres.metrics))
-    assert as_json(result_fields(tres)) == as_json(jfields), note
-    jrow = dict(jrow, metrics=port_metrics(jrow.get("metrics", {})))
-    trow = dict(trow, metrics=trow.get("metrics", {}))
+    assert as_json(result_fields(tres)) == as_json(result_fields(jres)), note
     assert as_json(trow) == as_json(jrow), note
 
 
