@@ -38,7 +38,10 @@ full-width served models (weight bytes equal to the params', KV bytes to
 the caches'), the dry-run on a 1 x 1 mesh (argument bytes at most each
 phase's peak), the dry-run of every cell on the production meshes (host
 only, in a process of its own beside the card's phases) and gemma3-1b's
-params distributed over a one-card NCCL mesh. It
+params distributed over a one-card NCCL mesh. Every GNN it trains runs
+``core/train.py``'s captured programs (one CUDA graph per joint step,
+per epoch or per sequential step shape), held to the eager steps; the
+seven example twins run as a user runs them. It
 times every kernel beside its plain version, a one-call library yardstick
 and its bound (the attention kernels also at phi3-mini's head_dim 96, the
 backward also split by kernel), runs the card-only pytest files, and prints
@@ -80,8 +83,14 @@ kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
 of one step) -> the pricer (``price_serve``) -> the one-card dry-run
 (``dryrun_1chip``) -> the production dry-run (``dryrun_production``,
-started after the build) -> the one-card mesh (``mesh_1card``) ->
-card-only pytest -> kernels summary -> import check.
+started after the build) -> the one-card mesh (``mesh_1card``) -> the GNN
+trainer's captured programs against its eager steps
+(``gnn_train_graphs``: fleet46's, the evaluator's and plan_bench's
+datasets, a ragged and a scan run; bit for bit, the update count, a second
+call that captures nothing, profiles) -> the seven example twins
+(``examples``: each ``repro_torch.examples.<name>.main`` on the card, its
+launches; serve_batch's tokens against the CPU's) -> card-only pytest ->
+kernels summary -> import check.
 
 Launch counts on the serve path, zeroed just before the 64-token call and
 read just after it: 26 ``flash_attention`` (one prefill of 26 layers) and
@@ -98,7 +107,10 @@ the 6 straight steps and read just after: 26 x 2 x 6 = 312
 and 26 x 6 = 156 ``flash_attention_bwd``: the eager first step, then 5
 replays of a graph that holds one step; the capture runs nothing. On the
 planner's paths a bucket graph's replay counts its 3 ``scaled_spmm``
-launches, as the eager forward did.
+launches, as the eager forward did. The GNN trainer and the fleet twins
+launch no kernel (the plain cfg trains and plans there); the serve_batch
+twin's flash and decode launches (reduced gemma3-1b) are counted from zero
+around it and listed under ``examples serve_batch``.
 """
 from __future__ import annotations
 
@@ -2943,6 +2955,334 @@ def phase_mesh_1card(torch, device) -> dict:
     return {"local_equals_original": exact}
 
 
+# -- the GNN trainer's captured programs and the example twins ----------------
+@contextlib.contextmanager
+def _capture_clock(torch):
+    """Host seconds spent inside CUDA graph captures during the block, and
+    their number: ``capture_begin`` to ``capture_end`` (a capture runs
+    nothing on the card)."""
+    cls = torch.cuda.CUDAGraph
+    begin, end = cls.capture_begin, cls.capture_end
+    out = {"captures": 0, "capture_s": 0.0}
+    started = []
+
+    def timed_begin(self, *a, **kw):
+        started.append(time.perf_counter())
+        return begin(self, *a, **kw)
+
+    def timed_end(self, *a, **kw):
+        try:
+            return end(self, *a, **kw)
+        finally:
+            out["captures"] += 1
+            out["capture_s"] += time.perf_counter() - started.pop()
+
+    cls.capture_begin, cls.capture_end = timed_begin, timed_end
+    try:
+        yield out
+    finally:
+        cls.capture_begin, cls.capture_end = begin, end
+
+
+def _profile_step(torch, trainer, ds) -> dict:
+    """One more step of a trainer (``run(1, ...)``: replays, or the eager
+    steps) under torch.profiler: a joint step, a scan or bucketed epoch
+    (one update per graph), or one sequential step (the example's copy in,
+    the step, its host sync). Host wall ms from synchronize to
+    synchronize, device-busy ms (kernels' own device time), the idle share,
+    the kernels launched and the updates made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    unit = ds[:1] if trainer.mode == "sequential" else ds
+    trainer.run(1, unit)
+    # the profiler has once recorded no device activity for a replay (one
+    # case of six in one run): profile again, up to three windows
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run(1, unit)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    busy_us = sum(_dev_time(e) for e in kernels)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernels": sum(e.count for e in kernels),
+            "updates": 1 if trainer.mode == "joint" else len(unit),
+            "profiled_windows": attempt}
+
+
+def _train_cases():
+    """(case, tasks, dataset, mode, steps): fleet46's plan, the evaluator's
+    ``trained_gnn``, plan_bench's ``training_throughput`` (before and
+    after), a ragged dataset in two buckets and the per-graph scan."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import train as gnn_train
+    from repro_torch.core.graph import paper_fleet46
+    from repro_torch.sim.scenarios import SIM_TASKS
+
+    mk = gnn_train.make_dataset
+    fleet46 = mk(4, cm.FOUR_TASKS, n_nodes=46, seed=1, label_frac=0.8)
+    fleet46.append(gnn_train.make_example(paper_fleet46(), cm.FOUR_TASKS,
+                                          seed=0))
+    sim = list(SIM_TASKS)
+    evaluator = mk(3, sim, n_nodes=12, seed=11, label_frac=0.8)
+    bench = mk(64, cm.FOUR_TASKS, n_nodes=16, seed=7, label_frac=0.8)
+    ragged = (mk(3, cm.FOUR_TASKS, n_nodes=12, seed=2, label_frac=0.8)
+              + mk(3, cm.FOUR_TASKS, n_nodes=40, seed=5, label_frac=0.8))
+    return [("fleet46", cm.FOUR_TASKS, fleet46, "joint", 150),
+            ("trained_gnn", sim, evaluator, "joint", 50),
+            ("plan_bench", cm.FOUR_TASKS, bench, "sequential", 15),
+            ("plan_bench", cm.FOUR_TASKS, bench, "joint", 15),
+            ("ragged", cm.FOUR_TASKS, ragged, "bucketed", 20),
+            ("trained_gnn", sim, evaluator, "scan", 20)]
+
+
+def phase_gnn_train_graphs(torch, device, card) -> dict:
+    """``train_gnn`` on the card (``core/train.py``'s captured programs)
+    against the eager loop of the same step functions (its ``_Trainer``
+    without capture), per case of ``_train_cases``: each from a fresh
+    cache entry (the first call runs each program's first step eagerly and
+    captures it), then a second call on the same key, which must capture
+    nothing, then the eager loop from the same init. Params and history
+    must be equal bit for bit, and ``opt_state.step`` the reference's
+    update count. Wall seconds, ms a step, graphs/s, the captures' host
+    seconds, and a profiled epoch of replays and of eager steps."""
+    from repro_torch.core import gnn
+    from repro_torch.core import train as gnn_train
+
+    t0 = time.perf_counter()
+    cases = _train_cases()
+    labels_s = time.perf_counter() - t0
+    out = {}
+    for case, tasks, ds, mode, steps in cases:
+        cfg = gnn_train.gnn_config_for(tasks)
+        d_in = ds[0].feats.shape[1]
+        params = gnn.init(cfg, d_in, seed=0, device=device)
+        mode_, stacks = gnn_train._resolve_mode(ds, mode)
+        opt_cfg = gnn_train._opt_config(0.01)
+        key = gnn_train._key(cfg, opt_cfg, mode_, ds, stacks, device)
+        gnn_train._TRAINERS.pop(key, None)
+        timed = {}
+        for call in ("captured", "second"):
+            with _capture_clock(torch) as clock:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, hist = gnn_train.train_gnn(cfg, ds, steps=steps, lr=0.01,
+                                                params=params, mode=mode,
+                                                device=device)
+                torch.cuda.synchronize()
+                timed[call] = (time.perf_counter() - t0, dict(clock))
+        trainer = gnn_train._TRAINERS[key]
+        eager = gnn_train._Trainer(cfg, opt_cfg, mode_, params, ds, stacks,
+                                   device, capture=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_hist = eager.run(steps, ds)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        pairs = list(zip(gnn_train._keyed_leaves(got),
+                         gnn_train._keyed_leaves(eager.params)))
+        bit_equal = all(torch.equal(a, b) for a, b in pairs)
+        max_diff = max(float((a - b).abs().max()) for a, b in pairs)
+        updates = steps * (1 if mode_ == "joint" else len(ds))
+        step = int(trainer.opt_state.step)
+        graphs = len(ds) * steps
+        row = {"case": case, "mode": mode_, "graphs": len(ds),
+               "buckets": sorted({gnn_train.bucket_for(e.feats.shape[0])
+                                  for e in ds}),
+               "steps": steps, "updates": updates, "opt_state_step": step,
+               "programs": len(trainer.programs),
+               "params_bit_equal": bit_equal, "params_max_abs_diff": max_diff,
+               "history_equal": hist == eager_hist,
+               "final_loss": hist[-1]["loss"],
+               "final_accuracy": hist[-1]["accuracy"], "eager_s": eager_s,
+               "eager_ms_per_step": eager_s / steps * 1e3,
+               "eager_graphs_per_s": graphs / eager_s}
+        for call, (wall, clock) in timed.items():
+            row.update({f"{call}_s": wall, f"{call}_ms_per_step":
+                        wall / steps * 1e3,
+                        f"{call}_graphs_per_s": graphs / wall,
+                        f"{call}_captures": clock["captures"],
+                        f"{call}_capture_s": clock["capture_s"]})
+        row["profile_replay"] = _profile_step(torch, trainer, ds)
+        row["profile_eager"] = _profile_step(torch, eager, ds)
+        emit("gnn_train_graphs", card=card, **row)
+        out[f"{case}/{mode_}"] = row
+        check(row["captured_captures"] == row["programs"],
+              f"{case}/{mode_}: {row['captured_captures']} captures for "
+              f"{row['programs']} programs")
+        check(row["second_captures"] == 0,
+              f"{case}/{mode_}: the second call on one key captured again")
+        check(step == updates, f"{case}/{mode_}: opt_state.step {step}, "
+              f"want {updates}")
+        check(bit_equal and row["history_equal"],
+              f"{case}/{mode_}: the captured run differs from the eager "
+              f"steps (params by {max_diff})")
+        check(math.isfinite(row["final_loss"]), f"{case}/{mode_}: loss")
+    emit("gnn_train_graphs_labels", labels_s=labels_s)
+    return out
+
+
+# a token flip between the card and the CPU is a near-tie when the CPU's
+# logits of the two tokens are closer than the fp32 kernels-vs-plain logits
+# tolerance of the serve phases
+TOKEN_FLIP_MARGIN = 2e-4
+EXAMPLE_ARGS = {
+    "quickstart": [], "geo_placement": [], "simulate_fleet": [],
+    "serve_fleet": [], "serve_batch": [],
+    "trace_run": ["--time-scale", "0.1", "--out",
+                  os.path.join(ROOT, "build", "examples", "trace.json")],
+    "train_e2e": ["--steps", "20", "--ckpt-dir",
+                  os.path.join(ROOT, "build", "examples", "e2e_ckpt")],
+}
+
+
+def _printed_tokens(lines):
+    """The serve_batch twin's generated tokens, from its "  request i: [...]"
+    lines, as a (B, gen) array."""
+    import numpy as np
+    return np.array([json.loads(l.split(": ", 1)[1]) for l in lines
+                     if l.startswith("  request ")], np.int64)
+
+
+def _flip_margins(torch, cfg, params, batch, want, got) -> list:
+    """For each row where two generations differ, the first step t where
+    they do and the CPU logits' margin there between the two tokens
+    (teacher-forced ``forward`` over the prompt and the common prefix)."""
+    from repro_torch.models import decoder_lm as dlm
+    out = []
+    for r in range(want.shape[0]):
+        diff = [t for t in range(want.shape[1]) if want[r, t] != got[r, t]]
+        if not diff:
+            continue
+        t = diff[0]
+        tokens = torch.cat([torch.as_tensor(batch["tokens"][r:r + 1]),
+                            torch.as_tensor(want[r:r + 1, :t])], dim=1)
+        with torch.no_grad():
+            logits = dlm.forward(params, cfg, tokens=tokens)[0][0, -1].float()
+        out.append({"row": r, "step": t, "cpu_token": int(want[r, t]),
+                    "card_token": int(got[r, t]),
+                    "margin": float(logits[want[r, t]] - logits[got[r, t]])})
+    return out
+
+
+def phase_examples(torch, device, K, FK, DK) -> dict:
+    """The seven example twins (``repro_torch.examples``), each through its
+    ``main`` in this process on the card, at the reference's defaults
+    except ``train_e2e --steps 20`` and ``trace_run --time-scale 0.1``
+    (their outputs under the git-ignored build/examples, removed after).
+    The evaluator's GNN cache is emptied first, so the fleet twins train
+    their own GNNs on the card, with the plain cfgs a user's run has.
+    Per twin: seconds, exit, the lines it printed, and the gcn_spmm /
+    flash / decode launches, zeroed before and read after. The serve_batch
+    twin runs again on the CPU from the card's weights (the plain
+    attention): its tokens are compared, and a flip is named with the CPU
+    logits' margin between the two tokens."""
+    import io
+
+    from repro_torch._tree import tree_map
+    from repro_torch.models import common as cc
+    from repro_torch.sim import evaluate as ev
+
+    names = ("quickstart", "geo_placement", "simulate_fleet", "serve_fleet",
+             "trace_run", "serve_batch", "train_e2e")
+    ev._GNN_CACHE.clear()
+    scratch = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    weights = {}
+    rows, failed = {}, []
+    for name in names:
+        twin = __import__(f"repro_torch.examples.{name}", fromlist=["main"])
+        if name == "serve_batch":
+            real = twin.get_api
+
+            def watched_api(cfg, real=real):
+                api = real(cfg)
+
+                def init(cfg, seed, device):
+                    weights["params"] = api.init_params(cfg, seed=seed,
+                                                        device=device)
+                    return weights["params"]
+                return dataclasses.replace(api, init_params=init)
+            twin.get_api = watched_api
+        saved = dict(cc.RUNTIME)
+        for k in (K, FK, DK):
+            k.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                twin.main(EXAMPLE_ARGS[name])
+            exit_ = "ok"
+        except Exception as e:      # recorded, and the phase fails below
+            exit_ = f"{type(e).__name__}: {e}"
+            failed.append(name)
+        finally:
+            seconds = time.perf_counter() - t0
+            cc.RUNTIME.clear()
+            cc.RUNTIME.update(saved)
+            if name == "serve_batch":
+                twin.get_api = real
+        lines = buf.getvalue().splitlines()
+        row = {"twin": name, "seconds": seconds, "exit": exit_,
+               "lines": len(lines),
+               "launches": {"scaled_spmm": K.LAUNCHES["scaled_spmm"],
+                            **dict(FK.LAUNCHES), **dict(DK.LAUNCHES)}}
+        if name in ("quickstart", "geo_placement"):
+            row["printed"] = lines
+        if name == "serve_batch" and exit_ == "ok":
+            cpu = tree_map(lambda t: t.cpu(), weights["params"])
+            twin.get_api = lambda cfg: dataclasses.replace(
+                real(cfg), init_params=lambda cfg, seed, device: cpu)
+            cpu_buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(cpu_buf):
+                    twin.main(["--device", "cpu"])
+            finally:
+                twin.get_api = real
+                cc.RUNTIME.clear()
+                cc.RUNTIME.update(saved)
+            from repro_torch.configs import get_config, reduce_for_smoke
+            from repro_torch.data.synthetic import SyntheticConfig, make_batch
+            cfg = dataclasses.replace(reduce_for_smoke(get_config("gemma3-1b")),
+                                      remat=False)
+            batch = make_batch(cfg, SyntheticConfig(global_batch=4, seq_len=32,
+                                                    seed=0), 0)
+            on_card = _printed_tokens(lines)
+            on_cpu = _printed_tokens(cpu_buf.getvalue().splitlines())
+            row.update(dtype=cfg.dtype, tokens=int(on_card.size),
+                       tokens_differ=int((on_card != on_cpu).sum()),
+                       flips=_flip_margins(torch, cfg, cpu, batch, on_cpu,
+                                           on_card))
+        if name == "trace_run":
+            row["trace_bytes"] = os.path.getsize(EXAMPLE_ARGS[name][-1])
+        if name == "train_e2e":
+            row["last_line"] = lines[-1] if lines else None
+        emit("examples", **row)
+        rows[name] = row
+    shutil.rmtree(scratch, ignore_errors=True)
+    check(not failed, f"example twins failed: "
+          f"{ {n: rows[n]['exit'] for n in failed} }")
+    for name in names:
+        check(rows[name]["launches"]["scaled_spmm"] == 0,
+              f"{name} launched gcn_spmm: its GNNs run the plain cfg")
+    served = rows["serve_batch"]["launches"]
+    check(served["flash_attention"] > 0 and served["decode_attention"] > 0,
+          f"serve_batch twin launches {served}")
+    for flip in rows["serve_batch"]["flips"]:
+        check(abs(flip["margin"]) < TOKEN_FLIP_MARGIN,
+              f"serve_batch: the card's token differs from the CPU's at a "
+              f"margin of {flip['margin']}, not a near-tie")
+    return rows
+
+
 def phase_gpu_pytest() -> None:
     """The card-only pytest files (no JAX: they run with --noconftest)."""
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
@@ -2953,7 +3293,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_encdec_vlm_gpu.py",
              "tests/test_torch_train_families_gpu.py",
              "tests/test_torch_kernel_dispatch_gpu.py",
-             "tests/test_torch_graphs_gpu.py"]
+             "tests/test_torch_graphs_gpu.py",
+             "tests/test_torch_gnn_train_graphs_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                            "-p", "no:cacheprovider", "-q", *files],
@@ -3073,6 +3414,11 @@ def main() -> None:
     phase_dryrun_1chip(card)
     phase_dryrun_production(dry, card)
     phase_mesh_1card(torch, device)
+    # 10c. the GNN trainer's captured programs against its eager steps, and
+    # the seven example twins as a user runs them, launches zeroed before
+    # and read after each twin
+    phase_gnn_train_graphs(torch, device, card)
+    l_examples = phase_examples(torch, device, K, FK, DK)
     # 11. the card-only pytest files
     phase_gpu_pytest()
     # 12. kernels summary. gcn_spmm: headline at bucket 1024, the largest
@@ -3103,7 +3449,10 @@ def main() -> None:
     for name in ("flash_attention", "decode_attention"):
         by_path = {"serve": launches[name], "serve_olmoe": l_olmoe[name],
                    **{f"serve {k}": n[name] for k, n in l_small.items()},
-                   **{k: n[name] for k, n in l_family.items()}}
+                   **{k: n[name] for k, n in l_family.items()},
+                   **{f"examples {k}": r["launches"][name]
+                      for k, r in l_examples.items()
+                      if r["launches"][name]}}
         if name == "flash_attention":
             by_path["train"] = train_launches[name]
         kernels.append({

@@ -16,11 +16,14 @@ accuracy on the running example).
   graph.
 * **Training** — same-bucket ``GraphExample``s are stacked into ``(G, n, ·)``
   tensors. ``joint`` (the default when every graph lands in one bucket)
-  takes one Adam step per epoch on the mean masked loss across graphs;
-  ``scan`` takes one Adam step per graph in stack order (a Python loop where
-  the reference runs ``lax.scan``); ``bucketed`` does the same bucket by
-  bucket for ragged datasets; ``sequential`` is the per-example loop on the
-  unpadded graphs. Metrics stay on the device until the run ends.
+  takes one Adam step per epoch on the vmapped mean masked loss across
+  graphs; ``scan`` takes one Adam step per graph in stack order; ``bucketed``
+  does the same bucket by bucket for ragged datasets; ``sequential`` is the
+  per-example loop on the unpadded graphs. The steps update the run's own
+  params and state in place (the reference donates them); on the card each
+  mode's step or epoch is a captured CUDA graph, cached per key as jit
+  caches the reference's scans. Metrics stay on the device until the run
+  ends.
 
 Label provenance and the feature-version shim:
 
@@ -48,7 +51,7 @@ from repro_torch.core import gnn
 from repro_torch.core import labels as labels_mod
 from repro_torch.core.graph import ClusterGraph, random_fleet, version_for_dim
 from repro_torch.kernels.gcn_spmm import kernel as spmm_kernel
-from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update_
 
 # Benchmark switch (the reference's benchmarks/plan_bench.py flips it):
 # turning ``bucketed_predict`` off restores the legacy eager per-subgraph
@@ -335,6 +338,13 @@ def predict(params, cfg: gnn.GNNConfig, graph: ClusterGraph, *,
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
+_STACK_KEYS = ("feats", "lat", "labels", "label_mask", "node_mask")
+_EXAMPLE_KEYS = ("feats", "lat", "labels", "label_mask")
+# (cfg, opt_cfg, mode, input shapes, device) -> _Trainer, the counterpart of
+# jit's cache on the static cfg / opt_cfg and the array shapes
+_TRAINERS: dict = {}
+
+
 def _stack_buckets(dataset: Sequence[GraphExample]) -> dict[int, dict]:
     """Group examples by node bucket (order-preserving within a bucket) and
     pad/stack each group into (G, b, ·) arrays. ``label_mask`` is 0 on padded
@@ -362,48 +372,209 @@ def _stack_buckets(dataset: Sequence[GraphExample]) -> dict[int, dict]:
     return stacks
 
 
-def _graph_step(params, opt_state, cfg, opt_cfg, ex: dict):
-    """Loss, grads and one Adam step on one graph; metrics stay tensors."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, metrics = gnn.loss_fn(live, cfg, ex["feats"], ex["lat"],
-                                ex["labels"], ex["label_mask"],
-                                node_mask=ex.get("node_mask"))
-    grads = _grads(loss, live)
-    params, opt_state, _ = adamw_update(opt_cfg, grads, opt_state, params)
-    return params, opt_state, metrics
-
-
 def _grads(loss: torch.Tensor, live):
     """d loss / d every leaf of ``live``, as a tree of the same shape."""
     gs = iter(torch.autograd.grad(loss, leaves(live)))
     return tree_map(lambda _: next(gs), live)
 
 
-def _epoch_graphs(params, opt_state, cfg, opt_cfg, examples):
-    """One Adam step per graph, in order (the reference's inner
-    ``lax.scan``). Returns per-graph loss / accuracy tensors."""
-    losses, accs = [], []
-    for ex in examples:
-        params, opt_state, m = _graph_step(params, opt_state, cfg, opt_cfg, ex)
-        losses.append(m["loss"].detach())
-        accs.append(m["accuracy"].detach())
-    return params, opt_state, torch.stack(losses), torch.stack(accs)
+def _graph_step_(live, params, opt_state, cfg, opt_cfg, ex: dict,
+                 out: torch.Tensor) -> None:
+    """One Adam step on one graph, in place (the reference's ``_train_step``
+    and ``_graph_scan_body``): ``adamw_update_`` writes the new params and
+    state into ``params`` and ``opt_state``, and the graph's loss and
+    accuracy go to ``out`` (2,). ``live`` are the params' leaves as autograd
+    leaves sharing their storage."""
+    loss, m = gnn.loss_fn(live, cfg, ex["feats"], ex["lat"], ex["labels"],
+                          ex["label_mask"], node_mask=ex.get("node_mask"))
+    adamw_update_(opt_cfg, _grads(loss, live), opt_state, params)
+    out[0].copy_(loss.detach())
+    out[1].copy_(m["accuracy"])
 
 
-def _joint_step(params, opt_state, cfg, opt_cfg, stack):
-    """Masked loss of every graph, one Adam step on their mean."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    losses, accs = [], []
+def _epoch_(live, params, opt_state, cfg, opt_cfg, stack: dict,
+            out: torch.Tensor) -> None:
+    """One Adam step per graph of the stack, in stack order (the
+    reference's inner ``lax.scan``); ``out`` (2, G) takes each graph's loss
+    and accuracy."""
     for g in range(stack["feats"].shape[0]):
-        loss, m = gnn.loss_fn(live, cfg, stack["feats"][g], stack["lat"][g],
-                              stack["labels"][g], stack["label_mask"][g],
-                              node_mask=stack["node_mask"][g])
-        losses.append(loss)
-        accs.append(m["accuracy"])
-    losses = torch.stack(losses)
-    grads = _grads(losses.mean(), live)
-    params, opt_state, _ = adamw_update(opt_cfg, grads, opt_state, params)
-    return params, opt_state, losses.detach(), torch.stack(accs)
+        _graph_step_(live, params, opt_state, cfg, opt_cfg,
+                     {k: v[g] for k, v in stack.items()}, out[:, g])
+
+
+def _joint_loss(params, cfg, stack: dict):
+    """The masked loss and accuracy of every graph of the stack, (G,) each:
+    ``gnn.loss_fn`` vmapped over the stack, the reference's ``_joint_loss``.
+    One batched forward (and backward) instead of G."""
+    def one(feats, lat, labels, label_mask, node_mask):
+        loss, m = gnn.loss_fn(params, cfg, feats, lat, labels, label_mask,
+                              node_mask=node_mask)
+        return loss, m["accuracy"]
+    return torch.func.vmap(one)(*(stack[k] for k in _STACK_KEYS))
+
+
+def _joint_step_(live, params, opt_state, cfg, opt_cfg, stack: dict,
+                 out: torch.Tensor) -> None:
+    """One Adam step on the mean masked loss of the stack, in place;
+    ``out`` (2, G) takes each graph's loss and accuracy."""
+    losses, accs = _joint_loss(live, cfg, stack)
+    adamw_update_(opt_cfg, _grads(losses.mean(), live), opt_state, params)
+    out[0].copy_(losses.detach())
+    out[1].copy_(accs)
+
+
+class _Program:
+    """One training program (a step or an epoch) that steps a trainer's
+    static tensors in place: ``fn()``. Without ``capture`` (the CPU) every
+    call runs it eagerly. With it, the first call runs ``fn`` eagerly on the
+    side stream, as that call's own work and the warm-up autograd needs,
+    then captures it into ``pool``, which runs nothing; every later call
+    replays the graph. A capture that fails raises."""
+
+    def __init__(self, fn, capture: bool):
+        self.fn = fn
+        self.capture = capture
+        self.graph = None
+
+    def __call__(self, dev: torch.device, pool) -> None:
+        if not self.capture:
+            self.fn()
+            return
+        if self.graph is not None:
+            self.graph.replay()
+            return
+        side = _device.side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self.fn()
+            # capture_begin, not torch.cuda.graph(): that one empties the
+            # allocator's cache first (see launch/serve.py::DecodeGraph)
+            graph.capture_begin(pool=pool)
+            try:
+                self.fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+
+
+def _resolve_mode(dataset: Sequence[GraphExample], mode: str):
+    """The mode "auto" resolves to, and the numpy stacks of the stacked
+    modes (None for "sequential")."""
+    if mode == "sequential":
+        return mode, None
+    stacks = list(_stack_buckets(dataset).values())
+    if mode == "auto":
+        # one Adam step per epoch on the mean masked loss; ragged datasets
+        # fall back to per-bucket stacking
+        mode = "joint" if len(stacks) == 1 else "bucketed"
+    if mode in ("joint", "scan") and len(stacks) != 1:
+        raise ValueError(f"{mode} mode needs all graphs in one node bucket;"
+                         " use mode='bucketed' for ragged datasets")
+    if mode not in ("joint", "scan", "bucketed"):
+        raise ValueError(f"unknown mode {mode!r}")
+    return mode, stacks
+
+
+class _Trainer:
+    """The static tensors of the ``train_gnn`` runs of one key and the
+    programs that step them, the counterpart of the reference's jitted,
+    donating scans: the params, ``live`` (their leaves as autograd leaves,
+    sharing their storage, made once), the AdamW state, the device stacks
+    (in the sequential mode one example buffer per node count instead) and
+    ``out``, the (2, G) losses and accuracies of the last step or epoch.
+
+    Programs: "joint" one step on the stack (``_joint_step_``), "scan" one
+    epoch over it (``_epoch_``), "bucketed" one epoch per bucket stack,
+    "sequential" one step per node count (``_graph_step_`` on the unpadded
+    example). With ``capture`` each is a CUDA graph, all of them in one
+    memory pool; ``load`` puts the next run's params, a fresh state and
+    its stacks into the static tensors, so that the graphs replay it."""
+
+    def __init__(self, cfg, opt_cfg, mode: str, params, dataset, stacks,
+                 dev: torch.device, capture: bool):
+        self.mode, self.dev = mode, dev
+        self.params = tree_map(lambda p: p.detach().to(dev, copy=True),
+                               params)
+        self.live = tree_map(lambda p: p.detach().requires_grad_(True),
+                             self.params)
+        self.opt_state = adamw_init(self.params)
+        self.pool = None
+        # copies: the static tensors are written by later calls, and on the
+        # CPU a plain .to() would share the caller's numpy memory
+        t = lambda a: torch.from_numpy(a).to(dev, copy=True)
+        state = (self.live, self.params, self.opt_state, cfg, opt_cfg)
+        if mode == "sequential":
+            self.stacks = []
+            self.examples = {}
+            for ex in dataset:   # each step copies its example in
+                self.examples.setdefault(ex.feats.shape[0], {
+                    k: t(a) for k, a in zip(
+                        _EXAMPLE_KEYS, (ex.feats, ex.lat, ex.labels, ex.mask))})
+            self.out = torch.zeros(2, device=dev)
+            self.programs = {
+                n: _Program(lambda ex=ex: _graph_step_(*state, ex, self.out),
+                            capture) for n, ex in self.examples.items()}
+            return
+        self.stacks = [{k: t(s[k]) for k in _STACK_KEYS} for s in stacks]
+        self.out = torch.zeros(
+            (2, sum(s["feats"].shape[0] for s in stacks)), device=dev)
+        body = _joint_step_ if mode == "joint" else _epoch_
+        self.programs, col = [], 0
+        for s in self.stacks:
+            g = s["feats"].shape[0]
+            out = self.out[:, col:col + g]
+            self.programs.append(_Program(
+                lambda s=s, out=out: body(*state, s, out), capture))
+            col += g
+
+    def load(self, params, stacks) -> None:
+        """The next run's params, a fresh AdamW state and (stacked modes)
+        stacks into the static tensors, with one ``_foreach_copy_``."""
+        params = tree_map(lambda p: p.detach().to(self.dev), params)
+        fresh = adamw_init(params)
+        st = self.opt_state
+        dst = (_keyed_leaves(self.params) + _keyed_leaves(st.mu)
+               + _keyed_leaves(st.nu) + [st.step]
+               + [s[k] for s in self.stacks for k in _STACK_KEYS])
+        src = (_keyed_leaves(params) + _keyed_leaves(fresh.mu)
+               + _keyed_leaves(fresh.nu) + [fresh.step]
+               + [torch.from_numpy(s[k]).to(self.dev)
+                  for s in stacks or () for k in _STACK_KEYS])
+        torch._foreach_copy_(dst, src)
+
+    def _call(self, program: _Program) -> None:
+        program(self.dev, self.pool)
+        if self.pool is None and program.graph is not None:
+            self.pool = program.graph.pool()
+
+    def run(self, steps: int, dataset) -> list[dict]:
+        """``steps`` epochs; the history as the reference reports it."""
+        if self.mode == "sequential":
+            # a host sync per step, as the reference's float(m["loss"])
+            history = []
+            for step in range(steps):
+                losses, accs = [], []
+                for ex in dataset:
+                    buf = self.examples[ex.feats.shape[0]]
+                    for k, a in zip(_EXAMPLE_KEYS,
+                                    (ex.feats, ex.lat, ex.labels, ex.mask)):
+                        buf[k].copy_(torch.from_numpy(a))
+                    self._call(self.programs[ex.feats.shape[0]])
+                    loss, acc = self.out.tolist()
+                    losses.append(loss)
+                    accs.append(acc)
+                history.append({"step": step, "loss": float(np.mean(losses)),
+                                "accuracy": float(np.mean(accs))})
+            return history
+        # (steps, 2, G) on the device, read once at the end
+        hist = torch.empty((steps,) + tuple(self.out.shape), device=self.dev)
+        for step in range(steps):
+            for program in self.programs:
+                self._call(program)
+            hist[step].copy_(self.out)
+        return _history_from(hist[:, 0], hist[:, 1])
 
 
 def _history_from(loss: torch.Tensor, acc: torch.Tensor) -> list[dict]:
@@ -411,6 +582,17 @@ def _history_from(loss: torch.Tensor, acc: torch.Tensor) -> list[dict]:
     acc = acc.cpu().numpy()
     return [{"step": s, "loss": float(loss[s].mean()),
              "accuracy": float(acc[s].mean())} for s in range(loss.shape[0])]
+
+
+def _opt_config(lr: float) -> AdamWConfig:
+    return AdamWConfig(learning_rate=lr, weight_decay=0.0, b2=0.999,
+                       grad_clip_norm=0.0)
+
+
+def _key(cfg, opt_cfg, mode: str, dataset, stacks, dev) -> tuple:
+    shapes = (tuple(ex.feats.shape for ex in dataset) if stacks is None
+              else tuple(s["feats"].shape for s in stacks))
+    return cfg, opt_cfg, mode, shapes, dev
 
 
 def train_gnn(cfg: gnn.GNNConfig, dataset: Sequence[GraphExample],
@@ -425,55 +607,38 @@ def train_gnn(cfg: gnn.GNNConfig, dataset: Sequence[GraphExample],
     setting (10 steps, lr 0.01).
 
     ``mode``: "joint" (the default via "auto" when every graph lands in one
-    node bucket) takes one Adam step per epoch on the mean masked loss
-    across graphs, so it sees one update per epoch where the per-graph modes
-    see one per graph. "scan" takes per-graph Adam steps over the stacked,
-    padded graphs — the trajectory of "sequential" (the per-example loop on
-    unpadded graphs) within float tolerance. Ragged datasets fall back to
-    per-bucket stacks ("bucketed", processed bucket by bucket each epoch).
-    """
+    node bucket) takes one Adam step per epoch on the vmapped mean masked
+    loss across graphs, so it sees one update per epoch where the per-graph
+    modes see one per graph. "scan" takes per-graph Adam steps over the
+    stacked, padded graphs — the trajectory of "sequential" (the
+    per-example loop on unpadded graphs, with a host sync per step) within
+    float tolerance. Ragged datasets fall back to per-bucket stacks
+    ("bucketed", processed bucket by bucket each epoch).
+
+    The steps update the run's own copy of the params and state in place
+    (the reference donates them). On the card each program of the mode (the
+    joint step, an epoch, a bucket's epoch, a sequential step per node
+    count) is a CUDA graph: its first call runs eagerly and captures it, and
+    the rest replay. The graphs and their static tensors are cached per
+    ``(cfg, opt_cfg, mode, input shapes, device)``, as jit caches its
+    programs: a later call with the same key copies its params, a fresh
+    state and its stacks in and replays without capturing. Losses and
+    accuracies stay on the device until the run ends (the sequential mode
+    reads each step's). On the CPU the same steps run eagerly."""
     dev = _device.resolve(device)
-    d_in = dataset[0].feats.shape[1]
+    mode, stacks = _resolve_mode(dataset, mode)
     if params is None:
-        params = gnn.init(cfg, d_in, seed=seed, device=dev)
+        params = gnn.init(cfg, dataset[0].feats.shape[1], seed=seed,
+                          device=dev)
+    opt_cfg = _opt_config(lr)
+    key = _key(cfg, opt_cfg, mode, dataset, stacks, dev)
+    trainer = _TRAINERS.get(key)
+    if trainer is None:
+        trainer = _TRAINERS[key] = _Trainer(cfg, opt_cfg, mode, params,
+                                            dataset, stacks, dev,
+                                            capture=dev.type == "cuda")
     else:
-        params = tree_map(lambda p: p.detach().to(dev, copy=True), params)
-    opt_cfg = AdamWConfig(learning_rate=lr, weight_decay=0.0, b2=0.999,
-                          grad_clip_norm=0.0)
-    opt_state = adamw_init(params)
-
-    t = lambda a: torch.from_numpy(a).to(dev)
-    if mode == "sequential":
-        # the per-graph loop on the unpadded graphs: the readable reference
-        # the stacked modes are compared with
-        groups = [[{"feats": t(ex.feats), "lat": t(ex.lat),
-                    "labels": t(ex.labels), "label_mask": t(ex.mask)}
-                   for ex in dataset]]
-    else:
-        stacks = [{k: t(v) for k, v in s.items()}
-                  for s in _stack_buckets(dataset).values()]
-        if mode == "auto":
-            # one Adam step per epoch on the mean masked loss; ragged
-            # datasets fall back to per-bucket stacking
-            mode = "joint" if len(stacks) == 1 else "bucketed"
-        if mode in ("joint", "scan") and len(stacks) != 1:
-            raise ValueError(f"{mode} mode needs all graphs in one node bucket;"
-                             " use mode='bucketed' for ragged datasets")
-        if mode not in ("joint", "scan", "bucketed"):
-            raise ValueError(f"unknown mode {mode!r}")
-        groups = stacks if mode == "joint" else [
-            [{k: v[g] for k, v in s.items()} for g in range(s["feats"].shape[0])]
-            for s in stacks]
-
-    step_fn = _joint_step if mode == "joint" else _epoch_graphs
-    losses, accs = [], []
-    for _ in range(steps):
-        ls, acs = [], []
-        for group in groups:
-            params, opt_state, l, a = step_fn(params, opt_state, cfg, opt_cfg,
-                                              group)
-            ls.append(l)
-            acs.append(a)
-        losses.append(torch.cat(ls))
-        accs.append(torch.cat(acs))
-    return params, _history_from(torch.stack(losses), torch.stack(accs))
+        trainer.load(params, stacks)
+    history = trainer.run(steps, dataset)
+    # the static params belong to the cached graphs: hand out a copy
+    return tree_map(lambda p: p.detach().clone(), trainer.params), history

@@ -1,4 +1,5 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback."""
+import importlib
 import os
 import subprocess
 import sys
@@ -70,7 +71,8 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.sim.scenarios", "repro_torch.sim.evaluate",
               "repro_torch.serve", "repro_torch.serve.traffic",
               "repro_torch.serve.costs", "repro_torch.serve.autoscale",
-              *SLICE_MODULES, *MODEL_MODULES, *TOOLS_MODULES):
+              *SLICE_MODULES, *MODEL_MODULES, *TOOLS_MODULES,
+              *EXAMPLE_MODULES):
         assert m in mods, m
 
 
@@ -112,6 +114,14 @@ GRAPH_MODULES = (
     "repro_torch.training.train_step", "repro_torch.launch.train",
     "repro_torch.kernels.gcn_spmm.kernel",
     "repro_torch.kernels.flash_attention.kernel",
+)
+
+# The reference's examples as the port's twins.
+EXAMPLE_MODULES = (
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.geo_placement", "repro_torch.examples.simulate_fleet",
+    "repro_torch.examples.serve_fleet", "repro_torch.examples.trace_run",
+    "repro_torch.examples.serve_batch", "repro_torch.examples.train_e2e",
 )
 
 _IMPORT_ONE = """
@@ -156,6 +166,49 @@ def test_graph_module_imports_alone_without_jax_or_repro(module):
                           env=dict(os.environ, PYTHONPATH=SRC),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", EXAMPLE_MODULES)
+def test_example_module_imports_alone_without_jax_or_repro(module):
+    """Importing a twin parses no arguments and touches no device."""
+    code = _IMPORT_ONE + (
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code, module],
+                          env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+# Four twins run on the CPU as a user runs them, their lazy imports
+# included, with neither JAX nor the reference package loaded.
+_DRIVE_EXAMPLES = """
+import os, sys, tempfile
+import torch
+torch.set_num_threads(1)
+from repro_torch.examples import quickstart, serve_batch, trace_run, train_e2e
+tmp = tempfile.mkdtemp()
+quickstart.main(["--device", "cpu"])
+serve_batch.main(["--device", "cpu"])
+trace_run.main(["--device", "cpu", "--time-scale", "0.05",
+                "--out", os.path.join(tmp, "t.trace.json")])
+train_e2e.main(["--device", "cpu", "--steps", "10",
+                "--ckpt-dir", os.path.join(tmp, "ckpt")])
+bad = [m for m in sys.modules
+       if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+assert not bad, bad
+"""
+
+
+def test_examples_run_on_cpu_without_jax_or_repro():
+    proc = subprocess.run([sys.executable, "-c", _DRIVE_EXAMPLES],
+                          env=dict(os.environ, PYTHONPATH=SRC,
+                                   OMP_NUM_THREADS="1"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "improvement vs best baseline" in proc.stdout
+    assert proc.stdout.count("  request ") == 4
+    assert "across a restart (improved)" in proc.stdout
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -265,6 +318,11 @@ ENTRY_POINTS = {
     # a mesh as a user makes one: NCCL on the card unless asked for gloo
     "make_mesh_for": lambda *_: tmesh.make_mesh_for(1),
     "device_mesh": lambda *_: tmesh.device_mesh((1, 1), ("data", "model")),
+    # the examples' twins as a user runs them, without --device
+    **{f"examples.{name}": (lambda name: lambda *_: importlib.import_module(
+        f"repro_torch.examples.{name}").main([]))(name)
+       for name in ("quickstart", "geo_placement", "simulate_fleet",
+                    "serve_fleet", "trace_run", "serve_batch", "train_e2e")},
 }
 
 
