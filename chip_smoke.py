@@ -2660,7 +2660,8 @@ def phase_train(torch, device, FK, card) -> dict:
     loop_s = time.perf_counter() - t0
     launches = dict(FK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    HELD["train " + cfg.name] = {"peak_mem_bytes": peak, "batch": b, "seq": s}
+    HELD["train " + cfg.name] = {"peak_mem_bytes": peak, "batch": b, "seq": s,
+                                 "history": straight, "launches": launches}
     n_layers = cfg.n_layers
     check(launches == {"flash_attention": 2 * n_layers * steps,
                        "flash_attention_bwd": n_layers * steps},
@@ -2742,6 +2743,124 @@ def phase_train(torch, device, FK, card) -> dict:
     emit("train_profile", card=card, step="eager", **prof)
     emit("train_profile", card=card, step="graphed", **prof_graph)
     check(resume_ok, f"resumed losses differ from the straight run's: {loss_err}")
+    return launches
+
+
+def phase_train_mesh_1card(torch, device, FK, card) -> dict:
+    """``phase_train``'s run on a device mesh: gemma3-1b at full width
+    (bf16, remat, ``ce_chunk`` 512, the flash kernels), B 4 x 1024, the
+    same seed and data, through ``train_loop(mesh=make_mesh_for(1))``: NCCL
+    with world size 1, mesh ``(data 1, model 1)``, the state ``DTensor``s
+    placed by ``train_state_specs`` (on one rank every leaf is whole), the
+    first step eager over ``DTensor``s and the rest replays of the captured
+    step. 6 straight steps with a checkpoint every 3 under
+    build/train_mesh_ckpt; then, with step 6's removed, a mesh loop that
+    resumes from step 3. Checks: NCCL; the flash launches per step are
+    ``phase_train``'s (2 x 26 forward with remat, 26 backward), run on the
+    ranks' local shards; every loss within rtol 1e-5 of ``phase_train``'s
+    plain loop (the report says whether they are equal bit for bit); the
+    resumed losses within rtol 1e-5 / atol 1e-6 of the straight run's; the
+    state stays ``DTensor``s. Reports the warm median step (graphed), the
+    eager first step, the peak device memory and the leaves whose spec
+    splits them (none is split on one rank). The process group is
+    destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel.sharding import ShardingRules, param_specs
+
+    cfg = get_config(TRAIN["arch"])
+    b, s, steps, every = (TRAIN[k] for k in ("batch", "seq", "steps", "ckpt_every"))
+    plain = HELD["train " + cfg.name]
+    ckpt = os.path.join(ROOT, "build", "train_mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(global_batch=b, seq_len=s, ckpt_dir=ckpt, ckpt_every=every,
+              keep_k=2, lr=TRAIN["lr"], seed=TRAIN["seed"], log_every=1,
+              log=lambda *_: None, schedule_steps=steps, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    mesh = make_mesh_for(1)
+    try:
+        backend = dist.get_backend()
+        t0 = time.perf_counter()
+        state, straight = launch_train.train_loop(cfg, steps, mesh=mesh, **kw)
+        loop_s = time.perf_counter() - t0
+        launches = dict(FK.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        state_leaves = leaves(state)
+        all_dtensor = all(isinstance(t, DTensor) for t in state_leaves)
+        specs = []            # a spec is a tuple: collect them, do not enter
+        tree_map(lambda _, sp: specs.append(sp), state.params,
+                 param_specs(ShardingRules(mesh=mesh, fsdp=False),
+                             state.params))
+        spec_split = sum(any(e is not None for e in sp) for sp in specs)
+        shard_placed = sum(any(p.is_shard() for p in t.placements)
+                           for t in state_leaves)
+        committed = CheckpointManager(ckpt).committed_steps()
+        del state, state_leaves
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(ckpt, f"step_{steps:08d}"))
+        logs = []
+        state, resumed = launch_train.train_loop(
+            cfg, steps, mesh=mesh, **{**kw, "log": logs.append})
+        del state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    plain_loss = {h["step"]: h["loss"] for h in plain["history"]}
+    losses = [h["loss"] for h in straight]
+    loss_rel = [abs(h["loss"] - plain_loss[h["step"]]) / abs(plain_loss[h["step"]])
+                for h in straight]
+    bitwise = all(h["loss"] == plain_loss[h["step"]] for h in straight)
+    by_step = {h["step"]: h for h in straight}
+    resume_err = [abs(h["loss"] - by_step[h["step"]]["loss"]) for h in resumed]
+    resume_ok = all(abs(h["loss"] - by_step[h["step"]]["loss"])
+                    <= 1e-6 + 1e-5 * abs(by_step[h["step"]]["loss"])
+                    for h in resumed)
+    step_ms = [h["step_s"] * 1e3 for h in straight]
+    warm_ms = statistics.median(step_ms[1:])
+    n_layers = cfg.n_layers
+    emit("train_mesh_1card", arch=TRAIN["arch"], backend=backend,
+         mesh=list(mesh.mesh.shape), card=card, dtype=cfg.dtype,
+         batch=b, seq=s, steps=steps, graphed=True,
+         first_step_ms=step_ms[0], step_ms=step_ms,
+         step_ms_median_warm=warm_ms,
+         plain_step_ms_median_warm=statistics.median(
+             [h["step_s"] * 1e3 for h in plain["history"]][1:]),
+         tokens_per_s=b * s / (warm_ms / 1e3), peak_mem_bytes=peak,
+         plain_peak_mem_bytes=plain["peak_mem_bytes"], loop_s=loop_s,
+         losses=losses, plain_losses=[plain_loss[h["step"]] for h in straight],
+         loss_rel_err=loss_rel, losses_bit_for_bit=bitwise,
+         resumed_losses=[h["loss"] for h in resumed],
+         resumed_loss_abs_err=resume_err, state_leaves_dtensor=all_dtensor,
+         param_leaves_split_by_spec=spec_split,
+         state_leaves_placed_as_shards=shard_placed,
+         committed_steps=committed, launches=launches,
+         launches_per_step={k: n / steps for k, n in launches.items()})
+    check(backend == "nccl", f"the one-card mesh trains over {backend}, not NCCL")
+    check(all_dtensor, "the mesh loop's state is not DTensors")
+    check(launches == {"flash_attention": 2 * n_layers * steps,
+                       "flash_attention_bwd": n_layers * steps},
+          f"mesh train launches {launches}, want {2 * n_layers * steps} "
+          f"forward and {n_layers * steps} backward")
+    check(committed == [every, steps],
+          f"the mesh run committed steps {committed}, not {[every, steps]}")
+    check(len(straight) == steps and max(loss_rel) <= 1e-5,
+          f"mesh losses differ from the plain loop's: {loss_rel}")
+    check(f"resumed from step {every}" in logs
+          and [h["step"] for h in resumed] == list(range(every, steps)),
+          f"the mesh loop did not resume from step {every}: {logs}")
+    check(resume_ok, f"resumed mesh losses differ from the straight run's: "
+          f"{resume_err}")
     return launches
 
 
@@ -3283,8 +3402,18 @@ def phase_examples(torch, device, K, FK, DK) -> dict:
     return rows
 
 
+MULTI_CARD_TESTS = {
+    # test -> the cards it needs: left out (and named) on a machine with fewer
+    "tests/test_torch_train_mesh_gpu.py::"
+    "test_two_nccl_ranks_match_the_plain_card_loop": 2,
+}
+
+
 def phase_gpu_pytest() -> None:
-    """The card-only pytest files (no JAX: they run with --noconftest)."""
+    """The card-only pytest files (no JAX: they run with --noconftest). A
+    test of several NCCL ranks (``MULTI_CARD_TESTS``) is deselected on a
+    machine with fewer cards than it needs, and the line names it."""
+    import torch
     files = ["tests/test_torch_gcn_spmm_gpu.py", "tests/test_torch_attention_gpu.py",
              "tests/test_torch_serve_gpu.py", "tests/test_torch_flash_backward_gpu.py",
              "tests/test_torch_sim_eval_gpu.py",
@@ -3294,14 +3423,19 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_train_families_gpu.py",
              "tests/test_torch_kernel_dispatch_gpu.py",
              "tests/test_torch_graphs_gpu.py",
-             "tests/test_torch_gnn_train_graphs_gpu.py"]
+             "tests/test_torch_gnn_train_graphs_gpu.py",
+             "tests/test_torch_train_mesh_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cards = torch.cuda.device_count()
+    left_out = [t for t, n in MULTI_CARD_TESTS.items() if cards < n]
     proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
-                           "-p", "no:cacheprovider", "-q", *files],
+                           "-p", "no:cacheprovider", "-q", *files,
+                           *(a for t in left_out for a in ("--deselect", t))],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] if proc.stdout else []
-    emit("gpu_pytest", files=files, rc=proc.returncode, summary=tail)
+    emit("gpu_pytest", files=files, rc=proc.returncode, summary=tail,
+         cards=cards, deselected_for_cards=left_out)
     check(proc.returncode == 0 and "skipped" not in " ".join(tail),
           f"card-only pytest failed or skipped:\n{proc.stdout[-3000:]}"
           f"{proc.stderr[-2000:]}")
@@ -3407,6 +3541,9 @@ def main() -> None:
     bwd_times = phase_flash_bwd_times(torch, FK, FR, card)
     # 10. the training main path, counts zeroed before and read after
     train_launches = phase_train(torch, device, FK, card)
+    # 10a. the same training on a one-card NCCL device mesh, counts zeroed
+    # before and read after
+    mesh_launches = phase_train_mesh_1card(torch, device, FK, card)
     # 10b. the cost and layout tools: the pricer and the one-card dry-run
     # held to what the serve and train phases held on the card, the
     # production dry-run (host only), the one-card NCCL mesh
@@ -3455,6 +3592,7 @@ def main() -> None:
                       if r["launches"][name]}}
         if name == "flash_attention":
             by_path["train"] = train_launches[name]
+            by_path["train_mesh_1card"] = mesh_launches[name]
         kernels.append({
             "name": f"{name}.{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -3471,7 +3609,12 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": BWD_REPLACES, "replaces_note": "the gradient of that "
         "kernel's function (the reference differentiates its plain oracle)",
-        "launches": train_launches["flash_attention_bwd"], "on_main_path": True,
+        "launches": train_launches["flash_attention_bwd"]
+        + mesh_launches["flash_attention_bwd"],
+        "launches_by_path": {
+            "train": train_launches["flash_attention_bwd"],
+            "train_mesh_1card": mesh_launches["flash_attention_bwd"]},
+        "on_main_path": True,
         "max_abs_err": bwd_errs["float32"], "max_abs_err_bf16": bwd_errs["bfloat16"],
         **{k: bwd_times["global"][k] for k in keys}, "by_case": bwd_times})
     # 13. import check

@@ -44,3 +44,9 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     tensor comes back as float32, which holds every bf16 value exactly."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

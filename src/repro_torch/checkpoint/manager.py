@@ -18,6 +18,14 @@ Fault tolerance, as in the reference: ``save`` writes
 ``step_<N>.tmp-<pid>``, ``os.replace``s it into place, and only then writes
 COMMIT; after a successful save only the newest ``keep_k`` committed steps
 are kept; ``restore_latest`` returns the newest committed step.
+
+A state placed on a device mesh (``DTensor`` leaves) keeps the reference's
+single-host layout (``shard_0``, leaves gathered whole as its
+``device_get`` does): ``save`` gathers each leaf on every rank, rank 0
+writes, and no rank goes on before the checkpoint is committed;
+``restore`` reads the whole arrays and places each as the ``like`` tree's
+leaf is placed. So a checkpoint saved on one mesh restores on another, or
+as plain tensors, and a plain one on a mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch._tree import is_dtensor
 
 PyTree = Any
 
@@ -82,11 +92,33 @@ def _encode(leaf) -> np.ndarray:
 
 
 def _decode(raw: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """Bytes -> a tensor of ``like``'s dtype, shape and device."""
+    """Bytes -> a tensor of ``like``'s dtype, shape and device (a
+    ``DTensor`` placed as ``like``)."""
     wide = torch.int16 if like.dtype == torch.bfloat16 else like.dtype
     t = torch.from_numpy(np.ascontiguousarray(raw).view(
         torch.empty(0, dtype=wide).numpy().dtype).copy())
-    return t.view(like.dtype).reshape(like.shape).to(like.device)
+    t = t.view(like.dtype).reshape(like.shape).to(like.device)
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, like.device_mesh, like.placements)
+    return t
+
+
+def _gathered(tree: PyTree) -> tuple[PyTree, bool]:
+    """``tree`` with every ``DTensor`` leaf gathered whole (a collective:
+    every rank calls it), and whether any leaf was one."""
+    leaves, _ = _flatten_with_names(tree)
+    if not any(is_dtensor(l) for l in leaves):
+        return tree, False
+    return _unflatten(tree, iter(
+        l.full_tensor() if is_dtensor(l) else l for l in leaves)), True
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a
+    process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_pytree(path: str, tree: PyTree, shard_id: int = 0) -> None:
@@ -116,7 +148,20 @@ class CheckpointManager:
 
     # -- write --------------------------------------------------------------
     def save(self, step: int, tree: PyTree, extra: Optional[dict] = None):
+        """Write ``tree`` as step ``step``. A tree of ``DTensor``s is
+        gathered on every rank, written by rank 0, and every rank returns
+        once it is committed."""
         final = os.path.join(self.dir, f"step_{step:08d}")
+        tree, placed = _gathered(tree)
+        if not placed or _writer():
+            self._write(step, final, tree, extra)
+        if placed:
+            import torch.distributed as dist
+            dist.barrier()
+        return final
+
+    def _write(self, step: int, final: str, tree: PyTree,
+               extra: Optional[dict]) -> None:
         tmp = final + f".tmp-{os.getpid()}"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -130,7 +175,6 @@ class CheckpointManager:
         with open(os.path.join(final, "COMMIT"), "w") as f:
             f.write("ok")
         self._prune()
-        return final
 
     def _prune(self):
         steps = self.committed_steps()

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._tree import is_dtensor
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -48,9 +49,69 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _local_heads(q, k, v, fn):
+    """``fn(q, k, v)`` on each rank's shard of ``DTensor`` q, k, v: the
+    batch (dim 0) as ``q`` splits it, the heads (dim 2) as ``q`` splits
+    them, every other dim whole. The result is ``q``'s placements.
+
+    KV heads follow the query heads' split when that split divides them
+    too: a rank's query heads then use exactly its KV heads, the group
+    ``H / KV`` unchanged. Otherwise the KV heads stay whole on each rank
+    and the rank takes the ones its query heads use: query head ``h`` reads
+    KV head ``h // (H / KV)``, by a slice where the rank's heads form equal
+    groups and an index otherwise (one KV head per query head). The local
+    group ``H_local / KV_local`` of unsplit KV heads would pair them
+    wrongly. The KV gradient of such a rank covers its heads only, so it
+    leaves as a pending sum over the head-splitting mesh dims.
+
+    Every decision here reads shapes and placements alone, which all ranks
+    share, so every rank makes the same redistributions."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    sizes, coord = mesh.mesh.shape, mesh.get_coordinate()
+    qp = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in q.placements)
+    head_dims = [i for i, p in enumerate(qp) if p == Shard(2)]
+    n_split = 1
+    for i in head_dims:
+        n_split *= sizes[i]
+    h, kvh = q.shape[2], k.shape[2]
+    follow = kvh % n_split == 0
+    kp = tuple(p if p == Shard(0) or follow else Replicate() for p in qp)
+    grad_kp = tuple(Partial() if p == Shard(2) and not follow else kp[i]
+                    for i, p in enumerate(qp))
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kp) for t in (k, v))
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=grad_kp) for t in (k, v))
+    if not follow:
+        # the rank's block of query heads, major to minor over mesh dims
+        block = 0
+        for i in head_dims:
+            block = block * sizes[i] + coord[i]
+        h_loc = h // n_split
+        h0, g = block * h_loc, h // kvh
+        use = [(h0 + j) // g for j in range(h_loc)]
+        n_kv = use[-1] - use[0] + 1
+        if h_loc % n_kv == 0 and all(
+                u - use[0] == j // (h_loc // n_kv) for j, u in enumerate(use)):
+            kl, vl = (t[:, :, use[0]:use[0] + n_kv] for t in (kl, vl))
+        else:
+            idx = (h0 + torch.arange(h_loc, device=kl.device)) // g
+            kl, vl = (t.index_select(2, idx) for t in (kl, vl))
+    out = fn(ql, kl.contiguous(), vl.contiguous())
+    return DTensor.from_local(out, mesh, qp, run_check=False, shape=q.shape,
+                              stride=q.stride())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
-    """Model layout: q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D)."""
+    """Model layout: q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D).
+    ``DTensor`` inputs (a model trained on a device mesh) run per rank on
+    local shards (``_local_heads``): the kernels take plain tensors."""
+    if is_dtensor(q):
+        return _local_heads(q, k, v, lambda a, b, c: flash_attention(
+            a, b, c, causal=causal, window=window))
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

@@ -5,12 +5,16 @@ The reference's production meshes are TPU pods (16 x 16 and 2 x 16 x 16
 chips), which the port cannot make: ``make_production_mesh`` gives their
 shape alone (``MeshShape``, the counterpart of JAX's ``AbstractMesh``), for
 the sharding rules and the dry-run. ``make_mesh_for`` gives a real
-``DeviceMesh`` over the ranks of a ``torch.distributed`` process group.
+``DeviceMesh`` over the ranks of a ``torch.distributed`` process group,
+which ``init_process_group`` starts from the caller's size, rank and port
+or from the environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``; the card by ``LOCAL_RANK``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import socket
 
 import torch
@@ -46,14 +50,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_process_group(backend: str, world_size: int = 1, rank: int = 0,
+def launched_world() -> int:
+    """The world size ``torchrun`` gave this process (1 without one)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def init_process_group(backend: str, world_size: int | None = None,
+                       rank: int | None = None,
                        port: int | None = None) -> None:
-    """Join (or, with world size 1, start) the default process group at
-    ``tcp://localhost:<port>``; nothing tells a program of a cluster, so the
-    caller gives the size and its rank. A free port when none is given
-    (world size 1 only: other ranks must be told the same port)."""
+    """Join (or, with world size 1, start) the default process group. With
+    a world size given, at ``tcp://localhost:<port>``: the caller gives the
+    size, its rank and the port (a free one when none is given: world size
+    1 only, other ranks must be told the same port). Without one, under
+    ``torchrun`` (``WORLD_SIZE`` set), the group ``torchrun``'s environment
+    describes (``env://``), with NCCL on the card ``LOCAL_RANK`` names
+    (made the current one); else a group of this process alone."""
     if dist.is_initialized():
         return
+    if world_size is None and "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(backend, init_method="env://")
+        return
+    world_size = 1 if world_size is None else world_size
+    rank = 0 if rank is None else rank
     if port is None:
         if world_size != 1:
             raise ValueError("a process group of several ranks needs the "
@@ -85,6 +105,7 @@ def device_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...],
 def make_mesh_for(devices_needed: int, device=None):
     """Best-effort mesh from the ranks actually available (one rank per
     device): (data=N, model=1), N = min(devices_needed, world size)."""
-    available = dist.get_world_size() if dist.is_initialized() else 1
+    available = dist.get_world_size() if dist.is_initialized() \
+        else launched_world()
     n = min(devices_needed, available)
     return device_mesh((n, 1), ("data", "model"), device)

@@ -26,7 +26,7 @@ from repro_torch.models import decoder_lm as dlm
 from repro_torch.models.common import DTYPES
 from repro_torch.models.registry import get_api
 from repro_torch.parallel.sharding import (P, ShardingRules, _fit_axes,
-                                           param_specs)
+                                           distribute, param_specs)
 from repro_torch.training.optimizer import AdamState, AdamWConfig
 from repro_torch.training.train_step import TrainState, init_train_state
 
@@ -68,6 +68,19 @@ def train_state_specs(rules: ShardingRules, state_struct: TrainState) -> TrainSt
     mspecs_nu = param_specs(rules, state_struct.opt.nu)
     return TrainState(params=pspecs,
                       opt=AdamState(step=P(), mu=mspecs_mu, nu=mspecs_nu))
+
+
+def distribute_state(rules: ShardingRules, state: TrainState) -> TrainState:
+    """``state`` (whole on every rank) as ``DTensor``s on ``rules.mesh``
+    placed by ``train_state_specs``: params and moments by the param
+    rules, the step counter replicated (``P()``)."""
+    specs = train_state_specs(rules, state)
+    return TrainState(
+        params=distribute(rules.mesh, state.params, specs.params),
+        opt=AdamState(step=distribute(rules.mesh, state.opt.step,
+                                      specs.opt.step),
+                      mu=distribute(rules.mesh, state.opt.mu, specs.opt.mu),
+                      nu=distribute(rules.mesh, state.opt.nu, specs.opt.nu)))
 
 
 def batch_partition_specs(rules: ShardingRules, batch: dict) -> dict:

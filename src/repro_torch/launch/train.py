@@ -15,7 +15,19 @@ runs eagerly, and sequences longer than 512 run the chunked plain forms
 256), as the reference does off its accelerator.
 Fault tolerance as in the reference: atomic keep-k checkpoints and
 auto-resume from the newest committed step; the data is a pure function of
-the step, so a resumed run replays the same batches. One card, no sharding.
+the step, so a resumed run replays the same batches.
+
+On a device mesh (``train_loop(mesh=)``, or ``torchrun`` with more than one
+rank) the state is ``DTensor``s placed by ``launch.specs.train_state_specs``
+(ZeRO-3 FSDP over ``data``, tensor parallelism over ``model``), as the
+reference's ``jax.jit(..., in_shardings=, out_shardings=)``:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch gemma3-1b \
+      --smoke --steps 20 --global-batch 4 --seq-len 64
+
+trains on the reference's default mesh ``(world, 1)``, one card per rank
+(``LOCAL_RANK``) over NCCL, or with ``--device cpu`` one process per rank
+over gloo. Only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -24,14 +36,17 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
+from repro_torch.parallel.sharding import ShardingRules, activation_resolver
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (device_batch, init_train_state,
                                              make_train_step)
@@ -98,11 +113,26 @@ class TrainGraph:
             self.graph.reset()
 
 
+def _mesh_for_launch(mesh, device):
+    """The mesh the loop trains on: ``mesh`` as given; else, in a process
+    group of several ranks (``torchrun`` with ``WORLD_SIZE`` > 1, whose
+    group this starts, on the card ``LOCAL_RANK`` names), the reference's
+    default ``(world, 1)`` over ``("data", "model")``; else None (the plain
+    loop)."""
+    if mesh is not None:
+        return mesh
+    world = dist.get_world_size() if dist.is_initialized() \
+        else lmesh.launched_world()
+    if world <= 1:
+        return None
+    return lmesh.make_mesh_for(world, device)
+
+
 def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
                ckpt_dir: str = "", ckpt_every: int = 50, keep_k: int = 3,
                lr: float = 3e-4, seed: int = 0, log_every: int = 10,
                resume: bool = True, log=print, schedule_steps: int = 0,
-               device=None):
+               device=None, mesh=None):
     """Train ``cfg`` from a fresh init (or the newest checkpoint in
     ``ckpt_dir``) up to ``steps``. Returns (state, history): one dict per
     logged step with the step's metrics as floats, ``step``, ``elapsed_s``
@@ -120,8 +150,27 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
     On the card the steps run through a ``TrainGraph`` built from the state
     the loop starts from (fresh or restored): the first step runs eagerly
     and the rest replay the graph, which is freed when the loop returns.
-    The returned state is the graph's static state."""
-    dev = _device.resolve(device)
+    The returned state is the graph's static state.
+
+    ``mesh``: a ``DeviceMesh`` over ``("data", "model")``
+    (``launch.mesh.device_mesh``). With one, or in a process group of
+    several ranks (then the mesh is ``make_mesh_for(world)``, ``(world,
+    1)``), the state is ``DTensor``s placed by ``train_state_specs`` under
+    ``ShardingRules(mesh, fsdp=mesh.size() > 1)``, the step keeps their
+    placements, the activation rules are pushed around the loop, and
+    every rank reads the whole batch. On the card each rank runs the flash
+    kernels on its local shards, and the step is captured as on one card.
+    Checkpoints hold the whole state (``CheckpointManager``), so a run
+    resumes on any mesh or none. Only rank 0 logs; every rank returns the
+    same history. Without a mesh and without such a group, the loop is the
+    plain one above."""
+    mesh = _mesh_for_launch(mesh, device)
+    dev = _device.resolve(device)      # after a launch picked the rank's card
+    rules = None
+    if mesh is not None:
+        rules = ShardingRules(mesh=mesh, fsdp=mesh.size() > 1)
+        if dist.get_rank() != 0:
+            log = lambda *_: None
     api = get_api(cfg)
     sched = schedule_steps or steps
     opt_cfg = AdamWConfig(learning_rate=lr, warmup_steps=min(20, sched // 10),
@@ -135,9 +184,13 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
     saved_knobs = {k: cc.RUNTIME[k] for k in knobs}
     cc.RUNTIME.update(knobs)
     graph = None
+    if rules is not None:
+        cc.push_logical_rules(activation_resolver(rules))
     try:
-        state = init_train_state(cfg, seed, opt_cfg, dev)
-        step_fn = make_train_step(cfg, opt_cfg, api)
+        state = init_train_state(cfg, seed, opt_cfg, dev, rules)
+        # a state on a mesh steps in place (the reference donates it)
+        step_fn = make_train_step(cfg, opt_cfg, api) if rules is None \
+            else make_train_step(cfg, opt_cfg, api, donate=True)
         data = SyntheticLM(cfg, SyntheticConfig(global_batch=global_batch,
                                                 seq_len=seq_len, seed=seed))
         start_step = 0
@@ -177,6 +230,8 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             mgr.save(steps, state, extra={"data_step": steps})
     finally:
         cc.RUNTIME.update(saved_knobs)
+        if rules is not None:
+            cc.pop_logical_rules()
         if graph is not None:
             graph.release()
     return state, history
@@ -202,13 +257,20 @@ def main(argv=None):
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
         cfg = dataclasses.replace(cfg, remat=False)
-    _, history = train_loop(cfg, args.steps, args.global_batch, args.seq_len,
-                            ckpt_dir=args.ckpt_dir,
-                            ckpt_every=args.ckpt_every, lr=args.lr,
-                            seed=args.seed, device=args.device)
+    started = not dist.is_initialized()    # under torchrun the loop starts it
+    try:
+        _, history = train_loop(cfg, args.steps, args.global_batch,
+                                args.seq_len, ckpt_dir=args.ckpt_dir,
+                                ckpt_every=args.ckpt_every, lr=args.lr,
+                                seed=args.seed, device=args.device)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
     first, last = history[0]["loss"], history[-1]["loss"]
-    print(f"loss {first:.4f} -> {last:.4f} "
-          f"({'improved' if last < first else 'NOT improved'})")
+    if rank == 0:
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
 
 
 if __name__ == "__main__":

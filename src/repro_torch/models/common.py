@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch._tree import is_dtensor
+
 # Runtime execution knobs, set by the launcher per device:
 #   use_flash — route attention through the hand-written CUDA kernels
 #               (their plain versions for CPU tensors)
@@ -76,8 +78,32 @@ def logical_constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     spec = _MESH_RULES_STACK[-1](tuple(x.shape), axes)
     if spec is None:
         return x
-    from repro_torch.parallel.sharding import placements
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    from repro_torch.parallel.sharding import compute_placements
+    return x.redistribute(x.device_mesh,
+                          compute_placements(spec, x.device_mesh))
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` replicated on every mesh dim (the whole tensor on each
+    rank, any pending sum reduced)."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
+def shardwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn`` that DTensor has no sharding rule
+    for (``F.logsigmoid``'s backward). A plain tensor goes to ``fn``; on a
+    ``DTensor`` ``fn`` runs on each rank's shard, which is exact for an
+    elementwise function (a pending sum is reduced first), and the result
+    and its gradient keep the input's placements."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    keep = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    x = x.redistribute(x.device_mesh, keep)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, keep,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 class _ShapeOnlyGenerator(torch.Generator):

@@ -69,12 +69,21 @@ def _index(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _whole_dim0(t):
+    if not cc.is_dtensor(t) or not any(p.is_shard(0) for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_shard(0) else p for p in t.placements))
+
+
 def _unstack(tree) -> list:
     """Views of every entry of a stacked tree, by one ``unbind`` per leaf:
     its backward stacks the entries' gradients into one tensor, where
     indexing each entry would add one full-size zero-filled gradient per
-    entry."""
-    parts = [t.unbind(0) for t in leaves(tree)]
+    entry. A ``DTensor`` split along the stacked axis (the reference
+    shards a scanned axis freely) is gathered along it first."""
+    parts = [_whole_dim0(t).unbind(0) for t in leaves(tree)]
     out = []
     for i in range(len(parts[0])):
         it = iter([p[i] for p in parts])
@@ -360,6 +369,22 @@ def backbone_full(params, cfg: ModelConfig, x, positions, want_cache: bool,
     return x, aux_total, caches
 
 
+def embed_lookup(table, tokens):
+    """Rows ``tokens`` of the embedding table. A table placed on a device
+    mesh with its vocab split (over ``model``; the embed dim may be split
+    over ``data``) goes through ``F.embedding``, which DTensor shards: each
+    rank looks up the rows of its vocab block and the partial rows are
+    summed (the gather on which the reference's sharded loop stops). Any
+    other table is indexed, as the plain loop does, so its gradient sums a
+    repeated token's rows in the plain loop's order (``F.embedding``'s
+    backward sums them in another)."""
+    if cc.is_dtensor(table) and any(
+            p.is_shard(0) and n > 1
+            for p, n in zip(table.placements, table.device_mesh.mesh.shape)):
+        return torch.nn.functional.embedding(tokens, table)
+    return table[tokens]
+
+
 def _logits(params, cfg: ModelConfig, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
@@ -372,7 +397,7 @@ def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
             max_len: int):
     """Embeddings through every segment and the final norm."""
     if embeds is None:
-        embeds = params["embed"][tokens]
+        embeds = embed_lookup(params["embed"], tokens)
     embeds = logical_constraint(embeds, cc.BATCH, cc.SEQ, cc.EMBED)
     b, s = embeds.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
@@ -451,7 +476,7 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches):
     tensor on the params' device (then nothing syncs with the host and the
     step can be captured in a CUDA graph). Updates ``caches`` in place.
     Returns (logits (B,1,V), caches)."""
-    x = params["embed"][token]
+    x = embed_lookup(params["embed"], token)
     for seg, seg_p, seg_c in zip(cfg.segments, params["segments"], caches):
         if seg.count == 1:
             x, _ = block_decode(seg_p, seg_c, seg, cfg, x, pos)

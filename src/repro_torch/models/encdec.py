@@ -137,7 +137,7 @@ def _run_dec_block(args, policy: str):
 def _decoder_hidden(params, cfg: ModelConfig, tokens, enc_out,
                     want_cache: bool, max_len: int, cross_kv):
     """The decoder through its final norm. Returns (x, self caches)."""
-    x = params["embed"][tokens]
+    x = dlm.embed_lookup(params["embed"], tokens)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     max_len = max_len or s
@@ -207,7 +207,7 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches):
     """token (B, 1) int; pos an int or a 0-d int32 tensor on the params'
     device (then the step can be captured in a CUDA graph). Updates the
     self-attention caches in place. Returns (logits (B, 1, V), caches)."""
-    x = params["embed"][token]
+    x = dlm.embed_lookup(params["embed"], token)
     for seg, seg_p, xp, kv, seg_c in zip(cfg.segments, params["segments"],
                                          params["cross"], caches["cross"],
                                          caches["self"]):

@@ -131,6 +131,11 @@ def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
     margin): (G, n, k), (G, n, k) and (G, n)."""
     g_, n, _ = x.shape
     e = spec.n_experts
+    if cc.is_dtensor(x):
+        # a group's capacity slots are a scan over all its tokens: route on
+        # whole groups on every rank (DTensor's scan and scatter rules do
+        # not see a split token axis)
+        x, router_w = cc.whole(x), cc.whole(router_w)
     logits = torch.einsum("gnd,de->gne", x.float(), router_w)
     probs = torch.softmax(logits, dim=-1)
     sorted_vals, sorted_idx = _sorted(probs)
@@ -164,7 +169,7 @@ def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
     flat = gate_idx * capacity + torch.where(keep, slot, 0)
     vals = torch.where(keep, gate_vals, 0.0).to(rdt)
     combine = torch.zeros((g_, n, e * capacity), dtype=rdt, device=x.device)
-    combine = combine.scatter_(2, flat, vals).view(g_, n, e, capacity)
+    combine = combine.scatter(2, flat, vals).view(g_, n, e, capacity)
     combine = logical_constraint(combine, cc.BATCH, None, cc.EXPERT, None)
     dispatch = combine > 0
     if decisions is not None:

@@ -42,7 +42,7 @@ def _embed_multimodal(params, cfg: ModelConfig, patches, tokens):
     then the text embeddings."""
     proj = activate(patches @ params["projector"]["w1"], "gelu") \
         @ params["projector"]["w2"]
-    text = params["embed"][tokens]
+    text = dlm.embed_lookup(params["embed"], tokens)
     return torch.cat([proj.to(text.dtype), text], dim=1)
 
 

@@ -25,6 +25,12 @@ from repro_torch.models.common import activate, dense_init
 from repro_torch.models.ssm import causal_conv
 
 
+def _logsigmoid(x):
+    """``F.logsigmoid``, shard by shard on a ``DTensor`` (DTensor has no
+    rule for its backward)."""
+    return cc.shardwise(F.logsigmoid, x)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -76,7 +82,7 @@ def _decay_matrix(cum, i_pre):
 def _mlstm_quadratic(q, k, v, i_pre, f_pre):
     """Stabilized quadratic parallel form over one (sub)sequence with no
     incoming state. Returns h (B,S,H,dh) fp32."""
-    dmat = _decay_matrix(torch.cumsum(F.logsigmoid(f_pre), dim=1), i_pre)
+    dmat = _decay_matrix(torch.cumsum(_logsigmoid(f_pre), dim=1), i_pre)
     # rows are all -inf only off the diagonal
     m = dmat.amax(dim=2, keepdim=True).clamp(min=-1e30)      # (B,T,1,H)
     dexp = torch.exp(dmat - m)
@@ -88,7 +94,7 @@ def _mlstm_quadratic(q, k, v, i_pre, f_pre):
 
 def _mlstm_chunk(c0, n0, m0, q_, k_, v_, i_, f_):
     """One chunk (B,L,H,*) from state (c0, n0, m0): (h, c, n, m)."""
-    logf = F.logsigmoid(f_)                                  # (B,L,H)
+    logf = _logsigmoid(f_)                                   # (B,L,H)
     fc = torch.cumsum(logf, dim=1)
     dmat = _decay_matrix(fc, i_)                             # (B,L,L,H)
     m_intra = dmat.amax(dim=2).clamp(min=-1e30)              # (B,L,H)
@@ -142,7 +148,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int, state=None):
 
 def _closed_form_state(k, v, i_pre, f_pre) -> dict:
     """The (C, n, m) state after a whole sequence, in closed form."""
-    cum = torch.cumsum(F.logsigmoid(f_pre), dim=1)
+    cum = torch.cumsum(_logsigmoid(f_pre), dim=1)
     wlog = (cum[:, -1:, :] - cum) + i_pre                    # (B,S,H)
     m = wlog.amax(dim=1)                                     # (B,H)
     wexp = torch.exp(wlog - m[:, None, :])
@@ -211,7 +217,7 @@ def mlstm_decode(p, spec: XLSTMSpec, x, cache: dict):
     q, k, v = q[:, 0].float(), k[:, 0], v[:, 0]              # (B,H,dh)
     i_pre, f_pre = i_pre[:, 0], f_pre[:, 0]                  # (B,H)
 
-    logf = F.logsigmoid(f_pre)
+    logf = _logsigmoid(f_pre)
     m_new = torch.maximum(logf + cache["m"], i_pre)
     f_eff = torch.exp(logf + cache["m"] - m_new)[..., None]
     i_eff = torch.exp(i_pre - m_new)[..., None]
@@ -275,7 +281,7 @@ def _slstm_step(p, spec: XLSTMSpec, state, x_t):
     gates = (x_t @ p["w_gates"] + p["b_gates"]).reshape(b, nh, 4, dh) \
         + rec.reshape(b, nh, 4, dh)
     i_pre, f_pre, z_pre, o_pre = gates.unbind(dim=2)
-    logf = F.logsigmoid(f_pre)
+    logf = _logsigmoid(f_pre)
     m_new = torch.maximum(logf + state["m"], i_pre)
     i_eff = torch.exp(i_pre - m_new)
     f_eff = torch.exp(logf + state["m"] - m_new)
@@ -291,9 +297,9 @@ def _slstm_ffn(p, h):
         @ p["ffn_down"]
 
 
-def slstm_prefill(p, spec: XLSTMSpec, x):
-    """Sequential loop over the sequence (a true recurrence). x: (B,S,d).
-    Returns (y, final state)."""
+def _slstm_scan(p, spec: XLSTMSpec, x):
+    """The recurrence over the sequence: (h (B,S,d) in x's dtype, final
+    state)."""
     b, _, d = x.shape
     state = init_slstm_state(spec, d, b, x.device)
     hs = []
@@ -303,7 +309,39 @@ def slstm_prefill(p, spec: XLSTMSpec, x):
     for x_t in x.float().unbind(1):
         state, h_t = _slstm_step(p, spec, state, x_t)
         hs.append(h_t)
-    return _slstm_ffn(p, torch.stack(hs, dim=1).to(x.dtype)), state
+    return torch.stack(hs, dim=1).to(x.dtype), state
+
+
+_SCAN_WEIGHTS = ("w_gates", "r_gates", "b_gates")
+
+
+def _slstm_scan_local(p, spec: XLSTMSpec, x):
+    """``_slstm_scan`` of a ``DTensor`` x: each rank runs the recurrence on
+    its shard of the batch, every other dim whole, with the gate weights
+    whole (gathered once, not once per token), and ``h`` leaves split as
+    the batch was. A rank's weight gradients cover its batch rows, so they
+    leave as pending sums over the batch-splitting mesh dims. The final
+    state stays on each rank (a training step drops it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    xp = tuple(p_ if p_ == Shard(0) else Replicate() for p_ in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grad_wp = tuple(Partial() if p_ == Shard(0) else Replicate() for p_ in xp)
+    x = x.redistribute(mesh, xp)
+    w = {k: p[k].redistribute(mesh, whole).to_local(grad_placements=grad_wp)
+         for k in _SCAN_WEIGHTS}
+    h, state = _slstm_scan(w, spec, x.to_local())
+    return DTensor.from_local(h, mesh, xp, run_check=False, shape=x.shape,
+                              stride=x.stride()), state
+
+
+def slstm_prefill(p, spec: XLSTMSpec, x):
+    """Sequential loop over the sequence (a true recurrence). x: (B,S,d).
+    Returns (y, final state). A ``DTensor`` x runs the loop per rank on
+    local shards (``_slstm_scan_local``)."""
+    scan = _slstm_scan_local if cc.is_dtensor(x) else _slstm_scan
+    h, state = scan(p, spec, x)
+    return _slstm_ffn(p, h), state
 
 
 def slstm_full(p, spec: XLSTMSpec, x):

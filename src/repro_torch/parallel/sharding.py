@@ -251,6 +251,17 @@ def placements(spec: P, mesh) -> tuple:
     return tuple(out)
 
 
+def compute_placements(spec: P, mesh) -> tuple:
+    """``placements(spec, mesh)`` for tensors that are computed on, with
+    ``Replicate()`` on every mesh dim of size 1: a split over one rank is
+    the same layout as none, and DTensor's view rules refuse to split or
+    merge a dim sharded even over one rank (a reshape of a KV projection
+    with one head, sharded over a ``model`` axis of size 1)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if n == 1 else p
+                 for p, n in zip(placements(spec, mesh), mesh.mesh.shape))
+
+
 def param_shardings(rules: ShardingRules, params: PyTree) -> PyTree:
     """DTensor placements of every param leaf on ``rules.mesh`` (a
     ``DeviceMesh``)."""
@@ -266,6 +277,28 @@ def distribute_params(rules: ShardingRules, params: PyTree) -> PyTree:
     from torch.distributed.tensor import distribute_tensor
     return tree_map(lambda t, pl: distribute_tensor(t, rules.mesh, pl),
                     params, param_shardings(rules, params))
+
+
+def distribute(mesh, tree: PyTree, specs: PyTree) -> PyTree:
+    """Every leaf of ``tree`` as a ``DTensor`` on the ``DeviceMesh``
+    ``mesh``, placed by its ``PartitionSpec`` in ``specs`` (a tree of the
+    same structure) for computing on (``compute_placements``). Each rank
+    passes the whole tensors, the same on every rank, and keeps its
+    shards."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_map(
+        lambda t, s: distribute_tensor(t, mesh, compute_placements(s, mesh)),
+        tree, specs)
+
+
+def replicate(mesh, batch: dict) -> dict:
+    """A batch dict of tensors, whole on every rank, as replicated
+    ``DTensor``s on ``mesh`` (the reference's ``in_shardings=None``): no
+    data moves, each rank wraps its own copy."""
+    from torch.distributed.tensor import DTensor, Replicate
+    whole = (Replicate(),) * mesh.ndim
+    return {k: DTensor.from_local(v, mesh, whole, run_check=False)
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch._tree import is_dtensor
 from repro_torch._tree import leaves as _leaves
 from repro_torch._tree import map_with_path as _map
 
@@ -68,8 +69,44 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, decayed)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s shard on this rank (the tensor it holds, so writing
+    it writes the ``DTensor``); a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _summed_over_shards(ls: list) -> list:
+    """The squared sum of each leaf, reduced over the mesh dims that split
+    it and over nothing else (a replicated leaf is whole on every rank):
+    each leaf's pending sum is reduced exactly once, with one collective
+    per set of splitting mesh dims. Plain tensors, the same on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    local = [torch.sum(torch.square(_local(l).float())) for l in ls]
+    groups: dict = {}
+    for i, l in enumerate(ls):
+        if is_dtensor(l):
+            split = tuple(p.is_shard() for p in l.placements)
+            if any(split):
+                groups.setdefault((l.device_mesh, split), []).append(i)
+    for (mesh, split), idx in groups.items():
+        part = DTensor.from_local(
+            torch.stack([local[i] for i in idx]), mesh,
+            tuple(Partial() if s else Replicate() for s in split),
+            run_check=False)
+        whole = part.redistribute(mesh, (Replicate(),) * len(split))
+        for i, v in zip(idx, whole.to_local().unbind(0)):
+            local[i] = v
+    return local
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in _leaves(tree)))
+    """The norm of every leaf taken together. Over ``DTensor`` leaves (a
+    state placed on a device mesh) it is a plain tensor, the same on every
+    rank, summed in leaf order as for plain leaves."""
+    ls = _leaves(tree)
+    if ls and is_dtensor(ls[0]):
+        return torch.sqrt(sum(_summed_over_shards(ls)))
+    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in ls))
 
 
 def clip_by_global_norm(tree: Params, max_norm: float) -> tuple[Params, torch.Tensor]:
@@ -140,17 +177,24 @@ def adamw_update_(cfg: AdamWConfig, grads: Params, state: AdamState,
     metrics of ``adamw_update``, whose numbers it computes bit for bit: the
     same fp32 expressions in the same order, leaf by leaf, so that the
     temporaries of one leaf live at a time and the state is never held
-    twice."""
+    twice.
+
+    On a state placed on a device mesh (``DTensor`` leaves, the gradients
+    placed as their params) every update is elementwise, so each rank
+    writes its own shards of ``p``, ``m`` and ``v`` and the placements
+    stay; only the global norm sums across ranks (``global_norm``). The
+    metrics are then plain tensors, the same on every rank."""
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip_norm > 0 else None)
-    step = state.step
+    step = _local(state.step)
     lr = _schedule(cfg, step)
     t = (step + 1).to(torch.float32)
     c1 = 1.0 - torch.pow(cfg.b1, t)
     c2 = 1.0 - torch.pow(cfg.b2, t)
 
     def upd(path, p, g, m, v):
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         if scale is not None:
             g = g * scale.to(g.dtype)
         g = g.float()

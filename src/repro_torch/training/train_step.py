@@ -15,11 +15,14 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES
 from repro_torch.models.registry import ModelApi, get_api
+from repro_torch.parallel.sharding import replicate
 from repro_torch.training.optimizer import (AdamState, AdamWConfig, adamw_init,
                                             adamw_update, adamw_update_)
 
@@ -33,12 +36,19 @@ class TrainState(NamedTuple):
 
 def init_train_state(cfg: ModelConfig, seed: int = 0,
                      opt_cfg: AdamWConfig | None = None,
-                     device=None) -> TrainState:
+                     device=None, rules=None) -> TrainState:
     """Fresh params (``init_params(cfg, seed, device)``) and zero AdamW
-    moments in ``opt_cfg.moment_dtype``."""
+    moments in ``opt_cfg.moment_dtype``. With ``rules`` (``ShardingRules``
+    on a ``DeviceMesh``) every rank draws the same whole state from the
+    seed and keeps its shards of it: the state as ``DTensor``s placed by
+    ``launch.specs.train_state_specs``."""
     params = get_api(cfg).init_params(cfg, seed=seed, device=device)
     moment_dtype = opt_cfg.moment_dtype if opt_cfg else "float32"
-    return TrainState(params=params, opt=adamw_init(params, moment_dtype))
+    state = TrainState(params=params, opt=adamw_init(params, moment_dtype))
+    if rules is None:
+        return state
+    from repro_torch.launch.specs import distribute_state
+    return distribute_state(rules, state)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -56,10 +66,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     (``adamw_update_``, the same numbers bit for bit) and returns that same
     state, the counterpart of the reference's ``jax.jit(step,
     donate_argnums=(0,))``: the old and the new state are never held at
-    once, and a CUDA graph of the step reads and writes fixed buffers."""
+    once, and a CUDA graph of the step reads and writes fixed buffers.
+
+    A state of ``DTensor``s (``init_train_state(..., rules=)``) steps on
+    its device mesh (``sharded_step``)."""
     api = api or get_api(cfg)
 
     def train_step(state: TrainState, batch: dict):
+        if isinstance(state.opt.step, DTensor):
+            return sharded_step(state, batch)
         params = tree_map(lambda t: t.detach().requires_grad_(True),
                           state.params)
         loss, metrics = api.loss_and_metrics(params, cfg, batch)
@@ -75,7 +90,46 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         metrics.update(om)
         return TrainState(params=new_params, opt=opt), metrics
 
+    def sharded_step(state: TrainState, batch: dict):
+        """The step on a device mesh, in place (the reference's jitted step
+        with ``out_shardings = in_shardings`` and the state donated). The
+        batch enters whole on every rank (``in_shardings=None``); the
+        pushed activation rules split it. Plain tensors that meet a
+        ``DTensor`` (positions, masks, RoPE tables, the step, the LR) are
+        replicated on the mesh (``implicit_replication``). The loss is
+        reduced to one value on every rank before its gradient, each
+        gradient is placed as its param (a reduce-scatter of FSDP's pending
+        sums), and ``adamw_update_`` writes every rank's shards. Metrics
+        are plain tensors, the same on every rank."""
+        if not donate:
+            raise ValueError("a state on a device mesh steps in place: "
+                             "make_train_step(..., donate=True)")
+        mesh = state.opt.step.device_mesh
+        whole = (Replicate(),) * mesh.ndim
+        batch = replicate(mesh, batch)
+        with implicit_replication():
+            params = tree_map(lambda t: t.detach().requires_grad_(True),
+                              state.params)
+            loss, metrics = api.loss_and_metrics(params, cfg, batch)
+            loss = loss.redistribute(mesh, whole)
+            grads = iter(torch.autograd.grad(loss, leaves(params)))
+            grads = tree_map(
+                lambda p: _placed_as(next(grads), p), params)
+            metrics = {k: (v.redistribute(mesh, whole).to_local()
+                           if isinstance(v, DTensor) else v).detach()
+                       for k, v in metrics.items()}
+            metrics.update(adamw_update_(opt_cfg, grads, state.opt,
+                                         state.params))
+        return state, metrics
+
     return train_step
+
+
+def _placed_as(g, p):
+    """The gradient ``g`` with its param's placements."""
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_eval_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
