@@ -28,7 +28,9 @@ plain and the absorbed order, 160 experts top-6), and jamba-1.5-large and
 xlstm-125m reduced and xlstm-125m at full size; serving whisper-small (12
 encoder and 12 decoder layers, 1,500 frames, prompts of 384) and
 internvl2-1b (24 layers, GQA group 7, 256 patches ahead of prompts of 1024)
-at full width, bf16; and training gemma3-1b (batch 4 x 1024 tokens, remat on,
+and phi3-mini (32 layers, d_model 3072, 32 heads of 96: head_dim 96 read
+unpadded at the kernels' width 128) at full width, bf16; and training
+gemma3-1b (batch 4 x 1024 tokens, remat on,
 chunked CE) for 6 steps through ``launch/train.py::train_loop``, which
 replays one captured CUDA graph of the donating step (``TrainGraph``), with a
 checkpoint every 3 steps, then a fresh loop that resumes from step 3. It
@@ -43,8 +45,8 @@ params distributed over a one-card NCCL mesh. Every GNN it trains runs
 per epoch or per sequential step shape), held to the eager steps; the
 seven example twins run as a user runs them. It
 times every kernel beside its plain version, a one-call library yardstick
-and its bound (the attention kernels also at phi3-mini's head_dim 96, the
-backward also split by kernel), runs the card-only pytest files, and prints
+and its bound (the attention kernels also at phi3-mini's head_dim 96 and
+at head_dim 80, the backward also split by kernel), runs the card-only pytest files, and prints
 one JSON line per phase. Any failure exits non-zero before the last line,
 which is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``repro``.
@@ -67,7 +69,11 @@ serving at 1024 nodes (launches at the placement, the failure and after;
 fused against plain hosts) -> gcn_spmm times and a bit-for-bit repeat at
 buckets 1024 and 2048 -> ``predict_logits`` per call through the bucket
 graphs against the eager paths (``gnn_graphs``) -> kernel check
-(attention) -> gemma3-1b serve (launch counts,
+(attention) -> every head dim (``head_dims``: D 8, 36, 40, 80, 96, 112,
+192, 200, 256 in fp32 and bf16, forward, backward and decode against the
+plain versions, one profiled call each holding only the kernel's own
+launches, ``force_ref=True`` launching nothing) -> gemma3-1b serve (launch
+counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
 olmoe-1b-7b serve (launch counts, a repeat call, graphed vs eager,
@@ -77,7 +83,8 @@ serve (2 layers, both MLA orders graphed, the fp32 orders' tokens, routing
 and logits) -> the small families (jamba and xlstm reduced, xlstm at full
 size; graphed vs eager, jamba's kernel launches) -> whisper-small and
 internvl2-1b serve (launch counts, a repeat call, graphed vs eager,
-profiles, fp32 kernels vs plain on every row) ->
+profiles, fp32 kernels vs plain on every row) -> phi3-mini serve (the
+same checks, head_dim 96 through the kernels unpadded) ->
 attention times (decode also per call inside a graph and from HBM) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
@@ -101,7 +108,8 @@ same way: 16 ``flash_attention`` and 16 x 64 = 1,024 ``decode_attention``;
 on reduced jamba's (2 attention layers, 16 generated) 2 and 32;
 deepseek-v2 and xlstm launch neither; on whisper-small's, 12 (its decoder's
 layers: the encoder is non-causal and plain) and 12 x 64 = 768; on
-internvl2-1b's, 24 and 24 x 64 = 1,536. On the train path, zeroed just before
+internvl2-1b's, 24 and 24 x 64 = 1,536; on phi3-mini's, 32 and 32 x 64 =
+2,048. On the train path, zeroed just before
 the 6 straight steps and read just after: 26 x 2 x 6 = 312
 ``flash_attention`` (each layer's forward and its recompute under remat)
 and 26 x 6 = 156 ``flash_attention_bwd``: the eager first step, then 5
@@ -1422,6 +1430,143 @@ def phase_attention_check(torch, FK, FR, DK, DR) -> dict:
     return errs
 
 
+# -- every head dim up to 256 ---------------------------------------------------
+# the kernels one call of each wrapper may launch, by dtype: anything else in
+# a profile of the call (a pad, a copy, a fill) fails the phase
+CALL_KERNELS = {
+    ("forward", "float32"): ("flash_fwd_kernel",),
+    ("forward", "bfloat16"): ("flash_tc_kernel",),
+    ("backward", "float32"): ("delta_kernel", "dkv_f32_kernel", "dq_f32_kernel"),
+    ("backward", "bfloat16"): ("bwd_prep_kernel", "bwd_wgmma_kernel",
+                               "dkv_reduce_kernel"),
+    ("decode", "float32"): ("decode_kernel",),
+    ("decode", "bfloat16"): ("decode_kernel",)}
+
+
+def _calls_kernels(torch, fns) -> list:
+    """For each of ``fns``, the names of the device activities (kernels,
+    copies, fills) that one call ran: every call (after an unprofiled one)
+    under one torch.profiler session, each after a sleep kernel that marks
+    its start on the card's clock. (One session per call lost all its
+    records after some tens of sessions on the card.)"""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            torch.cuda._sleep(1000)   # the call's marker
+            fn()
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    calls = []
+    for e in device:
+        if "spin_kernel" in e.name or "sleep" in e.name:
+            calls.append(set())
+        elif calls:
+            calls[-1].add(e.name)
+    check(len(calls) == len(fns), f"the profiler shows {len(calls)} call "
+                                  f"markers for {len(fns)} calls")
+    return [sorted(c) for c in calls]
+
+
+def phase_head_dims(torch, FK, FR, DK, DR) -> dict:
+    """Every head dim of ``tests/test_torch_head_dims_gpu.py`` (8, 36, 40,
+    80, 96, 112, 192, 200, 256: each run at the smallest kernel width that
+    holds it, read unpadded) in fp32 and bf16 at B 2, S = T = 256, GQA
+    group 2: the flash forward causal and with window 64, the backward
+    through ``ops.FlashAttention`` (both masks), decode against a
+    ring-stale cache; each against its plain version at 2e-5 / 2e-2 with
+    launches > 0. One call of each kernel wrapper per (D, dtype), all under
+    one torch.profiler session, must run only that kernel's own launches
+    (``CALL_KERNELS``): no pad or copy. The one padded call is the bf16
+    backward at D % 8 != 0 (its TMA rows need the 16-byte grid), which may
+    add its pad and slice kernels. Then ``force_ref=True`` on CUDA tensors
+    (flash with and without grad, decode, spmm, scaled_spmm) must launch
+    nothing and give the plain version's bits."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_head_dims_gpu as HD
+    errs, launches, profiles, calls = {}, {}, {}, []
+    for d in HD.HEAD_DIMS:
+        for dt in HD.DTYPES:
+            tol = TOL[dt]
+            runs = [(f"forward window={w}", lambda w=w: HD.forward_case(d, dt, w))
+                    for w in HD.WINDOWS]
+            runs += [(f"backward window={w}", lambda w=w: HD.backward_case(d, dt, w))
+                     for w in HD.WINDOWS]
+            runs += [("decode", lambda: HD.decode_case(d, dt))]
+            for label, run in runs:
+                FK.reset_launches()
+                DK.reset_launches()
+                got, want = run()
+                torch.cuda.synchronize()
+                n = {**FK.LAUNCHES, **DK.LAUNCHES}
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err, ok = 0.0, True
+                for g, w in zip(got, want):
+                    ok_g, err_g = _close(torch, g, w, tol)
+                    ok = ok and ok_g and bool(torch.isfinite(g.float()).all())
+                    err = max(err, err_g)
+                kind = label.split()[0]
+                want_n = {"forward": {"flash_attention": 1},
+                          "backward": {"flash_attention": 1,
+                                       "flash_attention_bwd": 1},
+                          "decode": {"decode_attention": 1}}[kind]
+                check(all(n[k] == v for k, v in want_n.items()),
+                      f"head_dims: {label} at D {d} {dt} launched {n}, want {want_n}")
+                check(ok, f"head_dims: {label} at D {d} {dt} differs from its "
+                          f"plain version: max abs err {err} (tol {tol})")
+                errs.setdefault(kind, {}).setdefault(dt, 0.0)
+                errs[kind][dt] = max(errs[kind][dt], err)
+                launches[kind] = launches.get(kind, 0) + sum(want_n.values())
+                emit("head_dims_check", D=d, dtype=dt, call=label, max_abs_err=err,
+                     rtol=tol, atol=tol, ok=ok, launches=n)
+            # one call of each wrapper, profiled below
+            q, k, v, do = HD.inputs(d, dt, seed=5)
+            o, lse = FK.flash_attention(q, k, v, return_lse=True)
+            q1, valid = q[:, :1].contiguous(), HD.ring_valid(HD.S)
+            calls += [
+                ("forward", d, dt, lambda q=q, k=k, v=v: FK.flash_attention(q, k, v)),
+                ("backward", d, dt, lambda q=q, k=k, v=v, o=o, lse=lse, do=do:
+                    FK.flash_attention_bwd(q, k, v, o, lse, do)),
+                ("decode", d, dt, lambda q1=q1, k=k, v=v, valid=valid:
+                    DK.decode_attention(q1, k, v, valid))]
+    for (kind, d, dt, _), names in zip(calls, _calls_kernels(
+            torch, [c[3] for c in calls])):
+        own = CALL_KERNELS[(kind, dt)]
+        other = [x for x in names if not any(n in x for n in own)]
+        unpadded = not (kind == "backward" and dt == "bfloat16" and d % 8)
+        profiles[f"{kind} D {d} {dt}"] = {"kernels": names,
+                                         "read_unpadded": unpadded}
+        check(any(any(n in x for n in own) for x in names),
+              f"head_dims: a profiled {kind} call at D {d} {dt} ran none of "
+              f"its kernels: {names}")
+        if unpadded:
+            check(not other, f"head_dims: a {kind} call at D {d} {dt} ran "
+                             f"more than its kernels: {other}")
+    del calls
+    # force_ref on CUDA: nothing launched, the plain version's bits
+    force = {}
+    for dt in HD.DTYPES:
+        for name, call, plain in HD.force_ref_calls(dt):
+            before = HD.launch_counts()
+            got = call()
+            torch.cuda.synchronize()
+            same = HD.launch_counts() == before
+            equal = got.is_cuda and bool(torch.equal(got, plain()))
+            force[f"{name} {dt}"] = {"launched_nothing": same, "bit_equal": equal}
+            check(same and equal, f"head_dims: force_ref {name} {dt} on CUDA "
+                                  f"launched {same=} or differs {equal=}")
+    emit("head_dims", head_dims=list(HD.HEAD_DIMS), shape=dict(
+        B=HD.B, S=HD.S, T=HD.S, H=HD.H, KV=HD.KV), max_abs_err=errs,
+        launches=launches, profiles=profiles, force_ref=force)
+    return errs
+
+
 def _dev_time(e) -> float:
     """A profiler event's own device time in microseconds."""
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -2189,6 +2334,7 @@ def phase_serve_families_small(torch, device, FK, DK) -> dict:
 # -- the encoder-decoder and VLM families ---------------------------------------
 WHISPER = dict(arch="whisper-small", batch=4, prompt=384, gen=64, seed=0)
 INTERNVL = dict(arch="internvl2-1b", batch=4, prompt=1024, gen=64, seed=0)
+PHI3 = dict(arch="phi3-mini-3.8b", batch=4, prompt=1024, gen=64, seed=0)
 
 
 def _fp32_kernels_vs_plain(torch, serve, api, cfg, params, batch, fed,
@@ -2339,15 +2485,25 @@ def phase_serve_internvl2_1b(torch, device, FK, DK) -> dict:
                                "serve_internvl2_1b")
 
 
+def phase_serve_phi3_mini(torch, device, FK, DK) -> dict:
+    """phi3-mini at its config's widths (arXiv:2404.14219; 32 layers,
+    d_model 3,072, 32 heads of 96 over 32 kv heads, d_ff 8,192, vocab
+    32,064), no cut: prompts of 1,024 tokens at B 4, 64 generated (max_len
+    1,088). Head dim 96 runs at the kernels' width 128, read unpadded: 32
+    flash launches per prefill, 32 decode launches per step."""
+    return _phase_serve_family(torch, device, FK, DK, PHI3, "serve_phi3_mini")
+
+
 def _attn_time_cases(torch, F, FK, FR, DK, DR):
     """The serve shapes: prefill of a global (causal) and a local (window
     512) layer, and one decode step of the global cache (T 1088, valid up
     to the middle of generation) and of a local ring (T 512, all valid);
-    and phi3-mini's attention (32 heads, 32 kv heads, head_dim 96, which
-    the wrappers pad to 128): a prefill of 1 x 1024 tokens and a decode
-    step at B 4 against T 1088; olmoe-1b-7b's (16 heads, 16 kv heads,
-    head_dim 128, nothing padded) at its serve shapes, B 4 x 1024 and T
-    1088; internvl2-1b's (14 heads over 2 kv heads: G 7, head_dim 64), a
+    and phi3-mini's attention (32 heads, 32 kv heads, head_dim 96, run at
+    width 128, read unpadded): a prefill of 1 x 1024 tokens and a decode
+    step at B 4 against T 1088; the same heads at head_dim 80 (B 4 x 1024
+    and T 1088), a head dim the kernels refused before they took any D up
+    to 256; olmoe-1b-7b's (16 heads, 16 kv heads, head_dim 128) at its
+    serve shapes, B 4 x 1024 and T 1088; internvl2-1b's (14 heads over 2 kv heads: G 7, head_dim 64), a
     prefill of 4 x (256 patches + 1024 tokens) and a step against T 1344;
     and whisper-small's decoder (12 heads, 12 kv heads, head_dim 64), a
     prefill of 4 x 384 and a step against T 448."""
@@ -2367,6 +2523,7 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     cases = {}
     gemma = (spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim)
     phi = (phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
+    d80 = (phi3.n_heads, phi3.n_kv_heads, 80)
     olm = (olmoe.n_heads, olmoe.n_kv_heads, olmoe.head_dim)
     g7 = (ivl.n_heads, ivl.n_kv_heads, ivl.head_dim)
     whi = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim)
@@ -2375,6 +2532,7 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             ("global", None, SERVE["batch"], SERVE["prompt"], gemma),
             ("local", spec_local.window, SERVE["batch"], SERVE["prompt"], gemma),
             ("phi3-mini", None, 1, SERVE["prompt"], phi),
+            ("d80", None, SERVE["batch"], SERVE["prompt"], d80),
             ("olmoe", None, OLMOE["batch"], OLMOE["prompt"], olm),
             ("internvl2-1b", None, INTERNVL["batch"], ivl_s, g7),
             ("whisper-small", None, WHISPER["batch"], WHISPER["prompt"], whi)):
@@ -2402,6 +2560,7 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             ("global", max_len, s + SERVE["gen"] // 2, gemma),
             ("local", spec_local.window, spec_local.window, gemma),
             ("phi3-mini", max_len, s + SERVE["gen"] // 2, phi),
+            ("d80", max_len, s + SERVE["gen"] // 2, d80),
             ("olmoe", max_len, s + SERVE["gen"] // 2, olm),
             ("internvl2-1b", ivl_t, ivl_s + INTERNVL["gen"] // 2, g7),
             ("whisper-small", whi_t, WHISPER["prompt"] + WHISPER["gen"] // 2, whi)):
@@ -3424,7 +3583,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_kernel_dispatch_gpu.py",
              "tests/test_torch_graphs_gpu.py",
              "tests/test_torch_gnn_train_graphs_gpu.py",
-             "tests/test_torch_train_mesh_gpu.py"]
+             "tests/test_torch_train_mesh_gpu.py",
+             "tests/test_torch_head_dims_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cards = torch.cuda.device_count()
     left_out = [t for t, n in MULTI_CARD_TESTS.items() if cards < n]
@@ -3517,8 +3677,10 @@ def main() -> None:
     # 5b. predict_logits through the bucket graphs against the eager paths
     phase_gnn_graphs(torch, device, params46, cfg46,
                      {64: fleet46, 1024: fleet1024, 2048: joined}, card)
-    # 6. attention kernel check
+    # 6. attention kernel check, then every head dim up to 256 (forward,
+    # backward, decode; one profiled call each; force_ref on the card)
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
+    hd_errs = phase_head_dims(torch, FK, FR, DK, DR)
     # 7. the serving main path, counts zeroed before and read after
     launches.update(phase_serve(torch, device, FK, DK))
     # 7b. the MoE, MLA, Mamba and xLSTM families: olmoe-1b-7b at full width,
@@ -3533,7 +3695,9 @@ def main() -> None:
     l_family = {"serve_whisper_small": phase_serve_whisper_small(
                     torch, device, FK, DK),
                 "serve_internvl2_1b": phase_serve_internvl2_1b(
-                    torch, device, FK, DK)}
+                    torch, device, FK, DK),
+                # phi3-mini at full width: head_dim 96 read unpadded
+                "serve_phi3_mini": phase_serve_phi3_mini(torch, device, FK, DK)}
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
     # 9. the flash backward: check and times at the training shape
@@ -3600,6 +3764,8 @@ def main() -> None:
             "launches_by_path": by_path, "on_main_path": True,
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
+            "max_abs_err_head_dims": hd_errs[
+                "forward" if name == "flash_attention" else "decode"],
             **{k: attn_times[name]["global"][k] for k in keys},
             **{k: attn_times[name]["global"][k] for k in decode_keys
                if k in attn_times[name]["global"]},
@@ -3616,6 +3782,7 @@ def main() -> None:
             "train_mesh_1card": mesh_launches["flash_attention_bwd"]},
         "on_main_path": True,
         "max_abs_err": bwd_errs["float32"], "max_abs_err_bf16": bwd_errs["bfloat16"],
+        "max_abs_err_head_dims": hd_errs["backward"],
         **{k: bwd_times["global"][k] for k in keys}, "by_case": bwd_times})
     # 13. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

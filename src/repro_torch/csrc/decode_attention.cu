@@ -55,7 +55,19 @@
 //     repeated calls give the same bits, and no state survives a call, so
 //     the launch can be captured in a CUDA graph.
 // fp32 inputs take the same path with two 16-byte loads per 8 elements and
-// a ring of half the depth (one chunk at D 256). decode_attention_setup()
+// a ring of half the depth (one chunk at D 256).
+// Head dims: the Pallas kernel's blocks span any D. The kernel is
+// instantiated at widths 16, 32, 64, 128 and 256, and a call with head dim
+// D <= 256 runs the smallest width W >= D: it reads the cache's rows at
+// stride D, the ring's columns past D are zero-filled (so they add nothing
+// to a score and give accumulator columns that stay out of the output),
+// the cluster combines and writes only the D columns, and scores are scaled
+// by the true D^-0.5. Nothing is copied in device memory. Rows of D not on
+// the 16-byte grid (D % 8 in bf16, D % 4 in fp32) are read element by
+// element, the choice made once per chunk outside the copy loop. Each
+// width has two instantiations: D = W keeps every bound at compile time, as
+// the power-of-two head dims always ran (with D a runtime value throughout,
+// D 64 decode ran 5-8% slower on an H100), D < W reads dh columns. decode_attention_setup()
 // sets every instantiation's shared-memory limit and non-portable cluster
 // size once, before any capture, and records the largest cluster the card
 // can place.
@@ -66,6 +78,7 @@
 
 #include <algorithm>
 #include <limits>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -173,6 +186,17 @@ template <int D> struct Row8<float, D> {
   }
 };
 
+// The same 8 elements of a row of dh <= D elements in device memory, one at
+// a time, zeros past dh.
+template <typename T, int D>
+__device__ __forceinline__ void load_row8(const T* row, int j, int dh, float (&f)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = Row8<T, D>::col(j, e);
+    f[e] = c < dh ? to_f32(row[c]) : 0.0f;
+  }
+}
+
 // Sums N partials per lane over the lanes xor OFF, OFF / 2, .., 1. While
 // more than one partial is left, each step sends half of them to the
 // partner and keeps the other half (the upper half on the lane whose OFF
@@ -202,13 +226,17 @@ struct TransposeSum {
   }
 };
 
-// grid (CS, units), cluster (CS, 1, 1); unit = (b * KV + kvh) * NHG + hg
-template <typename T, int D, int GP>
+// grid (CS, units), cluster (CS, 1, 1); unit = (b * KV + kvh) * NHG + hg.
+// kPart: the tensors' head dim dh_arg is below the width D; otherwise dh = D
+// at compile time and the body is the one the power-of-two head dims
+// always ran.
+template <typename T, int D, int GP, bool kPart>
 __global__ void __launch_bounds__(Shape<T, D, GP>::kThreads, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const uint8_t* __restrict__ valid, T* __restrict__ out, int T_len, int H,
-              int KV, int G, int NHG, float scale_log2) {
+              int KV, int dh_arg, int G, int NHG, float scale_log2) {
   using S = Shape<T, D, GP>;
+  const int dh = kPart ? dh_arg : D;
   using RowT = Row8<T, D>;
   constexpr int kL = S::kL, kR = S::kR, kRows = S::kRows, kPasses = S::kPasses;
   constexpr int kStages = S::kStages;
@@ -249,7 +277,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     if (g < n_heads) {
-      RowT::load(q + ((size_t)b * H + head0 + g) * D, j, qf[g]);
+      const T* row = q + ((size_t)b * H + head0 + g) * dh;
+      if (dh == D)
+        RowT::load(row, j, qf[g]);
+      else
+        load_row8<T, D>(row, j, dh, qf[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qf[g][e] = 0.0f;
@@ -258,11 +290,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   unsigned char* ring = dec_smem + (size_t)warp * S::kRingBytes;
   float* sc = fs + warp * kRows * GP;   // this warp's scores [row][head]
-  const size_t row_stride = (size_t)KV * D;   // elements between cache slots
-  const T* k_base = k + ((size_t)b * T_len * KV + kvh) * D;
-  const T* v_base = v + ((size_t)b * T_len * KV + kvh) * D;
+  const size_t row_stride = (size_t)KV * dh;   // elements between cache slots
+  const T* k_base = k + ((size_t)b * T_len * KV + kvh) * dh;
+  const T* v_base = v + ((size_t)b * T_len * KV + kvh) * dh;
+  // a row of dh elements on the 16-byte grid moves by cp.async, a piece
+  // past dh zero-filled; another dh is read element by element
+  constexpr int kPieceElts = 16 / S::kElt;
+  const bool vec = dh % kPieceElts == 0;
 
-  auto issue = [&](int c) {
+  auto issue_chunk = [&](int c, auto vec_t) {
+    constexpr bool kVec = decltype(vec_t)::value;
     if (c < n_chunks) {
       constexpr int kPieces = S::kRowBytes / 16;   // 16-byte pieces per row
       unsigned char* kd = ring + (c % kStages) * S::kChunkBytes;
@@ -273,13 +310,31 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const int row = i / kPieces, piece = i % kPieces;
         const bool ok = r0 + row < hi;
         const size_t off = ok ? (size_t)(r0 + row) * row_stride : 0;
-        cp_async16(kd + row * S::kRowBytes + piece * 16,
-                   reinterpret_cast<const unsigned char*>(k_base + off) + piece * 16, ok);
-        cp_async16(vd + row * S::kRowBytes + piece * 16,
-                   reinterpret_cast<const unsigned char*>(v_base + off) + piece * 16, ok);
+        const int e0 = piece * kPieceElts;   // the piece's first column
+        if (kVec || !ok || e0 >= dh) {
+          const bool in = ok && e0 < dh;
+          cp_async16(kd + row * S::kRowBytes + piece * 16, k_base + off + (in ? e0 : 0), in);
+          cp_async16(vd + row * S::kRowBytes + piece * 16, v_base + off + (in ? e0 : 0), in);
+        } else {
+          T* ks = reinterpret_cast<T*>(kd + row * S::kRowBytes) + e0;
+          T* vs = reinterpret_cast<T*>(vd + row * S::kRowBytes) + e0;
+#pragma unroll
+          for (int e = 0; e < kPieceElts; ++e) {
+            const bool in = e0 + e < dh;
+            ks[e] = in ? k_base[off + e0 + e] : from_f32<T>(0.0f);
+            vs[e] = in ? v_base[off + e0 + e] : from_f32<T>(0.0f);
+          }
+        }
       }
     }
     cp_async_commit();   // an empty group keeps the wait count uniform
+  };
+  // the layout is picked once per chunk, outside the copy loop
+  auto issue = [&](int c) {
+    if (vec)
+      issue_chunk(c, std::true_type{});
+    else
+      issue_chunk(c, std::false_type{});
   };
 
   float m_run[GP], l_run[GP], acc[GP][8];
@@ -425,9 +480,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   // each thread pushes 4 columns of one head to the rank that owns them;
   // the first cs * GP threads push the block's (m, l) to every rank
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  const int cpr = ((D + cs - 1) / cs + 3) / 4 * 4;   // output columns per rank
-  for (int quad = tid; quad < GP * D / 4; quad += kThreads) {
-    const int g = quad / (D / 4), col = quad % (D / 4) * 4;
+  // columns below dh (rounded up to 4) only: the ones past it are zeros
+  const int nq = (dh + 3) / 4;                            // 4-column quads per head
+  const int cpr = ((4 * nq + cs - 1) / cs + 3) / 4 * 4;   // output columns per rank
+  for (int quad = tid; quad < GP * nq; quad += kThreads) {
+    const int g = quad / nq, col = quad % nq * 4;
     float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
@@ -467,7 +524,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int quad = tid; quad < GP * cpr / 4; quad += kThreads) {
     const int g = quad / (cpr / 4), c = quad % (cpr / 4) * 4;
     const int col = rank * cpr + c;
-    if (g >= n_heads || col >= D) continue;
+    if (g >= n_heads || col >= dh) continue;
     float lc = 0.0f;
     float4 num = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
@@ -484,26 +541,26 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
     }
     lc = fmaxf(lc, 1e-30f);
-    T* o = out + ((size_t)b * H + head0 + g) * D + col;
-    o[0] = from_f32<T>(num.x / lc);
-    o[1] = from_f32<T>(num.y / lc);
-    o[2] = from_f32<T>(num.z / lc);
-    o[3] = from_f32<T>(num.w / lc);
+    T* o = out + ((size_t)b * H + head0 + g) * dh + col;
+    const float r[4] = {num.x / lc, num.y / lc, num.z / lc, num.w / lc};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (col + i < dh) o[i] = from_f32<T>(r[i]);
   }
 }
 
 // The largest cluster the card can place for an instantiation: set by
 // setup(), read by launch().
-template <typename T, int D, int GP>
+template <typename T, int D, int GP, bool kPart>
 int& max_cluster() {
   static int n = 0;
   return n;
 }
 
-template <typename T, int D, int GP>
+template <typename T, int D, int GP, bool kPart>
 int setup_one() {
   using S = Shape<T, D, GP>;
-  auto kernel = decode_kernel<T, D, GP>;
+  auto kernel = decode_kernel<T, D, GP, kPart>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -526,15 +583,15 @@ int setup_one() {
     (void)cudaGetLastError();   // the query may refuse 16; 8 is portable
     n = 0;
   }
-  max_cluster<T, D, GP>() = n > 0 ? kMaxCluster : kPortableCluster;
+  max_cluster<T, D, GP, kPart>() = n > 0 ? kMaxCluster : kPortableCluster;
   return 0;
 }
 
-template <typename T, int D, int GP>
+template <typename T, int D, int GP, bool kPart>
 int launch_cfg(const void* q, const void* k, const void* v, const void* valid, void* out,
-               int B, int T_len, int H, int KV, int G, float scale, cudaStream_t stream) {
+               int B, int T_len, int H, int KV, int dh, int G, float scale, cudaStream_t stream) {
   using S = Shape<T, D, GP>;
-  const int cap = max_cluster<T, D, GP>();
+  const int cap = max_cluster<T, D, GP, kPart>();
   if (cap == 0) return static_cast<int>(cudaErrorInitializationError);  // setup() not run
   const int n_hg = (G + GP - 1) / GP;
   const int units = B * KV * n_hg;
@@ -556,9 +613,9 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* valid, v
   cfg.numAttrs = 1;
   const float scale_log2 = kLog2e * scale;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, D, GP>, static_cast<const T*>(q), static_cast<const T*>(k),
+      &cfg, decode_kernel<T, D, GP, kPart>, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), static_cast<T*>(out),
-      T_len, H, KV, G, n_hg, scale_log2);
+      T_len, H, KV, dh, G, n_hg, scale_log2);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -566,39 +623,62 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* valid, v
 // heads per unit: the group itself up to 8, rounded up to a power of two
 inline int group_pad(int G) { return G > 4 ? 8 : G > 2 ? 4 : G; }
 
+template <typename T, int D, int GP>
+int launch_gp(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
+              int T_len, int H, int KV, int dh, int G, float scale, cudaStream_t s) {
+  return dh == D
+             ? launch_cfg<T, D, GP, false>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s)
+             : launch_cfg<T, D, GP, true>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+}
+
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-             int T_len, int H, int KV, float scale, cudaStream_t s) {
+             int T_len, int H, int KV, int dh, float scale, cudaStream_t s) {
   const int G = H / KV;
   switch (group_pad(G)) {
-    case 1: return launch_cfg<T, D, 1>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
-    case 2: return launch_cfg<T, D, 2>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
-    case 4: return launch_cfg<T, D, 4>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
-    default: return launch_cfg<T, D, 8>(q, k, v, valid, out, B, T_len, H, KV, G, scale, s);
+    case 1: return launch_gp<T, D, 1>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+    case 2: return launch_gp<T, D, 2>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+    case 4: return launch_gp<T, D, 4>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+    default: return launch_gp<T, D, 8>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
   }
+}
+
+// the width a head dim runs at: the smallest instantiation that holds it
+// (0: none, dh outside 1 .. 256)
+inline int head_width(int dh) {
+  if (dh < 1 || dh > 256) return 0;
+  int w = 16;
+  while (w < dh) w *= 2;
+  return w;
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-           int T_len, int H, int KV, int D, float scale, void* stream) {
+           int T_len, int H, int KV, int dh, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
-    case 32: return launch_d<T, 32>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
-    case 64: return launch_d<T, 64>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
-    case 128: return launch_d<T, 128>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
-    case 256: return launch_d<T, 256>(q, k, v, valid, out, B, T_len, H, KV, scale, s);
+  switch (head_width(dh)) {
+    case 16: return launch_d<T, 16>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
+    case 32: return launch_d<T, 32>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
+    case 64: return launch_d<T, 64>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
+    case 128: return launch_d<T, 128>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
+    case 256: return launch_d<T, 256>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T, int D, bool kPart>
+int setup_p() {
+  int err = setup_one<T, D, 1, kPart>();
+  if (err == 0) err = setup_one<T, D, 2, kPart>();
+  if (err == 0) err = setup_one<T, D, 4, kPart>();
+  if (err == 0) err = setup_one<T, D, 8, kPart>();
+  return err;
+}
+
 template <typename T, int D>
 int setup_d() {
-  int err = setup_one<T, D, 1>();
-  if (err == 0) err = setup_one<T, D, 2>();
-  if (err == 0) err = setup_one<T, D, 4>();
-  if (err == 0) err = setup_one<T, D, 8>();
-  return err;
+  const int err = setup_p<T, D, false>();
+  return err != 0 ? err : setup_p<T, D, true>();
 }
 
 template <typename T>
@@ -624,10 +704,10 @@ extern "C" int decode_attention_setup(void) {
 
 // Plain C entry points for ctypes. q (B, 1, H, D), k/v (B, T, KV, D) and
 // out (B, 1, H, D) are contiguous, k and v 16-byte aligned; valid (T,) one
-// byte per slot, nonzero = attend; H % KV == 0; D in {16, 32, 64, 128,
-// 256}; scores are scaled by `scale` (the wrapper passes the true head
-// dim's D^-0.5 when it has padded D). Each is one launch on `stream` and
-// returns the CUDA error code (0 on success).
+// byte per slot, nonzero = attend; H % KV == 0; any D from 1 to 256, run at
+// the smallest width of 16, 32, 64, 128 and 256 that holds it (see the note
+// at the top); scores are scaled by `scale` (D^-0.5). Each is one launch on
+// `stream` and returns the CUDA error code (0 on success).
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* valid, void* out, int B, int T, int H, int KV,
                                     int D, float scale, void* stream) {

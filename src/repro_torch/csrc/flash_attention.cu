@@ -84,12 +84,29 @@
 // sit in 99 KB of dynamic shared memory. For the scores each lane owns one
 // key column and reads Q rows as broadcast float4s; for P.V each lane owns
 // the output columns lane + 32 c and takes p from its neighbours by shuffle.
+//
+// Head dims: the Pallas kernel's blocks span any D. Each body here is
+// instantiated at widths 16, 32, 64, 128 and 256, and a call with head dim
+// D <= 256 runs the smallest width W >= D. It reads the caller's rows at
+// stride D, fills the columns past D with zeros in shared memory (zero q
+// and k columns leave the scores as they are, zero v columns give output
+// columns that are never written), writes D columns and scales by the true
+// D^-0.5; nothing is copied or padded in device memory. The bf16 body has
+// two instantiations a width: D = W keeps every address and bound at
+// compile time, as the power-of-two head dims always ran; D < W multiplies
+// the zero columns too. (A version that took D at run time everywhere and
+// skipped the zero k-steps by a runtime bound ran every head dim at about
+// half speed on an H100.) A row of D % 8 != 0 lies off the 16-byte grid
+// that cp.async needs, so the bf16 body reads such rows element by element
+// (the fp32 body always does); the choice is made once per tile, outside
+// the copy loops.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -130,8 +147,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int S, int T_len, int H, int KV, int causal, int window, float scale) {
+                 int S, int T_len, int H, int KV, int dh, int causal, int window,
+                 float scale) {
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
+  const int d_end = (dh + 3) & ~3;      // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* q_s = smem;                    // [kBQ][D]
   float* kt_s = q_s + kBQ * D;          // [D][kBK + 1], K transposed
@@ -148,7 +167,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     const int s = q0 + r;
-    q_s[idx] = s < S ? to_f32(q[((size_t)b * S + s) * H * D + (size_t)h * D + d]) : 0.0f;
+    q_s[idx] = s < S && d < dh ? to_f32(q[((size_t)b * S + s) * H * dh + (size_t)h * dh + d])
+                               : 0.0f;
   }
 
   int k_begin = 0, k_end = T_len;
@@ -172,8 +192,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int j = idx / D, d = idx % D;
       const int t = k0 + j;
-      const bool in = t < T_len;
-      const size_t off = ((size_t)b * T_len + t) * KV * D + (size_t)kvh * D + d;
+      const bool in = t < T_len && d < dh;
+      const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
       kt_s[d * (kBK + 1) + j] = in ? to_f32(k[off]) : 0.0f;
       v_s[j * D + d] = in ? to_f32(v[off]) : 0.0f;
     }
@@ -184,7 +204,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < d_end; d += 4) {
       const float k_a = kt_s[(d + 0) * (kBK + 1) + lane];
       const float k_b = kt_s[(d + 1) * (kBK + 1) + lane];
       const float k_c = kt_s[(d + 2) * (kBK + 1) + lane];
@@ -242,18 +262,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
     if (lse != nullptr && lane == 0) lse[((size_t)b * H + h) * S + qpos] = m[r] + logf(denom);
-    T* out_row = o + ((size_t)b * S + qpos) * H * D + (size_t)h * D;
+    T* out_row = o + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (D % 32 == 0 || col < D) out_row[col] = from_f32<T>(acc[r][c] / denom);
+      if (col < dh) out_row[col] = from_f32<T>(acc[r][c] / denom);
     }
   }
 }
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int S, int T_len, int H, int KV, int causal, int window, float scale,
+             int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
              void* stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // one attribute call per instantiation
@@ -266,13 +286,14 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, i
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, T_len, H, KV, causal, window, scale);
+      static_cast<T*>(o), lse, S, T_len, H, KV, dh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bf16 body on the tensor cores -----------------------------------------
 
 using bf16 = __nv_bfloat16;
+
 constexpr int kTcRows = 64;      // packed query rows per warp group, 16 per warp
 constexpr int kTcGroupThreads = 128;
 constexpr int kTcThreads = 2 * kTcGroupThreads;  // two groups: a tile and its mirror
@@ -309,6 +330,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// 16-byte chunk c (columns 8c .. 8c + 7) of a row of dh bf16 into shared
+// memory, zeros past dh and for a row that does not exist (!in). kVec (dh %
+// 8 == 0): the row moves by cp.async; another dh has rows off the 16-byte
+// grid, so its chunks are read element by element and stored whole. The
+// callers pick kVec once per tile, outside their copy loops.
+template <bool kVec>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* row, int c, int dh, bool in) {
+  if (kVec || !in || c * 8 >= dh) {
+    cp_async16(dst, in ? row + c * 8 : row, in && c * 8 < dh);
+    return;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c0 = c * 8 + 2 * i;
+    const uint32_t lo = c0 < dh ? __bfloat16_as_ushort(row[c0]) : 0u;
+    const uint32_t hi = c0 + 1 < dh ? __bfloat16_as_ushort(row[c0 + 1]) : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -340,15 +383,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+// kPart: the tensors' head dim dh_arg is below the width D (rows read at
+// stride dh_arg, columns past it zero-filled); otherwise dh = D at compile
+// time and the body is the one the power-of-two head dims always ran.
+template <int D, bool kPart>
 __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                int S, int T_len, int H, int KV, int causal, int window, float scale_log2) {
+                int S, int T_len, int H, int KV, int dh_arg, int causal, int window,
+                float scale_log2) {
   constexpr int kKeys = TcShape<D>::kKeys;
   constexpr int kChunks = TcShape<D>::kChunks;
   constexpr int kNB = kKeys / 8;  // score n-blocks of 8 keys
   constexpr int kDB = D / 8;      // output n-blocks of 8 columns
+  const int dh = kPart ? dh_arg : D;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const int group = threadIdx.x / kTcGroupThreads;
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem + group * TcShape<D>::kGroupSmem);  // [kTcRows][D]
@@ -370,14 +418,21 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   // element offset of packed row p (query position p / G, head kvh * G + p % G)
   auto q_off = [&](int p) {
-    return ((size_t)b * S + p / G) * H * D + (size_t)(kvh * G + p % G) * D;
+    return ((size_t)b * S + p / G) * H * dh + (size_t)(kvh * G + p % G) * dh;
   };
 
-  for (int idx = tid; idx < kTcRows * kChunks; idx += kTcGroupThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool in = p0 + r < rows;
-    cp_async16(q_s + swz<D>(r, c), q + (in ? q_off(p0 + r) + c * 8 : 0), in);
-  }
+  auto load_q = [&](auto vec) {
+    for (int idx = tid; idx < kTcRows * kChunks; idx += kTcGroupThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool in = p0 + r < rows;
+      load_chunk<decltype(vec)::value>(q_s + swz<D>(r, c), q + (in ? q_off(p0 + r) : 0), c,
+                                       dh, in);
+    }
+  };
+  if (dh % 8 == 0)
+    load_q(std::true_type{});
+  else
+    load_q(std::false_type{});
 
   int k_begin = 0, k_end = T_len;
   if (causal) {  // tiles no row of the block can see
@@ -388,17 +443,24 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
 
-  auto load_kv = [&](int j) {
+  auto load_kv_tile = [&](int j, auto vec) {
+    constexpr bool kVec = decltype(vec)::value;
     const int k0 = k_begin + j * kKeys;
     bf16* ks = k_s + (j & 1) * kKeys * D;
     bf16* vs = v_s + (j & 1) * kKeys * D;
     for (int idx = tid; idx < kKeys * kChunks; idx += kTcGroupThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
       const bool in = k0 + r < T_len;
-      const size_t off = in ? ((size_t)b * T_len + k0 + r) * KV * D + (size_t)kvh * D + c * 8 : 0;
-      cp_async16(ks + swz<D>(r, c), k + off, in);
-      cp_async16(vs + swz<D>(r, c), v + off, in);
+      const size_t off = in ? ((size_t)b * T_len + k0 + r) * KV * dh + (size_t)kvh * dh : 0;
+      load_chunk<kVec>(ks + swz<D>(r, c), k + off, c, dh, in);
+      load_chunk<kVec>(vs + swz<D>(r, c), v + off, c, dh, in);
     }
+  };
+  auto load_kv = [&](int j) {
+    if (dh % 8 == 0)
+      load_kv_tile(j, std::true_type{});
+    else
+      load_kv_tile(j, std::false_type{});
   };
   load_kv(0);
   cp_async_commit();  // Q and the first kv tile
@@ -539,20 +601,26 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncwarp();
   for (int idx = lane; idx < 16 * kChunks; idx += 32) {
     const int r = idx / kChunks, c = idx % kChunks;
-    if (pw + r < rows)
-      *reinterpret_cast<uint4*>(o + q_off(pw + r) + c * 8) =
-          *reinterpret_cast<const uint4*>(q_s + swz<D>(wrow0 + r, c));
+    if (pw + r >= rows || c * 8 >= dh) continue;
+    const bf16* src = q_s + swz<D>(wrow0 + r, c);
+    bf16* dst = o + q_off(pw + r) + c * 8;
+    if (dh % 8 == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {  // rows off the 16-byte grid: the columns below dh one by one
+      for (int i = 0; i < 8 && c * 8 + i < dh; ++i) dst[i] = src[i];
+    }
   }
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-              int T_len, int H, int KV, int causal, int window, float scale, void* stream) {
+template <int D, bool kPart>
+int launch_tc_body(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int T_len, int H, int KV, int dh, int causal, int window,
+                   float scale, void* stream) {
   constexpr size_t smem = 2 * TcShape<D>::kGroupSmem;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_tc_kernel<D, kPart>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -560,32 +628,53 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
   const dim3 grid((unsigned)((n_q + 1) / 2), KV, B);  // a query tile and its mirror
   // the scale and log2(e) in one multiply: exp(x * scale) = exp2(x * scale_log2)
   const float scale_log2 = 1.4426950408889634f * scale;
-  flash_tc_kernel<D><<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_tc_kernel<D, kPart><<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, S, T_len, H, KV, causal, window, scale_log2);
+      static_cast<bf16*>(o), lse, S, T_len, H, KV, dh, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+              int T_len, int H, int KV, int dh, int causal, int window, float scale,
+              void* stream) {
+  return dh == D ? launch_tc_body<D, false>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal,
+                                            window, scale, stream)
+                 : launch_tc_body<D, true>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal,
+                                           window, scale, stream);
 }
 
 // The body is chosen by the input type: bf16 on the tensor cores, fp32 on
 // the FMA pipe (see the note at the top).
 template <typename T, int D>
 int launch_body(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int S, int T_len, int H, int KV, int causal, int window, float scale,
+                int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
                 void* stream) {
   if constexpr (sizeof(T) == 2)
-    return launch_tc<D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
+    return launch_tc<D>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, scale, stream);
   else
-    return launch_d<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
+    return launch_d<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, scale,
+                          stream);
+}
+
+// the width a head dim runs at: the smallest instantiation that holds it
+// (0: none, dh outside 1 .. 256)
+inline int head_width(int dh) {
+  if (dh < 1 || dh > 256) return 0;
+  int w = 16;
+  while (w < dh) w *= 2;
+  return w;
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int T_len, int H, int KV, int D, int causal, int window, float scale,
+           int T_len, int H, int KV, int dh, int causal, int window, float scale,
            void* stream) {
-#define FA_FWD_CASE(DIM)                                                                       \
-  case DIM:                                                                                    \
-    return launch_body<T, DIM>(q, k, v, o, lse, B, S, T_len, H, KV, causal, window, scale, stream);
-  switch (D) {
+#define FA_FWD_CASE(DIM)                                                                  \
+  case DIM:                                                                               \
+    return launch_body<T, DIM>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, \
+                               scale, stream);
+  switch (head_width(dh)) {
     FA_FWD_CASE(16)
     FA_FWD_CASE(32)
     FA_FWD_CASE(64)
@@ -623,10 +712,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // q/k/v/o/dO in and dq/dk/dv out (~8 us at 3.35 TB/s).
 //
 // bf16 (bwd_wgmma_kernel) runs at width 128 or 256. A narrower head dim
-// (96: phi3-mini) reads as zero columns past D, which the copies fill in
-// shared memory (zero q and k columns leave the scores as they are, zero v
-// and dO columns give gradient columns that are not written), so nothing
-// is padded in device memory. Three launches:
+// (96: phi3-mini; any D % 8 == 0) reads as zero columns past D, which the
+// copies fill in shared memory (zero q and k columns leave the scores as
+// they are, zero v and dO columns give gradient columns that are not
+// written), so nothing is padded in device memory. TMA needs rows on the
+// 16-byte grid: the wrapper pads a D % 8 != 0 to the next multiple of 8.
+// Three launches:
 //   1. bwd_prep_kernel: delta and lse * log2(e) into a scratch padded to
 //      whole 64-row tiles (+inf and 0 past S, so a padded row weighs
 //      nothing), which the TMA engine can copy.
@@ -741,9 +832,10 @@ __global__ void __launch_bounds__(kThreads)
 dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int S, int T_len, int H, int KV, int causal, int window,
-              float scale) {
+              float* __restrict__ dq, int S, int T_len, int H, int KV, int dh, int causal,
+              int window, float scale) {
   constexpr int kCols = (D + 31) / 32;
+  const int d_end = (dh + 3) & ~3;  // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* q_s = smem;                   // [kBQ][D]
   float* do_s = q_s + kBQ * D;         // [kBQ][D]
@@ -756,9 +848,10 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx % D, s = q0 + r;
-    const size_t off = ((size_t)b * S + s) * H * D + (size_t)h * D + d;
-    q_s[idx] = s < S ? q[off] : 0.0f;
-    do_s[idx] = s < S ? dout[off] : 0.0f;
+    const bool in = s < S && d < dh;
+    const size_t off = ((size_t)b * S + s) * H * dh + (size_t)h * dh + d;
+    q_s[idx] = in ? q[off] : 0.0f;
+    do_s[idx] = in ? dout[off] : 0.0f;
   }
   float lse_r[kRows], dl_r[kRows];
 #pragma unroll
@@ -787,9 +880,10 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile is consumed (and Q, dO are loaded)
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int j = idx / D, d = idx % D, t = k0 + j;
-      const size_t off = ((size_t)b * T_len + t) * KV * D + (size_t)kvh * D + d;
-      kt_s[d * (kBK + 1) + j] = t < T_len ? k[off] : 0.0f;
-      vt_s[d * (kBK + 1) + j] = t < T_len ? v[off] : 0.0f;
+      const bool in = t < T_len && d < dh;
+      const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
+      kt_s[d * (kBK + 1) + j] = in ? k[off] : 0.0f;
+      vt_s[d * (kBK + 1) + j] = in ? v[off] : 0.0f;
     }
     __syncthreads();
 
@@ -797,7 +891,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.0f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < d_end; d += 4) {
       float kk[4], vv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -843,11 +937,11 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= S) continue;
-    float* out = dq + ((size_t)b * S + qpos) * H * D + (size_t)h * D;
+    float* out = dq + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (D % 32 == 0 || col < D) out[col] = acc[r][c] * scale;
+      if (col < dh) out[col] = acc[r][c] * scale;
     }
   }
 }
@@ -862,8 +956,9 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int S, int T_len, int H, int KV,
-               int causal, int window, float scale) {
+               int dh, int causal, int window, float scale) {
   constexpr int kCols = (D + 31) / 32;
+  const int d_end = (dh + 3) & ~3;  // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* k_s = smem;                    // [kBK][D]
   float* v_s = k_s + kBK * D;           // [kBK][D]
@@ -876,9 +971,10 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int idx = tid; idx < kBK * D; idx += kThreads) {
     const int j = idx / D, d = idx % D, t = k0 + j;
-    const size_t off = ((size_t)b * T_len + t) * KV * D + (size_t)kvh * D + d;
-    k_s[idx] = t < T_len ? k[off] : 0.0f;
-    v_s[idx] = t < T_len ? v[off] : 0.0f;
+    const bool in = t < T_len && d < dh;
+    const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
+    k_s[idx] = in ? k[off] : 0.0f;
+    v_s[idx] = in ? v[off] : 0.0f;
   }
   // query positions that can see a key of [k0, k0 + kBK)
   const int k_last = min(T_len, k0 + kBK) - 1;
@@ -900,9 +996,10 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // the previous tile is consumed (and K, V are loaded)
       for (int idx = tid; idx < kBQ * D; idx += kThreads) {
         const int i = idx / D, d = idx % D, s = qt0 + i;
-        const size_t off = ((size_t)b * S + s) * H * D + (size_t)h * D + d;
-        qt_s[d * (kBQ + 1) + i] = s < S ? q[off] : 0.0f;
-        dot_s[d * (kBQ + 1) + i] = s < S ? dout[off] : 0.0f;
+        const bool in = s < S && d < dh;
+        const size_t off = ((size_t)b * S + s) * H * dh + (size_t)h * dh + d;
+        qt_s[d * (kBQ + 1) + i] = in ? q[off] : 0.0f;
+        dot_s[d * (kBQ + 1) + i] = in ? dout[off] : 0.0f;
       }
       __syncthreads();
       const int qpos = qt0 + lane;
@@ -914,7 +1011,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.0f;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < d_end; d += 4) {
         float qq[4], gg[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -965,11 +1062,11 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int kpos = k0 + warp * kRows + r;
     if (kpos >= T_len) continue;
-    const size_t off = ((size_t)b * T_len + kpos) * KV * D + (size_t)kvh * D;
+    const size_t off = ((size_t)b * T_len + kpos) * KV * dh + (size_t)kvh * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (D % 32 == 0 || col < D) {
+      if (col < dh) {
         dk[off + col] = acc_k[r][c] * scale;
         dv[off + col] = acc_v[r][c];
       }
@@ -1731,7 +1828,7 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, co
 template <int D>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                   int S, int T_len, int H, int KV, int causal, int window, float scale,
+                   int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = bwd_f32_smem_bytes<D>();
   static bool cfg_kv = false, cfg_q = false;
@@ -1741,13 +1838,13 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout
   dkv_f32_kernel<D><<<dim3((T_len + kBK - 1) / kBK, KV, B), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, T_len, H, KV, causal, window, scale);
+      static_cast<float*>(dv), S, T_len, H, KV, dh, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_f32_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, T_len, H, KV,
-      causal, window, scale);
+      dh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1755,6 +1852,7 @@ int launch_bwd_f32_all(const void* q, const void* k, const void* v, const void* 
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int B, int S, int T_len, int H, int KV, int D, int causal,
                        int window, float scale, cudaStream_t stream) {
+  if (head_width(D) == 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_rows = (long long)B * S * H;
   delta_kernel<float><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps,
                         0, stream>>>(static_cast<const float*>(o),
@@ -1763,9 +1861,9 @@ int launch_bwd_f32_all(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
 #define FA_BWD_CASE(DIM)                                                                       \
   case DIM:                                                                                    \
-    return launch_bwd_f32<DIM>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_len, H, KV,      \
+    return launch_bwd_f32<DIM>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_len, H, KV, D,   \
                                causal, window, scale, stream);
-  switch (D) {
+  switch (head_width(D)) {
     FA_BWD_CASE(16)
     FA_BWD_CASE(32)
     FA_BWD_CASE(64)
@@ -1780,11 +1878,13 @@ int launch_bwd_f32_all(const void* q, const void* k, const void* v, const void* 
 
 // Plain C entry points for ctypes. q (B, S, H, D), k/v (B, T, KV, D) and
 // o (B, S, H, D) are contiguous; lse is null or an fp32 (B, H, S) buffer;
-// H % KV == 0; D in {16, 32, 64, 128, 256}; causal is 0/1, window <= 0
-// means none; scores are scaled by `scale` (the wrapper passes the true
-// head dim's D^-0.5 when it has padded D). The bf16 entry also needs each
-// pointer 16-byte aligned (its tiles move by 16-byte cp.async). Each
-// launches on `stream` and returns the CUDA error code (0 on success).
+// H % KV == 0; any D from 1 to 256, run at the smallest width of 16, 32,
+// 64, 128 and 256 that holds it (rows read at stride D, the columns past D
+// zeros on the card, only D columns written); causal is 0/1, window <= 0
+// means none; scores are scaled by `scale` (D^-0.5). The bf16 entry also
+// needs each pointer 16-byte aligned (rows of D % 8 == 0 move by 16-byte
+// cp.async). Each launches on `stream` and returns the CUDA error code (0
+// on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        void* o, void* lse, int B, int S, int T, int H, int KV,
                                        int D, int causal, int window, float scale,
@@ -1808,8 +1908,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
 // (B, H, S) fp32 log-sum-exp; causal 0/1, window <= 0 means none; `scale`
 // as in the forward. Each launches its kernels on `stream` and returns the
 // CUDA error code (0 on success).
-//   fp32: D in {16, 32, 64, 128, 256}; stats is an fp32 (B, H, S) scratch
-//   buffer the call fills with delta; part is unused.
+//   fp32: any D from 1 to 256, run at the forward's widths; stats is an
+//   fp32 (B, H, S) scratch buffer the call fills with delta; part is unused.
 //   bf16: D a multiple of 8 up to 256 (run at width 128 or 256); every
 //   pointer 16-byte aligned; stats is an fp32 scratch of 2 B H S_pad (S_pad:
 //   S rounded up to 64); part, when H > KV, an fp32 scratch of 2 B H T D for

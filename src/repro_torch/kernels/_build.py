@@ -20,8 +20,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# --split-compile 0: optimize a source's kernels on every core at once (the
+# attention sources hold tens of template instantiations each)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # source name -> {"seconds": load wall time, build included, "log": nvcc's

@@ -6,11 +6,12 @@ flash-decoding whose chunks are combined inside a thread-block cluster: no
 scratch, no atomics, and nothing kept between calls, so a call can be
 captured in a CUDA graph. The wrapper allocates only the output; nothing is
 transposed, and the boolean slot mask is read as it is, one byte a slot.
-Every argument is checked before a pointer is handed over. Head_dim 96
-(phi3-mini), which the kernel has no instantiation for, is padded here with
-zero columns to 128, and the kernel gets the true D^-0.5: zero q and k
-columns leave the scores as they are, zero v columns give output columns
-that are sliced off.
+Every argument is checked before a pointer is handed over. Head dims: any D
+from 1 to ``MAX_HEAD_DIM`` (256), as the reference's Pallas kernel takes
+any D. The kernel runs at the smallest width of 16, 32, 64, 128 and 256 that
+holds D, reads the cache's rows as they are (stride D), fills the columns
+past D with zeros on the card, writes D columns and scales by the true
+D^-0.5: nothing is padded or copied here. A larger D is refused.
 
 Launch counting: ``LAUNCHES["decode_attention"]`` counts launches that ran
 on the card. A call made while the current stream is capturing a CUDA graph
@@ -34,7 +35,7 @@ CAPTURED = {"decode_attention": 0}
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+MAX_HEAD_DIM = 256   # the widest instantiation
 _INT_MAX = 2 ** 31 - 1
 _UNITS_MAX = 65535   # gridDim.y: B * KV * ceil(G / 8)
 _READY: set = set()  # CUDA device indices whose kernel attributes are set
@@ -76,6 +77,10 @@ def _lib(device: torch.device) -> ctypes.CDLL:
 
 
 def _check(q, k, v, valid) -> None:
+    d = q.shape[-1] if q.dim() else 0
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}: the kernel's "
+                         f"widest instantiation is {MAX_HEAD_DIM}")
     for name, x in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, "
@@ -91,8 +96,6 @@ def _check(q, k, v, valid) -> None:
     t, kvh = k.shape[1], k.shape[2]
     if kvh == 0 or h % kvh:
         raise ValueError(f"query heads {h} must be a multiple of kv heads {kvh}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if tuple(valid.shape) != (t,) or valid.dtype != torch.bool:
         raise ValueError(f"valid must be bool of shape ({t},), got "
                          f"{valid.dtype} {tuple(valid.shape)}")
@@ -124,17 +127,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t, kvh = k.shape[1], k.shape[2]
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    dp = 128 if d == 96 else d
-    if dp != d:
-        q, k, v = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v))
-    res = out if dp == d else torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = getattr(_lib(q.device), _ENTRY[q.dtype])
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 res.data_ptr(), b, t, h, kvh, dp, d ** -0.5, stream)
-    if res is not out:
-        out.copy_(res[..., :d])
+                 out.data_ptr(), b, t, h, kvh, d, d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
     if torch.cuda.is_current_stream_capturing():

@@ -16,12 +16,15 @@ captures a CUDA graph runs nothing: it adds to ``CAPTURED`` instead, and
 whoever replays the graph adds the launches it holds with ``count_replays``
 (``launch/train.py::TrainGraph``).
 
-Head dim 96 (phi3-mini), which the forward and the fp32 backward have no
-instantiation for, is padded here with zero columns to 128, and the kernels
-get the true D^-0.5: zero q and k columns leave the scores as they are, zero
-v and dO columns give output and gradient columns that are sliced off. The
-bf16 backward takes the unpadded tensors: its copies fill the columns past
-D with zeros in shared memory.
+Head dims: any D from 1 to ``MAX_HEAD_DIM`` (256), as the reference's
+Pallas kernel takes any D. The kernels run at the smallest width of 16, 32,
+64, 128 and 256 that holds D (the bf16 backward at 128 or 256), read the
+tensors as they are (rows at stride D), fill the columns past D with zeros
+on the card and scale by the true D^-0.5; nothing is padded or copied here.
+One rule pads: the bf16 backward moves its tiles by TMA, whose rows must lie
+on a 16-byte grid, so at D % 8 != 0 its inputs are padded with zero columns
+to the next multiple of 8 and its gradients sliced back (``_bwd_width``). A
+larger D is refused.
 
 These wrappers are not differentiable: an input that requires grad is
 refused instead of silently dropping its gradient. ``ops.flash_attention``
@@ -44,7 +47,7 @@ _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+MAX_HEAD_DIM = 256   # the widest instantiation
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
 
@@ -82,9 +85,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _fwd_width(d: int) -> int:
-    """The head dim the kernels run ``d`` at: 96 pads to 128."""
-    return 128 if d == 96 else d
+def _bwd_width(d: int, dtype: torch.dtype) -> int:
+    """The head dim the backward's tensors are handed over at: ``d``, but
+    the bf16 body's TMA rows need ``d % 8 == 0``, so another ``d`` pads to
+    the next multiple of 8."""
+    return -(-d // 8) * 8 if dtype == torch.bfloat16 else d
 
 
 def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -106,8 +111,9 @@ def _check(q, k, v, causal: bool, window) -> None:
     t, kvh = k.shape[1], k.shape[2]
     if kvh == 0 or h % kvh:
         raise ValueError(f"query heads {h} must be a multiple of kv heads {kvh}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}: the kernels' "
+                         f"widest instantiation is {MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if causal and window is not None and s > t:
@@ -148,20 +154,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out.zero_()
         return (out, lse.fill_(-1e30)) if return_lse else out
     fn = getattr(_lib(), _ENTRY[q.dtype])
-    dp = _fwd_width(d)
-    q, k, v = (_pad(x, dp) for x in (q, k, v))
-    res = out if dp == d else torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, s, t, h, kvh, dp, int(causal),
+                 b, s, t, h, kvh, d, int(causal),
                  -1 if window is None else int(window), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _count("flash_attention")
-    if res is not out:
-        out.copy_(res[..., :d])
     return (out, lse) if return_lse else out
 
 
@@ -196,7 +197,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{t + window - 1} on see no key (S {s}, T {t})")
     if q.numel() == 0 or t == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dp = d if q.dtype == torch.bfloat16 else _fwd_width(d)
+    dp = _bwd_width(d, q.dtype)
     q, k, v, o, do = (_pad(x, dp) for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -9,6 +9,12 @@ work there. Any other device raises. The kernel reads the model layout and
 masks its own ragged edges, so unlike the TPU wrapper nothing is transposed
 or padded.
 
+The reference's keywords: ``force_ref=True`` runs the plain version on any
+device, CUDA included, and launches nothing. ``block_q`` and ``block_kv``
+(the reference's ``DEFAULT_BLOCK_Q`` / ``DEFAULT_BLOCK_KV``, 128) must be
+positive ints, as the reference's tiling needs; the Hopper kernel's tiles
+are fixed by its design, so they are checked and not used.
+
 Training: on a CUDA tensor that requires grad the call goes through
 ``FlashAttention``, an ``autograd.Function`` whose forward is the kernel
 (keeping the rows' log-sum-exp) and whose backward is the hand-written
@@ -20,8 +26,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch._tree import is_dtensor
+from repro_torch.kernels import check_block
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
+
+DEFAULT_BLOCK_Q = 128    # the reference's kernel.DEFAULT_BLOCK_Q
+DEFAULT_BLOCK_KV = 128   # and DEFAULT_BLOCK_KV
 
 
 class FlashAttention(torch.autograd.Function):
@@ -105,19 +115,28 @@ def _local_heads(q, k, v, fn):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_kv: int = DEFAULT_BLOCK_KV,
+                    force_ref: bool = False) -> torch.Tensor:
     """Model layout: q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D).
     ``DTensor`` inputs (a model trained on a device mesh) run per rank on
-    local shards (``_local_heads``): the kernels take plain tensors."""
+    local shards (``_local_heads``): the kernels take plain tensors.
+    ``force_ref`` takes the plain version there too."""
     if is_dtensor(q):
         return _local_heads(q, k, v, lambda a, b, c: flash_attention(
-            a, b, c, causal=causal, window=window))
+            a, b, c, causal=causal, window=window, block_q=block_q,
+            block_kv=block_kv, force_ref=force_ref))
+    if force_ref:
+        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors (or "
+                         f"meta for pricing), got {q.device}")
+    check_block(block_q, "block_q")
+    check_block(block_kv, "block_kv")
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window)
         return _k.flash_attention(q, k, v, causal=causal, window=window)
-    if q.device.type in ("cpu", "meta"):
-        return _ref.attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors (or meta "
-                     f"for pricing), got {q.device}")
+    return _ref.attention_ref(q, k, v, causal=causal, window=window)

@@ -5,7 +5,9 @@ version in ``ref.py`` (the reference's ``interpret = backend != "tpu"``
 switch). A meta tensor goes to the plain version too: it computes nothing,
 and a shape-only run (``analysis.program_cost``) prices the plain function's
 work there. Any other device raises. The kernel masks its own ragged edges, so
-unlike the TPU wrapper nothing is padded.
+unlike the TPU wrapper nothing is padded. ``force_ref=True`` (the
+reference's keyword) runs the plain version on any device, CUDA included,
+and launches nothing; like the reference's, it does not cast the scales.
 """
 from __future__ import annotations
 
@@ -24,18 +26,23 @@ def _on_cuda(t: torch.Tensor) -> bool:
                      f"pricing), got {t.device}")
 
 
-def spmm(adj: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+def spmm(adj: torch.Tensor, feats: torch.Tensor, *,
+         force_ref: bool = False) -> torch.Tensor:
     """adj (M, N) @ feats (N, D) -> (M, D)."""
+    if force_ref:
+        return _ref.spmm_ref(adj, feats)
     if _on_cuda(feats):
         return _k.spmm(adj, feats)
     return _ref.spmm_ref(adj, feats)
 
 
 def scaled_spmm(adj: torch.Tensor, feats: torch.Tensor, row_scale: torch.Tensor,
-                col_scale: torch.Tensor) -> torch.Tensor:
+                col_scale: torch.Tensor, *, force_ref: bool = False) -> torch.Tensor:
     """(diag(row_scale) @ adj @ diag(col_scale)) @ feats -> (M, D) in one
     fused masked-aggregate op. The scales are cast to feats' dtype first, as
     the reference wrapper does before its kernel."""
+    if force_ref:
+        return _ref.scaled_spmm_ref(adj, feats, row_scale, col_scale)
     r = row_scale.to(feats.dtype)
     c = col_scale.to(feats.dtype)
     if _on_cuda(feats):

@@ -180,11 +180,13 @@ def make_prefill(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, api: ModelApi | None = None) -> Callable:
+def make_decode_step(cfg: ModelConfig, api: ModelApi | None = None,
+                     greedy: bool = True) -> Callable:
     """(params, token (B,1), pos, caches) -> (next_token (B,1) int32,
     caches). ``pos`` is an int or a 0-d int32 tensor on the params' device,
     as the reference's ``serve_step`` takes a traced scalar. Greedy: the
-    argmax of the last logits. The caches are updated in place."""
+    argmax of the last logits, whatever ``greedy`` says (the reference takes
+    the keyword and never reads it). The caches are updated in place."""
     api = api or get_api(cfg)
 
     def serve_step(params, token, pos, caches):

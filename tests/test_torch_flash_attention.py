@@ -87,15 +87,16 @@ def test_ops_refuse_devices_other_than_cuda_and_cpu():
 
 @pytest.mark.parametrize("d", [96, 32])
 def test_zero_padding_the_head_dim_keeps_the_function(d):
-    """What the wrappers do for head_dim 96, which the forward kernels lack,
-    and what the bf16 backward's copies do for any head dim below its width
-    of 128: zero columns up to 128, the true D^-0.5. Zero q and k columns
-    leave the scores as they are, zero v and dO columns give output and
-    gradient columns of zeros. The plain version at width 128 stands in for
-    the kernel, with q scaled by (128 / d)^0.5 so that its 128^-0.5 becomes
-    d^-0.5."""
+    """What the kernels do on the card for a head dim below their width
+    (96 runs at 128; the bf16 backward runs every d <= 128 at 128): zero
+    columns up to the width in shared memory, the true D^-0.5. Zero q and k
+    columns leave the scores as they are, zero v and dO columns give output
+    and gradient columns of zeros. The plain version at width 128 stands in
+    for the kernel, with q scaled by (128 / d)^0.5 so that its 128^-0.5
+    becomes d^-0.5. The wrappers hand both d over unpadded."""
     width = 128
-    assert tkernel._fwd_width(d) == (width if d == 96 else d)
+    assert tkernel._bwd_width(d, torch.bfloat16) == d
+    assert tkernel._bwd_width(d, torch.float32) == d
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 40, 4, 2, d, seed=2)
                    + [np.random.default_rng(3).standard_normal(
                        (2, 40, 4, d)).astype(np.float32)])
