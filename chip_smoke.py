@@ -72,7 +72,11 @@ graphs against the eager paths (``gnn_graphs``) -> kernel check
 (attention) -> every head dim (``head_dims``: D 8, 36, 40, 80, 96, 112,
 192, 200, 256 in fp32 and bf16, forward, backward and decode against the
 plain versions, one profiled call each holding only the kernel's own
-launches, ``force_ref=True`` launching nothing) -> gemma3-1b serve (launch
+launches, ``force_ref=True`` launching nothing) -> every input the
+reference's kernels take (``kernel_domain``: D 257-1024 in column passes
+and fp16 on every kernel, views bit for bit the dense call, an fp32
+adjacency with bf16 features, query rows that see no key; a profiled
+D 320 call per dtype holding only its body's kernels) -> gemma3-1b serve (launch
 counts,
 a repeat call that must hold no more memory, the graphed step against the
 eager one, eager and graphed decode profiles, kernels vs plain in fp32) ->
@@ -85,7 +89,8 @@ size; graphed vs eager, jamba's kernel launches) -> whisper-small and
 internvl2-1b serve (launch counts, a repeat call, graphed vs eager,
 profiles, fp32 kernels vs plain on every row) -> phi3-mini serve (the
 same checks, head_dim 96 through the kernels unpadded) ->
-attention times (decode also per call inside a graph and from HBM) ->
+attention times (decode also per call inside a graph and from HBM; D 512
+and fp16 rows naming SDPA's backend) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
 of one step) -> the pricer (``price_serve``) -> the one-card dry-run
@@ -147,7 +152,8 @@ CHECK_SHAPES = [(8, 22, "float32"), (46, 15, "float32"), (64, 213, "float32"),
                 (128, 213, "float32"), (200, 64, "float32"),
                 (1024, 213, "float32"), (2048, 213, "float32"),
                 (46, 12, "bfloat16")]
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
+# tests/test_kernels.py::_tol; fp16 carries 3 more mantissa bits than bf16
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 1e-2}
 TIMED_BUCKETS = (8, 16, 64, 1024, 2048)
 N_TIMED = 60
 
@@ -1443,17 +1449,23 @@ CALL_KERNELS = {
     ("decode", "bfloat16"): ("decode_kernel",)}
 
 
-def _calls_kernels(torch, fns) -> list:
-    """For each of ``fns``, the names of the device activities (kernels,
-    copies, fills) that one call ran: every call (after an unprofiled one)
-    under one torch.profiler session, each after a sleep kernel that marks
-    its start on the card's clock. (One session per call lost all its
-    records after some tens of sessions on the card.)"""
+def _calls_profile(torch, fns):
+    """For each of ``fns``, the device activities (kernels, copies, fills)
+    that one call ran, name -> summed device ms: every call (after an
+    unprofiled one) under one torch.profiler session, each after a sleep
+    kernel that marks its start on the card's clock. (One session per call
+    lost all its records after some tens of sessions on the card.) A
+    session can miss its first kernel on the card, so a primer (a sleep
+    kernel, waited for) runs before the first call's marker, and the
+    session's markers are taken as its last ones. Returns (calls, None),
+    or (None, the reason) when it shows fewer markers than calls."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)   # the primer
+        torch.cuda.synchronize()
         for fn in fns:
             torch.cuda._sleep(1000)   # the call's marker
             fn()
@@ -1462,14 +1474,27 @@ def _calls_kernels(torch, fns) -> list:
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and not e.is_user_annotation),
                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(device)
+             if "spin_kernel" in e.name or "sleep" in e.name]
+    if len(marks) < len(fns):
+        return None, (f"the profile shows {len(marks)} call markers for "
+                      f"{len(fns)} calls ({len(device)} device activities)")
+    marks = marks[len(marks) - len(fns):]
     calls = []
-    for e in device:
-        if "spin_kernel" in e.name or "sleep" in e.name:
-            calls.append(set())
-        elif calls:
-            calls[-1].add(e.name)
-    check(len(calls) == len(fns), f"the profiler shows {len(calls)} call "
-                                  f"markers for {len(fns)} calls")
+    for a, b in zip(marks, marks[1:] + [len(device)]):
+        call = {}
+        for e in device[a + 1:b]:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            call[e.name] = call.get(e.name, 0.0) + ms
+        calls.append(call)
+    return calls, None
+
+
+def _calls_kernels(torch, fns) -> list:
+    """For each of ``fns``, the sorted names of the device activities that
+    one call ran (``_calls_profile``); fails when a marker is missing."""
+    calls, note = _calls_profile(torch, fns)
+    check(calls is not None, f"call markers: {note}")
     return [sorted(c) for c in calls]
 
 
@@ -1565,6 +1590,148 @@ def phase_head_dims(torch, FK, FR, DK, DR) -> dict:
         B=HD.B, S=HD.S, T=HD.S, H=HD.H, KV=HD.KV), max_abs_err=errs,
         launches=launches, profiles=profiles, force_ref=force)
     return errs
+
+
+# -- every input the reference's kernels take -----------------------------------
+# the kernels of one call per body (``FK.dispatch``'s "body"; decode has one)
+BODY_KERNELS = {"fma_fwd": ("flash_fwd_kernel",), "mma": ("flash_tc_kernel",),
+                "fma": ("delta_kernel", "dkv_f32_kernel", "dq_f32_kernel"),
+                "wgmma": ("bwd_prep_kernel", "bwd_wgmma_kernel", "dkv_reduce_kernel"),
+                "cluster": ("decode_kernel",)}
+PROFILED_D = 320
+
+
+def phase_kernel_domain(torch, FK, FR, DK, DR) -> dict:
+    """Every case of ``tests/test_torch_kernel_domain_gpu.py`` against the
+    plain versions (2e-5 fp32, 2e-2 bf16, 1e-2 fp16), each with launches >
+    0: head dims 257-1024 (column passes of 256) in fp32, bf16 and fp16 on
+    the flash forward (causal and window 64), its backward through
+    ``ops.FlashAttention`` and decode; fp16 at D 36, 96 and 256 and on
+    ``gcn_spmm`` at buckets 64 and 1024; a transposed, a column-sliced, an
+    unbound and a 2-byte-offset view on every kernel, bit for bit the dense
+    call, each copied or not as ``view_copies`` says (the attention kernels
+    read all but the offset one through their strides); an fp32
+    adjacency with bf16 features; query rows that see no key (S 12, T 6,
+    window 2, causal and not, forward and backward). Then one call of each
+    wrapper at D 320 per dtype on dense, aligned inputs and one on
+    head-transposed views of them, all under one profiler session, must run
+    only its body's own kernels: no copy."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_kernel_domain_gpu as KD
+    from repro_torch.kernels.gcn_spmm import kernel as K
+    errs, launches, n_cases = {}, {}, 0
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    def run(label, kind, dt, fn, want_names):
+        nonlocal n_cases
+        FK.reset_launches()
+        DK.reset_launches()
+        K.reset_launches()
+        got, want = fn()
+        torch.cuda.synchronize()
+        n = {**FK.LAUNCHES, **DK.LAUNCHES, **K.LAUNCHES}
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        tol = TOL[dt]
+        err, ok = 0.0, True
+        for g, w in zip(got, want):
+            ok_g, err_g = _close(torch, g, w, tol)
+            ok = ok and ok_g and bool(torch.isfinite(g.float()).all()) \
+                and g.dtype == w.dtype and g.shape == w.shape
+            err = max(err, err_g)
+        check(all(n[k] > 0 for k in want_names),
+              f"kernel_domain: {label} launched {n}, want {want_names} > 0")
+        check(ok, f"kernel_domain: {label} differs from its plain version: "
+                  f"max abs err {err} (tol {tol})")
+        errs.setdefault(kind, {}).setdefault(dt, 0.0)
+        errs[kind][dt] = max(errs[kind][dt], err)
+        add(n)
+        n_cases += 1
+        emit("kernel_domain_check", call=label, dtype=dt, max_abs_err=err,
+             rtol=tol, atol=tol, ok=ok, launches={k: v for k, v in n.items() if v})
+
+    flash, bwd = ["flash_attention"], ["flash_attention", "flash_attention_bwd"]
+    for d, dt in KD.DIM_DTYPES:
+        for w in KD.WINDOWS:
+            run(f"forward D {d} window={w}", "forward", dt,
+                lambda: KD.forward_case(d, dt, w), flash)
+            run(f"backward D {d} window={w}", "backward", dt,
+                lambda: KD.backward_case(d, dt, w), bwd)
+        run(f"decode D {d}", "decode", dt, lambda: KD.decode_case(d, dt),
+            ["decode_attention"])
+    for n in KD.SPMM_BUCKETS:
+        for scaled in (False, True):
+            name = "scaled_spmm" if scaled else "spmm"
+            run(f"{name} bucket {n}", name, "float16",
+                lambda: KD.spmm_case(n, "float16", scaled), [name])
+            run(f"{name} bucket {n} fp32 adj", name, "bfloat16",
+                lambda: KD.spmm_case(n, "bfloat16", scaled, adj_dtype="float32"),
+                [name])
+    for dt in KD.DTYPES:
+        for causal in (True, False):
+            for backward in (False, True):
+                run(f"no-key rows causal={causal} "
+                    f"{'backward' if backward else 'forward'}", "no_key", dt,
+                    lambda: KD.nokey_case(dt, causal, backward),
+                    bwd if backward else flash)
+    views = {}
+    for kernel in KD.VIEW_KERNELS:
+        for kind in KD.VIEWS:
+            before = KD.launch_counts()
+            got, want, odd, copied = KD.view_case(kernel, kind)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+            n = {k: c - before[k] for k, c in KD.launch_counts().items()}
+            views[f"{kernel} {kind}"] = {"bit_equal": equal, "launches": n[kernel],
+                                         "copied": copied}
+            check(odd and equal and n[kernel] > 0
+                  and copied == KD.view_copies(kernel, kind),
+                  f"kernel_domain: {kernel} on a {kind} view: {odd=} {equal=} "
+                  f"{copied=} launches {n}")
+            add(n)
+    # one call of each wrapper per dtype at D 320 on dense, aligned inputs
+    # and on head-transposed views of them (read through their strides)
+    calls = []
+    for dt in KD.DTYPES:
+        dense = KD.inputs(PROFILED_D, dt, seed=7)
+        for layout in ("dense", "strided"):
+            q, k, v, do = dense if layout == "dense" else \
+                (KD.view_of(x, "transposed") for x in dense)
+            o, lse = FK.flash_attention(q, k, v, return_lse=True)
+            q1, valid = q[:, :1], KD.ring_valid(k.shape[1])
+            fwd_plan = FK.dispatch(PROFILED_D, q.dtype, (q, k, v))
+            bwd_plan = FK.dispatch(PROFILED_D, q.dtype, (q, k, v, o, do), backward=True)
+            dec_plan = DK.dispatch(PROFILED_D, (q1, k, v, valid))
+            check(not any(fwd_plan["copy"] + bwd_plan["copy"] + dec_plan["copy"]),
+                  f"kernel_domain: {layout} D {PROFILED_D} {dt} inputs would be copied")
+            fwd_body = "fma_fwd" if fwd_plan["body"] == "fma" else fwd_plan["body"]
+            calls += [
+                ("forward", layout, dt, fwd_body,
+                 lambda q=q, k=k, v=v: FK.flash_attention(q, k, v)),
+                ("backward", layout, dt, bwd_plan["body"],
+                 lambda q=q, k=k, v=v, o=o, lse=lse, do=do:
+                    FK.flash_attention_bwd(q, k, v, o, lse, do)),
+                ("decode", layout, dt, "cluster", lambda q1=q1, k=k, v=v, valid=valid:
+                    DK.decode_attention(q1, k, v, valid))]
+    profiles = {}
+    for (kind, layout, dt, body, _), names in zip(calls, _calls_kernels(
+            torch, [c[4] for c in calls])):
+        own = BODY_KERNELS[body]
+        other = [x for x in names if not any(n in x for n in own)]
+        profiles[f"{kind} D {PROFILED_D} {dt} {layout}"] = {"body": body, "kernels": names}
+        check(names and not other,
+              f"kernel_domain: a {kind} call at D {PROFILED_D} {dt} on {layout} inputs "
+              f"ran more than its kernels {own}: {names}")
+    del calls
+    emit("kernel_domain", wide_dims=list(KD.WIDE_DIMS), f16_dims=list(KD.F16_DIMS),
+         shape=dict(B=KD.B, S=KD.S, H=KD.H, KV=KD.KV), cases=n_cases,
+         max_abs_err=errs, views=views, profiles=profiles, launches=launches)
+    return {"errs": errs, "launches": launches}
 
 
 def _dev_time(e) -> float:
@@ -2505,8 +2672,10 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     to 256; olmoe-1b-7b's (16 heads, 16 kv heads, head_dim 128) at its
     serve shapes, B 4 x 1024 and T 1088; internvl2-1b's (14 heads over 2 kv heads: G 7, head_dim 64), a
     prefill of 4 x (256 patches + 1024 tokens) and a step against T 1344;
-    and whisper-small's decoder (12 heads, 12 kv heads, head_dim 64), a
-    prefill of 4 x 384 and a step against T 448."""
+    whisper-small's decoder (12 heads, 12 kv heads, head_dim 64), a
+    prefill of 4 x 384 and a step against T 448; and gemma3-1b's shapes at
+    head_dim 512 (bf16, two column passes of 256) and in fp16 at its own
+    head_dim 256. Each case carries its dtype."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE["arch"])
     spec_local = cfg.segments[0].layers[0].attn
@@ -2517,8 +2686,8 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     b, s = SERVE["batch"], SERVE["prompt"]
     max_len = s + SERVE["gen"]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(
-        torch.bfloat16)
+    # fp16 for the "fp16" rows, bf16 for every other
+    dtype_of = lambda label: torch.float16 if label == "fp16" else torch.bfloat16
     elt = 2
     cases = {}
     gemma = (spec_local.n_heads, spec_local.n_kv_heads, spec_local.head_dim)
@@ -2527,6 +2696,7 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     olm = (olmoe.n_heads, olmoe.n_kv_heads, olmoe.head_dim)
     g7 = (ivl.n_heads, ivl.n_kv_heads, ivl.head_dim)
     whi = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim)
+    d512 = (spec_local.n_heads, spec_local.n_kv_heads, 512)
     ivl_s = get_config(INTERNVL["arch"]).n_patches + INTERNVL["prompt"]
     for label, window, b, s, (h, kvh, d) in (
             ("global", None, SERVE["batch"], SERVE["prompt"], gemma),
@@ -2535,7 +2705,11 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             ("d80", None, SERVE["batch"], SERVE["prompt"], d80),
             ("olmoe", None, OLMOE["batch"], OLMOE["prompt"], olm),
             ("internvl2-1b", None, INTERNVL["batch"], ivl_s, g7),
-            ("whisper-small", None, WHISPER["batch"], WHISPER["prompt"], whi)):
+            ("whisper-small", None, WHISPER["batch"], WHISPER["prompt"], whi),
+            ("d512", None, SERVE["batch"], SERVE["prompt"], d512),
+            ("fp16", None, SERVE["batch"], SERVE["prompt"], gemma)):
+        rn = lambda *shape, dt=dtype_of(label): torch.randn(
+            *shape, device="cuda", generator=gen).to(dt)
         q, k, v = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d)
         qpos = torch.arange(s, device="cuda")[:, None]
         kpos = torch.arange(s, device="cuda")[None, :]
@@ -2546,10 +2720,12 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         cases[("flash_attention", label)] = dict(
             shape=dict(B=b, S=s, H=h, KV=kvh, D=d, window=window),
+            dtype=str(q.dtype).replace("torch.", ""),
             kernel=lambda q=q, k=k, v=v, w=window: FK.flash_attention(q, k, v, window=w),
             plain=lambda q=q, k=k, v=v, w=window: FR.attention_ref(q, k, v, window=w),
             library=lambda qt=qt, kt=kt, vt=vt, m=mask: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True),
+            library_args=(qt, kt, vt, mask),
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
             flops=4 * d * pairs * b * h)
     b = SERVE["batch"]
@@ -2563,20 +2739,40 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             ("d80", max_len, s + SERVE["gen"] // 2, d80),
             ("olmoe", max_len, s + SERVE["gen"] // 2, olm),
             ("internvl2-1b", ivl_t, ivl_s + INTERNVL["gen"] // 2, g7),
-            ("whisper-small", whi_t, WHISPER["prompt"] + WHISPER["gen"] // 2, whi)):
+            ("whisper-small", whi_t, WHISPER["prompt"] + WHISPER["gen"] // 2, whi),
+            ("d512", max_len, s + SERVE["gen"] // 2, d512),
+            ("fp16", max_len, s + SERVE["gen"] // 2, gemma)):
+        rn = lambda *shape, dt=dtype_of(label): torch.randn(
+            *shape, device="cuda", generator=gen).to(dt)
         q, k, v = rn(b, 1, h, d), rn(b, t, kvh, d), rn(b, t, kvh, d)
         valid = torch.arange(t, device="cuda") < n_valid
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         cases[("decode_attention", label)] = dict(
             shape=dict(B=b, T=t, H=h, KV=kvh, D=d, valid=n_valid),
+            dtype=str(q.dtype).replace("torch.", ""),
             kernel=lambda q=q, k=k, v=v, m=valid: DK.decode_attention(q, k, v, m),
             plain=lambda q=q, k=k, v=v, m=valid: DR.decode_attention_ref(q, k, v, m),
             library=lambda qt=qt, kt=kt, vt=vt, m=valid: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m[None, :], enable_gqa=True),
+            library_args=(qt, kt, vt, valid[None, :]),
             # the valid slots' K/V, the query, the bool mask and the output
             nbytes=(2 * b * n_valid * kvh * d + 2 * q.numel()) * elt + t,
             flops=4 * d * n_valid * b * h)
     return cases
+
+
+NEW_TIME_ROWS = ("d512", "fp16")   # rows that also name SDPA's backend
+
+
+def _sdpa_backend(torch, q, k, v, attn_mask=None, is_causal=False) -> dict:
+    """The backend SDPA's dispatcher picks for these (B, H, S, D) inputs
+    (``torch._fused_sdp_choice``, the choice ``scaled_dot_product_attention``
+    itself makes; no profiler session: the card's profiler loses its
+    records after some tens of sessions)."""
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, is_causal,
+                                     enable_gqa=True)
+    return {"library_backend": SDPBackend(choice).name}
 
 
 def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
@@ -2592,13 +2788,15 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
     for (name, label), c in _attn_time_cases(torch, F, FK, FR, DK, DR).items():
         t_bytes = c["nbytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = c["flops"] / PEAK_BF16_FLOPS * 1e3
-        row = {"layer": label, **c["shape"], "dtype": "bfloat16",
+        row = {"layer": label, **c["shape"], "dtype": c["dtype"],
                "ms": _time_ms(torch, c["kernel"]),
                "plain_ms": _time_ms(torch, c["plain"]),
                "library_ms": _time_ms(torch, c["library"]),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["nbytes"], "flops": c["flops"]}
+        if label in NEW_TIME_ROWS:   # the backend SDPA ran
+            row.update(_sdpa_backend(torch, *c["library_args"]))
         if name == "flash_attention" and label in ("global", "local"):
             # gemma3-1b's training shape too (B 4, S 1024): per call inside
             # a graph of 100, as the training graph runs it
@@ -2656,26 +2854,29 @@ def phase_flash_bwd_check(torch, FK, FR) -> dict:
 
 # the bf16 backward's launches, in order
 BWD_KERNELS = ("bwd_prep_kernel", "bwd_wgmma_kernel", "dkv_reduce_kernel")
+# how far a call's profiled device time may lie from its event-timed ms
+# before its split is not reported (each is one call, timed its own way)
+SPLIT_SPAN = (0.5, 1.5)
 
 
-def _kernel_split_ms(torch, fn, names, calls=5) -> dict:
-    """Device ms of one call of ``fn`` by kernel, from torch.profiler over
-    ``calls`` calls: the kernels whose names contain each of ``names``, and
-    the call's other device time under "other"."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    split = {n: sum(_dev_time(e) for e in kernels if n in e.key) / 1e3 / calls
-             for n in names}
-    total = sum(_dev_time(e) for e in kernels) / 1e3 / calls
+def _kernel_split(call: dict, names, ms: float):
+    """One profiled call's device ms by kernel (``_calls_profile``'s dict
+    for that call): the activities whose names contain each of ``names``,
+    the rest under "other", their sum under "total"; and None, or the
+    reason the split is None: the profile holds none of ``names``, or its
+    total lies outside ``SPLIT_SPAN`` times the event-timed ``ms``. A split
+    that was not measured is not printed."""
+    if not any(n in k for k in call for n in names):
+        return None, f"the profile holds none of {list(names)}: {sorted(call)}"
+    split = {n: sum(t for k, t in call.items() if n in k) for n in names}
+    total = sum(call.values())
     split["other"] = total - sum(split.values())
-    return split
+    split["total"] = total
+    lo, hi = SPLIT_SPAN
+    if not lo * ms <= total <= hi * ms:
+        return None, (f"the profiled total {total} ms lies outside "
+                      f"{SPLIT_SPAN} x the timed {ms} ms")
+    return split, None
 
 
 def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
@@ -2683,14 +2884,21 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
     D 256, bf16), global and window 512, and at phi3-mini's attention (B 1,
     S 1024, H 32, KV 32, D 96 run at width 128, causal): kernel (one call:
     prep, dK/dV, dQ and, when H > KV, the sum of the heads' partials), the
-    same call's device time by kernel from a profile (``split_ms``), its
+    same call's device time by kernel (``split_ms``: one call of every row
+    under one shared profiler session with call markers; null, with
+    ``split_note``, when the profile does not hold the row's kernels or its
+    total is far from the timed ms), its
     plain version (``attention_bwd_ref``: the same function from the same o
     and log-sum-exp), and one SDPA forward + backward as the library
     yardstick (timed only, never used by the port; causal flag for the
     global layers, a boolean mask for the window). Bound: bytes (q, k, v, o,
     dO and the log-sum-exp read, dq, dk, dv written) / 3.35 TB/s against
     the backward's five products over the visible pairs (S, dP, dV, dK, dQ:
-    10 D flops a pair and head, at the true D) / 989 TFLOP/s."""
+    10 D flops a pair and head, at the true D) / 989 TFLOP/s. Also gemma3-1b's
+    training shape at head_dim 512 (bf16: the fp32-math bodies in two column
+    passes of 256, each recomputing S and dP over all of D) and in fp16 at
+    its own head_dim 256 (the wgmma body's f16 instructions), each naming
+    the backend SDPA ran."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     spec = get_config(TRAIN["arch"]).segments[0].layers[0].attn
@@ -2698,13 +2906,17 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
     gemma = (TRAIN["batch"], spec.n_heads, spec.n_kv_heads, spec.head_dim)
     phi = (1, phi3.n_heads, phi3.n_kv_heads, phi3.head_dim)
     s = TRAIN["seq"]
+    d512 = (TRAIN["batch"], spec.n_heads, spec.n_kv_heads, 512)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(
-        torch.bfloat16)
-    out = {}
+    out, kernels = {}, {}
     for label, window, (b, h, kvh, d) in (("global", None, gemma),
                                           ("local", spec.window, gemma),
-                                          ("phi3-mini", None, phi)):
+                                          ("phi3-mini", None, phi),
+                                          ("d512", None, d512),
+                                          ("fp16", None, gemma)):
+        dt = torch.float16 if label == "fp16" else torch.bfloat16
+        rn = lambda *shape, dt=dt: torch.randn(*shape, device="cuda",
+                                               generator=gen).to(dt)
         q, k, v, do = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d), rn(b, s, h, d)
         o, lse = FK.flash_attention(q, k, v, window=window, return_lse=True)
         qpos = torch.arange(s, device="cuda")[:, None]
@@ -2728,18 +2940,28 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
         flops = 10 * d * pairs * b * h
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        body = FK.dispatch(d, q.dtype, [], backward=True)["body"]
         row = {"layer": label, "B": b, "S": s, "H": h, "KV": kvh, "D": d,
-               "window": window, "dtype": "bfloat16",
-               "ms": _time_ms(torch, kernel),
-               "split_ms": _kernel_split_ms(torch, kernel, BWD_KERNELS),
+               "window": window, "dtype": str(dt).replace("torch.", ""),
+               "body": body, "ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, lambda: FR.attention_bwd_ref(
                    q, k, v, o, lse, do, window=window)),
                "library_ms": _time_ms(torch, library),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops}
-        emit("times", kernel="flash_attention_bwd", card=card, **_shares(row))
+        if label in NEW_TIME_ROWS:
+            row.update(_sdpa_backend(torch, qt, kt, vt, None, True))
         out[label] = row
+        kernels[label] = kernel
+    # every row's split from one profiler session
+    profiled, note = _calls_profile(torch, list(kernels.values()))
+    for i, row in enumerate(out.values()):
+        row["split_ms"], row_note = (None, note) if profiled is None else \
+            _kernel_split(profiled[i], BODY_KERNELS[row["body"]], row["ms"])
+        if row_note:
+            row["split_note"] = row_note
+        emit("times", kernel="flash_attention_bwd", card=card, **_shares(row))
     return out
 
 
@@ -3584,7 +3806,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_graphs_gpu.py",
              "tests/test_torch_gnn_train_graphs_gpu.py",
              "tests/test_torch_train_mesh_gpu.py",
-             "tests/test_torch_head_dims_gpu.py"]
+             "tests/test_torch_head_dims_gpu.py",
+             "tests/test_torch_kernel_domain_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cards = torch.cuda.device_count()
     left_out = [t for t, n in MULTI_CARD_TESTS.items() if cards < n]
@@ -3681,6 +3904,13 @@ def main() -> None:
     # backward, decode; one profiled call each; force_ref on the card)
     errs.update(phase_attention_check(torch, FK, FR, DK, DR))
     hd_errs = phase_head_dims(torch, FK, FR, DK, DR)
+    # 6b. every input the reference's kernels take: head dims past 256,
+    # fp16, views, mixed adjacency dtypes, rows that see no key
+    domain = phase_kernel_domain(torch, FK, FR, DK, DR)
+    # 6c. the flash backward: check and times at the training shape (here,
+    # while the card's profiler still keeps its records for the split)
+    bwd_errs = phase_flash_bwd_check(torch, FK, FR)
+    bwd_times = phase_flash_bwd_times(torch, FK, FR, card)
     # 7. the serving main path, counts zeroed before and read after
     launches.update(phase_serve(torch, device, FK, DK))
     # 7b. the MoE, MLA, Mamba and xLSTM families: olmoe-1b-7b at full width,
@@ -3700,9 +3930,6 @@ def main() -> None:
                 "serve_phi3_mini": phase_serve_phi3_mini(torch, device, FK, DK)}
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
-    # 9. the flash backward: check and times at the training shape
-    bwd_errs = phase_flash_bwd_check(torch, FK, FR)
-    bwd_times = phase_flash_bwd_times(torch, FK, FR, card)
     # 10. the training main path, counts zeroed before and read after
     train_launches = phase_train(torch, device, FK, card)
     # 10a. the same training on a one-card NCCL device mesh, counts zeroed
@@ -3736,7 +3963,8 @@ def main() -> None:
         recover = sum(l_recover.values()) if name == "scaled_spmm" else 0
         by_path = {"plan": launches[name], "recover": recover,
                    **{k: n if name == "scaled_spmm" else 0
-                      for k, n in l_sim.items()}}
+                      for k, n in l_sim.items()},
+                   "kernel_domain": domain["launches"].get(name, 0)}
         kernels.append({
             "name": f"gcn_spmm.{name}", "route": "cuda",
             "source": "src/repro_torch/csrc/gcn_spmm.cu",
@@ -3745,6 +3973,7 @@ def main() -> None:
             "on_main_path": name == "scaled_spmm",
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
+            "max_abs_err_kernel_domain": domain["errs"][name],
             **{k: top[k] for k in keys},
             "by_bucket": {str(b): times[name][b] for b in TIMED_BUCKETS}})
     for name in ("flash_attention", "decode_attention"):
@@ -3757,6 +3986,7 @@ def main() -> None:
         if name == "flash_attention":
             by_path["train"] = train_launches[name]
             by_path["train_mesh_1card"] = mesh_launches[name]
+        by_path["kernel_domain"] = domain["launches"].get(name, 0)
         kernels.append({
             "name": f"{name}.{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -3765,6 +3995,8 @@ def main() -> None:
             "max_abs_err": errs[name]["float32"],
             "max_abs_err_bf16": errs[name]["bfloat16"],
             "max_abs_err_head_dims": hd_errs[
+                "forward" if name == "flash_attention" else "decode"],
+            "max_abs_err_kernel_domain": domain["errs"][
                 "forward" if name == "flash_attention" else "decode"],
             **{k: attn_times[name]["global"][k] for k in keys},
             **{k: attn_times[name]["global"][k] for k in decode_keys
@@ -3776,13 +4008,16 @@ def main() -> None:
         "replaces": BWD_REPLACES, "replaces_note": "the gradient of that "
         "kernel's function (the reference differentiates its plain oracle)",
         "launches": train_launches["flash_attention_bwd"]
-        + mesh_launches["flash_attention_bwd"],
+        + mesh_launches["flash_attention_bwd"]
+        + domain["launches"].get("flash_attention_bwd", 0),
         "launches_by_path": {
             "train": train_launches["flash_attention_bwd"],
-            "train_mesh_1card": mesh_launches["flash_attention_bwd"]},
+            "train_mesh_1card": mesh_launches["flash_attention_bwd"],
+            "kernel_domain": domain["launches"].get("flash_attention_bwd", 0)},
         "on_main_path": True,
         "max_abs_err": bwd_errs["float32"], "max_abs_err_bf16": bwd_errs["bfloat16"],
         "max_abs_err_head_dims": hd_errs["backward"],
+        "max_abs_err_kernel_domain": domain["errs"]["backward"],
         **{k: bwd_times["global"][k] for k in keys}, "by_case": bwd_times})
     # 13. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

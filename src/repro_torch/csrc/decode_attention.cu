@@ -58,9 +58,11 @@
 // a ring of half the depth (one chunk at D 256).
 // Head dims: the Pallas kernel's blocks span any D. The kernel is
 // instantiated at widths 16, 32, 64, 128 and 256, and a call with head dim
-// D <= 256 runs the smallest width W >= D: it reads the cache's rows at
-// stride D, the ring's columns past D are zero-filled (so they add nothing
-// to a score and give accumulator columns that stay out of the output),
+// D <= 256 runs the smallest width W >= D (the wrapper's dispatch picks it
+// and hands it over): it reads q and the cache at the caller's strides
+// (Axes: a view of a fused or wider tensor is read in place), the ring's
+// columns past D are zero-filled (so they add nothing to a score and give
+// accumulator columns that stay out of the output),
 // the cluster combines and writes only the D columns, and scores are scaled
 // by the true D^-0.5. Nothing is copied in device memory. Rows of D not on
 // the 16-byte grid (D % 8 in bf16, D % 4 in fp32) are read element by
@@ -71,8 +73,17 @@
 // sets every instantiation's shared-memory limit and non-portable cluster
 // size once, before any capture, and records the largest cluster the card
 // can place.
+// Head dims above 256 run in column passes of 256 (kWide, one launch: grid
+// y = unit * passes + pass): the cache rows are streamed as pieces of 256
+// columns, K pieces 0 .. ceil(D / 256) - 1 of a chunk of rows summed into
+// the same score partials (the q piece re-read from L1 each time), then
+// the pass's V piece; the ring keeps the width-256 layout (a stage holds a
+// K piece and, with the chunk's last K piece, the V piece). Each pass
+// combines and writes its own 256 columns, so K is streamed once per pass.
+// float16 takes the bf16 path with f16 loads.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -150,10 +161,34 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+constexpr int kPassWidth = 256;  // output columns of one pass when D > 256
+
+// element strides of the batch, row and head axes of a (B, rows, heads, D)
+// input whose last axis is unit-stride: the caller's view, read in place
+// (every stride a multiple of 16 bytes, so a row on the 16-byte grid stays
+// there; the wrapper copies any other view)
+struct Axes {
+  long long b;  // may pass 2^31 elements
+  int s, h;     // the wrapper checks these fit an int
+  __host__ __device__ __forceinline__ size_t at(int bi, int si, int hi) const {
+    return (size_t)((long long)bi * b + (long long)si * s + (long long)hi * h);
+  }
+};
+// whether strides `a` are those of a dense (B, rows, heads, dh) tensor (an
+// axis of size 1 carries stride 0 from the wrapper: never used)
+inline bool is_dense(const Axes& a, int B, int rows, int heads, int dh) {
+  return (B == 1 || a.b == (long long)rows * heads * dh) &&
+         (rows == 1 || a.s == (long long)heads * dh) && (heads == 1 || a.h == dh);
 }
 
 // The 8 elements of a row that lane j (of the row's kL lanes) owns: in bf16
@@ -170,6 +205,19 @@ template <int D> struct Row8<__nv_bfloat16, D> {
     for (int i = 0; i < 4; ++i) {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <int D> struct Row8<__half, D> {
+  __device__ static __forceinline__ int col(int j, int e) { return 8 * j + e; }
+  __device__ static __forceinline__ void load(const __half* row, int j, float (&f)[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * j);
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __half22float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
     }
   }
 };
@@ -226,15 +274,20 @@ struct TransposeSum {
   }
 };
 
-// grid (CS, units), cluster (CS, 1, 1); unit = (b * KV + kvh) * NHG + hg.
+// grid (CS, units * passes), cluster (CS, 1, 1); unit = (b * KV + kvh) * NHG
+// + hg, blockIdx.y = unit * passes + pass (passes = 1 unless kWide).
 // kPart: the tensors' head dim dh_arg is below the width D; otherwise dh = D
 // at compile time and the body is the one the power-of-two head dims
-// always ran.
-template <typename T, int D, int GP, bool kPart>
+// always ran. kWide (with kPart, D = 256): dh_arg > 256 in column passes.
+// kStrided (with kPart): q, k and v are views read at the caller's strides
+// (Axes); a dense call keeps the addressing it always had (strides read
+// everywhere cost up to 15% at internvl2-1b's decode on an H100).
+template <typename T, int D, int GP, bool kPart, bool kWide, bool kStrided>
 __global__ void __launch_bounds__(Shape<T, D, GP>::kThreads, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const uint8_t* __restrict__ valid, T* __restrict__ out, int T_len, int H,
-              int KV, int dh_arg, int G, int NHG, float scale_log2) {
+              const uint8_t* __restrict__ valid, T* __restrict__ out, const Axes q_ax,
+              const Axes k_ax, const Axes v_ax, int T_len, int H, int KV, int dh_arg, int G,
+              int NHG, float scale_log2, int passes) {
   using S = Shape<T, D, GP>;
   const int dh = kPart ? dh_arg : D;
   using RowT = Row8<T, D>;
@@ -254,7 +307,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int unit = blockIdx.y;
+  const int unit = kWide ? blockIdx.y / passes : blockIdx.y;
+  const int c0 = kWide ? (blockIdx.y % passes) * D : 0;  // the pass's first column
+  const int n_pc = kWide ? (dh + D - 1) / D : 1;          // K pieces of a cache row
+  const int dv = kWide ? min(D, dh - c0) : dh;            // the pass's output columns
   const int hg = unit % NHG;
   const int bk = unit / NHG;   // b * KV + kvh
   const int b = bk / KV;
@@ -268,73 +324,88 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int lo = min(T_len, (rank * kWarps + warp) * per);
   const int hi = min(T_len, lo + per);
   const int n_chunks = (hi - lo + kRows - 1) / kRows;
+  const int n_items = n_chunks * n_pc;   // (chunk, K piece) in order: the ring's items
 
   const int j = lane % kL;      // the lane's 8 elements of a row
   const int rg = lane / kL;     // the lane's row within a pass
 
-  // the group's queries, 8 elements a head, in registers
+  // the group's queries, 8 elements a head, in registers: all of them, or
+  // (kWide) K piece pc's columns
   float qf[GP][8];
+  auto load_q = [&](int pc) {
 #pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    if (g < n_heads) {
-      const T* row = q + ((size_t)b * H + head0 + g) * dh;
-      if (dh == D)
-        RowT::load(row, j, qf[g]);
-      else
-        load_row8<T, D>(row, j, dh, qf[g]);
-    } else {
+    for (int g = 0; g < GP; ++g) {
+      if (g < n_heads) {
+        const T* row = q + pc * D +
+                       (kStrided ? q_ax.at(b, 0, head0 + g) : ((size_t)b * H + head0 + g) * dh);
+        if (!kPart || (!kWide && dh == D))
+          RowT::load(row, j, qf[g]);
+        else
+          load_row8<T, D>(row, j, dh - pc * D, qf[g]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qf[g][e] = 0.0f;
+        for (int e = 0; e < 8; ++e) qf[g][e] = 0.0f;
+      }
     }
-  }
+  };
+  if constexpr (!kWide) load_q(0);
 
   unsigned char* ring = dec_smem + (size_t)warp * S::kRingBytes;
   float* sc = fs + warp * kRows * GP;   // this warp's scores [row][head]
-  const size_t row_stride = (size_t)KV * dh;   // elements between cache slots
-  const T* k_base = k + ((size_t)b * T_len * KV + kvh) * dh;
-  const T* v_base = v + ((size_t)b * T_len * KV + kvh) * dh;
+  // slot t of this batch and kv head at + t * row_stride (kStrided: at the
+  // caller's strides, k and v apart; else one offset for both)
+  const size_t row_stride = kStrided ? (size_t)k_ax.s : (size_t)KV * dh;
+  const T* k_base = k + (kStrided ? k_ax.at(b, 0, kvh) : ((size_t)b * T_len * KV + kvh) * dh);
+  const T* v_base = v + (kStrided ? v_ax.at(b, 0, kvh) : ((size_t)b * T_len * KV + kvh) * dh);
   // a row of dh elements on the 16-byte grid moves by cp.async, a piece
   // past dh zero-filled; another dh is read element by element
   constexpr int kPieceElts = 16 / S::kElt;
   const bool vec = dh % kPieceElts == 0;
 
-  auto issue_chunk = [&](int c, auto vec_t) {
-    constexpr bool kVec = decltype(vec_t)::value;
-    if (c < n_chunks) {
+  // 16 bytes of a row (columns e0 .. of `row`, lim of them real) into dst
+  auto piece16 = [&](unsigned char* dst, const T* row, int e0, int lim, bool ok, auto vec_t) {
+    if (decltype(vec_t)::value || !ok || e0 >= lim) {
+      const bool in = ok && e0 < lim;
+      cp_async16(dst, row + (in ? e0 : 0), in);
+    } else {
+      T* d = reinterpret_cast<T*>(dst);
+#pragma unroll
+      for (int e = 0; e < kPieceElts; ++e) d[e] = e0 + e < lim ? row[e0 + e] : from_f32<T>(0.0f);
+    }
+  };
+  // item i into the ring: the rows of chunk i / n_pc, K columns
+  // [pc D, pc D + D) (pc = i % n_pc) and, with the last piece, V columns
+  // [c0, c0 + D)
+  auto issue_chunk = [&](int i, auto vec_t) {
+    if (i < n_items) {
       constexpr int kPieces = S::kRowBytes / 16;   // 16-byte pieces per row
-      unsigned char* kd = ring + (c % kStages) * S::kChunkBytes;
+      const int c = i / n_pc, pc = i % n_pc;
+      unsigned char* kd = ring + (i % kStages) * S::kChunkBytes;
       unsigned char* vd = kd + kRows * S::kRowBytes;
       const int r0 = lo + c * kRows;
+      const bool with_v = pc == n_pc - 1;
 #pragma unroll
-      for (int i = lane; i < kRows * kPieces; i += 32) {
-        const int row = i / kPieces, piece = i % kPieces;
+      for (int x = lane; x < kRows * kPieces; x += 32) {
+        const int row = x / kPieces, piece = x % kPieces;
         const bool ok = r0 + row < hi;
         const size_t off = ok ? (size_t)(r0 + row) * row_stride : 0;
+        const size_t v_off = kStrided ? (ok ? (size_t)(r0 + row) * v_ax.s : 0) : off;
         const int e0 = piece * kPieceElts;   // the piece's first column
-        if (kVec || !ok || e0 >= dh) {
-          const bool in = ok && e0 < dh;
-          cp_async16(kd + row * S::kRowBytes + piece * 16, k_base + off + (in ? e0 : 0), in);
-          cp_async16(vd + row * S::kRowBytes + piece * 16, v_base + off + (in ? e0 : 0), in);
-        } else {
-          T* ks = reinterpret_cast<T*>(kd + row * S::kRowBytes) + e0;
-          T* vs = reinterpret_cast<T*>(vd + row * S::kRowBytes) + e0;
-#pragma unroll
-          for (int e = 0; e < kPieceElts; ++e) {
-            const bool in = e0 + e < dh;
-            ks[e] = in ? k_base[off + e0 + e] : from_f32<T>(0.0f);
-            vs[e] = in ? v_base[off + e0 + e] : from_f32<T>(0.0f);
-          }
-        }
+        piece16(kd + row * S::kRowBytes + piece * 16, k_base + off + pc * D, e0, dh - pc * D, ok,
+                vec_t);
+        if (with_v)
+          piece16(vd + row * S::kRowBytes + piece * 16, v_base + v_off + c0, e0, dh - c0, ok,
+                  vec_t);
       }
     }
     cp_async_commit();   // an empty group keeps the wait count uniform
   };
-  // the layout is picked once per chunk, outside the copy loop
-  auto issue = [&](int c) {
+  // the layout is picked once per item, outside the copy loop
+  auto issue = [&](int i) {
     if (vec)
-      issue_chunk(c, std::true_type{});
+      issue_chunk(i, std::true_type{});
     else
-      issue_chunk(c, std::false_type{});
+      issue_chunk(i, std::false_type{});
   };
 
   float m_run[GP], l_run[GP], acc[GP][8];
@@ -349,43 +420,76 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) issue(c);
   for (int c = 0; c < n_chunks; ++c) {
-    issue(c + kStages - 1);
     const int r0 = lo + c * kRows;
     const int nr = min(kRows, hi - r0);
-    // the chunk's mask bytes, one row per lane, while the copies fly
-    const int vb = lane < nr ? valid[r0 + lane] : 0;
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    const T* kc = reinterpret_cast<const T*>(ring + (c % kStages) * S::kChunkBytes);
-    const T* vc = kc + kRows * D;
-
-    // scores: 8 products per head and row, then a transposing sum
+    // scores: 8 products per head and row (summed over the K pieces if
+    // kWide), then a transposing sum
     float part[S::kNV];
+    const T* vc;
+    int vb;
+    if constexpr (!kWide) {
+      issue(c + kStages - 1);
+      // the chunk's mask bytes, one row per lane, while the copies fly
+      vb = lane < nr ? valid[r0 + lane] : 0;
+      cp_async_wait<kStages - 1>();
+      __syncwarp();
+      const T* kc = reinterpret_cast<const T*>(ring + (c % kStages) * S::kChunkBytes);
+      vc = kc + kRows * D;
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      if (p * kR >= nr) {   // a pass of rows past the run (uniform in the warp)
+      for (int p = 0; p < kPasses; ++p) {
+        if (p * kR >= nr) {   // a pass of rows past the run (uniform in the warp)
 #pragma unroll
-        for (int g = 0; g < GP; ++g) part[p * GP + g] = 0.0f;
-        continue;
+          for (int g = 0; g < GP; ++g) part[p * GP + g] = 0.0f;
+          continue;
+        }
+        float kf[8];
+        RowT::load(kc + (p * kR + rg) * D, j, kf);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          float s = qf[g][0] * kf[0];
+#pragma unroll
+          for (int e = 1; e < 8; ++e) s = fmaf(qf[g][e], kf[e], s);
+          part[p * GP + g] = s;
+        }
       }
-      float kf[8];
-      RowT::load(kc + (p * kR + rg) * D, j, kf);
+    } else {   // item c * n_pc + pc: K piece pc, with the V piece at the last
+      vb = lane < nr ? valid[r0 + lane] : 0;
+      for (int pc = 0; pc < n_pc; ++pc) {
+        const int i = c * n_pc + pc;
+        issue(i + kStages - 1);
+        load_q(pc);
+        cp_async_wait<kStages - 1>();
+        __syncwarp();
+        const T* kc = reinterpret_cast<const T*>(ring + (i % kStages) * S::kChunkBytes);
+        vc = kc + kRows * D;
 #pragma unroll
-      for (int g = 0; g < GP; ++g) {
-        float s = qf[g][0] * kf[0];
+        for (int p = 0; p < kPasses; ++p) {
+          if (p * kR >= nr) {   // a pass of rows past the run (uniform in the warp)
 #pragma unroll
-        for (int e = 1; e < 8; ++e) s = fmaf(qf[g][e], kf[e], s);
-        part[p * GP + g] = s;
+            for (int g = 0; g < GP; ++g) part[p * GP + g] = 0.0f;
+            continue;
+          }
+          float kf[8];
+          RowT::load(kc + (p * kR + rg) * D, j, kf);
+#pragma unroll
+          for (int g = 0; g < GP; ++g) {
+            float s = pc == 0 ? qf[g][0] * kf[0] : fmaf(qf[g][0], kf[0], part[p * GP + g]);
+#pragma unroll
+            for (int e = 1; e < 8; ++e) s = fmaf(qf[g][e], kf[e], s);
+            part[p * GP + g] = s;
+          }
+        }
+        if (pc < n_pc - 1) __syncwarp();   // the ring slot is refilled next
       }
     }
     TransposeSum<S::kNV, kL / 2>::run(part, lane);
     const int base = S::kNV >= kL ? j * (S::kNV / kL) : j / (kL / S::kNV);
 #pragma unroll
-    for (int i = 0; i < S::kNVL; ++i) {
-      const int idx = base + i;
+    for (int x = 0; x < S::kNVL; ++x) {
+      const int idx = base + x;
       const int row = (idx / GP) * kR + rg, g = idx % GP;
       const int ok = __shfl_sync(0xffffffffu, vb, row);
-      sc[row * GP + g] = row >= nr ? kAbsent : (ok ? part[i] * scale_log2 : kNegInf);
+      sc[row * GP + g] = row >= nr ? kAbsent : (ok ? part[x] * scale_log2 : kNegInf);
     }
     __syncwarp();
 
@@ -438,7 +542,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
   cp_async_wait<0>();
 
-  // the row groups' accumulators hold disjoint rows of the same columns
+// the row groups' accumulators hold disjoint rows of the same columns
 #pragma unroll
   for (int off = kL; off < 32; off *= 2)
 #pragma unroll
@@ -480,8 +584,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   // each thread pushes 4 columns of one head to the rank that owns them;
   // the first cs * GP threads push the block's (m, l) to every rank
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  // columns below dh (rounded up to 4) only: the ones past it are zeros
-  const int nq = (dh + 3) / 4;                            // 4-column quads per head
+  // columns below dv (rounded up to 4) only: the ones past it are zeros
+  const int nq = (dv + 3) / 4;                            // 4-column quads per head
   const int cpr = ((4 * nq + cs - 1) / cs + 3) / 4 * 4;   // output columns per rank
   for (int quad = tid; quad < GP * nq; quad += kThreads) {
     const int g = quad / nq, col = quad % nq * 4;
@@ -524,7 +628,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int quad = tid; quad < GP * cpr / 4; quad += kThreads) {
     const int g = quad / (cpr / 4), c = quad % (cpr / 4) * 4;
     const int col = rank * cpr + c;
-    if (g >= n_heads || col >= dh) continue;
+    if (g >= n_heads || col >= dv) continue;
     float lc = 0.0f;
     float4 num = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
@@ -541,26 +645,26 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
     }
     lc = fmaxf(lc, 1e-30f);
-    T* o = out + ((size_t)b * H + head0 + g) * dh + col;
+    T* o = out + ((size_t)b * H + head0 + g) * dh + c0 + col;
     const float r[4] = {num.x / lc, num.y / lc, num.z / lc, num.w / lc};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (col + i < dh) o[i] = from_f32<T>(r[i]);
+      if (col + i < dv) o[i] = from_f32<T>(r[i]);
   }
 }
 
 // The largest cluster the card can place for an instantiation: set by
 // setup(), read by launch().
-template <typename T, int D, int GP, bool kPart>
+template <typename T, int D, int GP, bool kPart, bool kWide, bool kStrided>
 int& max_cluster() {
   static int n = 0;
   return n;
 }
 
-template <typename T, int D, int GP, bool kPart>
+template <typename T, int D, int GP, bool kPart, bool kWide, bool kStrided>
 int setup_one() {
   using S = Shape<T, D, GP>;
-  auto kernel = decode_kernel<T, D, GP, kPart>;
+  auto kernel = decode_kernel<T, D, GP, kPart, kWide, kStrided>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -583,18 +687,19 @@ int setup_one() {
     (void)cudaGetLastError();   // the query may refuse 16; 8 is portable
     n = 0;
   }
-  max_cluster<T, D, GP, kPart>() = n > 0 ? kMaxCluster : kPortableCluster;
+  max_cluster<T, D, GP, kPart, kWide, kStrided>() = n > 0 ? kMaxCluster : kPortableCluster;
   return 0;
 }
 
-template <typename T, int D, int GP, bool kPart>
+template <typename T, int D, int GP, bool kPart, bool kWide, bool kStrided>
 int launch_cfg(const void* q, const void* k, const void* v, const void* valid, void* out,
-               int B, int T_len, int H, int KV, int dh, int G, float scale, cudaStream_t stream) {
+               const Axes* ax, int B, int T_len, int H, int KV, int dh, int G, int passes,
+               float scale, cudaStream_t stream) {
   using S = Shape<T, D, GP>;
-  const int cap = max_cluster<T, D, GP, kPart>();
+  const int cap = max_cluster<T, D, GP, kPart, kWide, kStrided>();
   if (cap == 0) return static_cast<int>(cudaErrorInitializationError);  // setup() not run
   const int n_hg = (G + GP - 1) / GP;
-  const int units = B * KV * n_hg;
+  const int units = B * KV * n_hg * passes;
   int cs = (T_len + S::kWarps * kMinRowsPerWarp - 1) / (S::kWarps * kMinRowsPerWarp);
   cs = std::min(cs, cap);
   cs = std::min(cs, std::max(1, (kFillBlocks + units - 1) / units));
@@ -613,9 +718,9 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* valid, v
   cfg.numAttrs = 1;
   const float scale_log2 = kLog2e * scale;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, D, GP, kPart>, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(valid), static_cast<T*>(out),
-      T_len, H, KV, dh, G, n_hg, scale_log2);
+      &cfg, decode_kernel<T, D, GP, kPart, kWide, kStrided>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
+      static_cast<T*>(out), ax[0], ax[1], ax[2], T_len, H, KV, dh, G, n_hg, scale_log2, passes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -624,61 +729,88 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* valid, v
 inline int group_pad(int G) { return G > 4 ? 8 : G > 2 ? 4 : G; }
 
 template <typename T, int D, int GP>
-int launch_gp(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-              int T_len, int H, int KV, int dh, int G, float scale, cudaStream_t s) {
-  return dh == D
-             ? launch_cfg<T, D, GP, false>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s)
-             : launch_cfg<T, D, GP, true>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+int launch_gp(const void* q, const void* k, const void* v, const void* valid, void* out,
+              const Axes* ax, bool strided, int B, int T_len, int H, int KV, int dh, int G,
+              int passes, float scale, cudaStream_t s) {
+#define DEC_CFG(PART, WIDE, STRIDED, P)                                                       \
+  launch_cfg<T, D, GP, PART, WIDE, STRIDED>(q, k, v, valid, out, ax, B, T_len, H, KV, dh, G, \
+                                            P, scale, s)
+  if constexpr (D == kPassWidth) {
+    if (passes > 1)
+      return strided ? DEC_CFG(true, true, true, passes) : DEC_CFG(true, true, false, passes);
+  }
+  if (strided)  // a view: the body with dh at run time, at the caller's strides
+    return DEC_CFG(true, false, true, 1);
+  return dh == D ? DEC_CFG(false, false, false, 1) : DEC_CFG(true, false, false, 1);
+#undef DEC_CFG
 }
 
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-             int T_len, int H, int KV, int dh, float scale, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, const void* valid, void* out,
+             const Axes* ax, bool strided, int B, int T_len, int H, int KV, int dh, int passes,
+             float scale, cudaStream_t s) {
   const int G = H / KV;
+#define DEC_GP_CASE(GP)                                                                    \
+  return launch_gp<T, D, GP>(q, k, v, valid, out, ax, strided, B, T_len, H, KV, dh, G, passes, \
+                             scale, s)
   switch (group_pad(G)) {
-    case 1: return launch_gp<T, D, 1>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
-    case 2: return launch_gp<T, D, 2>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
-    case 4: return launch_gp<T, D, 4>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
-    default: return launch_gp<T, D, 8>(q, k, v, valid, out, B, T_len, H, KV, dh, G, scale, s);
+    case 1: DEC_GP_CASE(1);
+    case 2: DEC_GP_CASE(2);
+    case 4: DEC_GP_CASE(4);
+    default: DEC_GP_CASE(8);
   }
+#undef DEC_GP_CASE
 }
 
-// the width a head dim runs at: the smallest instantiation that holds it
-// (0: none, dh outside 1 .. 256)
-inline int head_width(int dh) {
-  if (dh < 1 || dh > 256) return 0;
-  int w = 16;
-  while (w < dh) w *= 2;
-  return w;
+// Whether the wrapper's plan fits the head dim: one pass at a width that
+// holds dh (the switch below refuses one not instantiated), or passes of
+// 256 that cover dh exactly. The wrapper's dispatch chooses the plan.
+inline bool plan_fits(int dh, int width, int passes) {
+  if (dh < 1 || passes < 1) return false;
+  if (passes == 1) return dh <= width;
+  return width == kPassWidth && (passes - 1) * kPassWidth < dh && dh <= passes * kPassWidth;
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-           int T_len, int H, int KV, int dh, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
+           const long long* strides, int B, int T_len, int H, int KV, int dh, int width,
+           int passes, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_width(dh)) {
-    case 16: return launch_d<T, 16>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
-    case 32: return launch_d<T, 32>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
-    case 64: return launch_d<T, 64>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
-    case 128: return launch_d<T, 128>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
-    case 256: return launch_d<T, 256>(q, k, v, valid, out, B, T_len, H, KV, dh, scale, s);
+  if (!plan_fits(dh, width, passes)) return static_cast<int>(cudaErrorInvalidValue);
+  Axes ax[3];
+  for (int i = 0; i < 3; ++i)
+    ax[i] = Axes{strides[3 * i], (int)strides[3 * i + 1], (int)strides[3 * i + 2]};
+  // views run an instantiation of their own, so a dense call runs the
+  // addressing it always ran
+  const bool strided = !is_dense(ax[0], B, 1, H, dh) || !is_dense(ax[1], B, T_len, KV, dh) ||
+                       !is_dense(ax[2], B, T_len, KV, dh);
+#define DEC_D_CASE(W, P) \
+  return launch_d<T, W>(q, k, v, valid, out, ax, strided, B, T_len, H, KV, dh, P, scale, s)
+  switch (width) {
+    case 16: DEC_D_CASE(16, 1);
+    case 32: DEC_D_CASE(32, 1);
+    case 64: DEC_D_CASE(64, 1);
+    case 128: DEC_D_CASE(128, 1);
+    case 256: DEC_D_CASE(256, passes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DEC_D_CASE
 }
 
-template <typename T, int D, bool kPart>
+template <typename T, int D, bool kPart, bool kWide, bool kStrided>
 int setup_p() {
-  int err = setup_one<T, D, 1, kPart>();
-  if (err == 0) err = setup_one<T, D, 2, kPart>();
-  if (err == 0) err = setup_one<T, D, 4, kPart>();
-  if (err == 0) err = setup_one<T, D, 8, kPart>();
+  int err = setup_one<T, D, 1, kPart, kWide, kStrided>();
+  if (err == 0) err = setup_one<T, D, 2, kPart, kWide, kStrided>();
+  if (err == 0) err = setup_one<T, D, 4, kPart, kWide, kStrided>();
+  if (err == 0) err = setup_one<T, D, 8, kPart, kWide, kStrided>();
   return err;
 }
 
 template <typename T, int D>
 int setup_d() {
-  const int err = setup_p<T, D, false>();
-  return err != 0 ? err : setup_p<T, D, true>();
+  int err = setup_p<T, D, false, false, false>();
+  if (err == 0) err = setup_p<T, D, true, false, false>();
+  return err != 0 ? err : setup_p<T, D, true, false, true>();   // views
 }
 
 template <typename T>
@@ -688,6 +820,9 @@ int setup_t() {
   if (err == 0) err = setup_d<T, 64>();
   if (err == 0) err = setup_d<T, 128>();
   if (err == 0) err = setup_d<T, 256>();
+  // D > 256, in passes, dense and views
+  if (err == 0) err = setup_p<T, kPassWidth, true, true, false>();
+  if (err == 0) err = setup_p<T, kPassWidth, true, true, true>();
   return err;
 }
 
@@ -698,24 +833,41 @@ int setup_t() {
 // place. Call once, outside any stream capture, before the first launch.
 // Returns the CUDA error code (0 on success).
 extern "C" int decode_attention_setup(void) {
-  const int err = setup_t<float>();
-  return err != 0 ? err : setup_t<__nv_bfloat16>();
+  int err = setup_t<float>();
+  if (err == 0) err = setup_t<__nv_bfloat16>();
+  return err != 0 ? err : setup_t<__half>();
 }
 
-// Plain C entry points for ctypes. q (B, 1, H, D), k/v (B, T, KV, D) and
-// out (B, 1, H, D) are contiguous, k and v 16-byte aligned; valid (T,) one
-// byte per slot, nonzero = attend; H % KV == 0; any D from 1 to 256, run at
-// the smallest width of 16, 32, 64, 128 and 256 that holds it (see the note
-// at the top); scores are scaled by `scale` (D^-0.5). Each is one launch on
-// `stream` and returns the CUDA error code (0 on success).
+// Plain C entry points for ctypes. q (B, 1, H, D) and k/v (B, T, KV, D)
+// are read at `strides`: 9 element strides, the batch, row and head axes of
+// q, k and v in turn (the last axis unit-stride, every stride a multiple of
+// 16 bytes), each 16-byte aligned; out (B, 1, H, D) is contiguous; valid
+// (T,) one byte per slot, nonzero = attend; H % KV == 0; any D >= 1, at the
+// wrapper's `width` and column `passes`: one pass at a width of 16, 32, 64,
+// 128 or 256 that holds D, or ceil(D / 256) passes at width 256 (see the
+// note at the top; a plan that does not fit D is refused); scores are
+// scaled by `scale` (D^-0.5). Each is one launch on `stream` and returns
+// the CUDA error code (0 on success).
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
-                                    const void* valid, void* out, int B, int T, int H, int KV,
-                                    int D, float scale, void* stream) {
-  return launch<float>(q, k, v, valid, out, B, T, H, KV, D, scale, stream);
+                                    const void* valid, void* out, const long long* strides,
+                                    int B, int T, int H, int KV, int D, int width, int passes,
+                                    float scale, void* stream) {
+  return launch<float>(q, k, v, valid, out, strides, B, T, H, KV, D, width, passes, scale,
+                       stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* valid, void* out, int B, int T, int H, int KV,
-                                     int D, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, valid, out, B, T, H, KV, D, scale, stream);
+                                     const void* valid, void* out, const long long* strides,
+                                     int B, int T, int H, int KV, int D, int width, int passes,
+                                     float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, valid, out, strides, B, T, H, KV, D, width, passes,
+                               scale, stream);
+}
+
+extern "C" int decode_attention_f16(const void* q, const void* k, const void* v,
+                                    const void* valid, void* out, const long long* strides,
+                                    int B, int T, int H, int KV, int D, int width, int passes,
+                                    float scale, void* stream) {
+  return launch<__half>(q, k, v, valid, out, strides, B, T, H, KV, D, width, passes, scale,
+                        stream);
 }

@@ -15,11 +15,19 @@
 //   * query head h reads kv head h / (H / KV): GQA without repeating K/V.
 // The kernel reads the model layout q (B, S, H, D), k/v (B, T, KV, D) and
 // writes o (B, S, H, D) directly, masking its own ragged edges, so the
-// caller transposes and pads nothing. Keys past T are left out of the sum
+// caller transposes and pads nothing. Each input is read through the
+// caller's strides of its batch, row and head axes (Axes; the last axis
+// unit-stride): a transpose, an unbind of a fused tensor or a column slice
+// is read in place. The outputs are dense. Keys past T are left out of the sum
 // (p = 0), as the plain version does. With a causal mask the kernel skips
-// kv tiles that no row of the query tile can see: every causal row sees its
-// own key (the wrapper requires S <= T when a window is set, and window >=
-// 1), so a skipped tile's terms would have been cancelled exactly.
+// kv tiles that no row of the query tile can see: a row that sees some key
+// lies past a skipped tile's keys (or, under a window, after them), so the
+// tile's terms would have been cancelled exactly. A row that sees no key at
+// all (a causal window with S > T: query positions from T + window - 1 on)
+// is the uniform average over the T keys in the plain version (a softmax of
+// T equal sentinels), so a query tile that holds such a row walks every kv
+// tile: its other rows lose nothing, since a masked tile before a row's
+// first visible key is cancelled by alpha = 0 and one after it adds p = 0.
 //
 // What bounds it on an H100: at gemma3-1b's prefill (B 4, S 1024, H 4,
 // KV 1, D 256, causal) the work is ~8.6e9 flops over ~21 MB of bf16
@@ -87,12 +95,13 @@
 //
 // Head dims: the Pallas kernel's blocks span any D. Each body here is
 // instantiated at widths 16, 32, 64, 128 and 256, and a call with head dim
-// D <= 256 runs the smallest width W >= D. It reads the caller's rows at
-// stride D, fills the columns past D with zeros in shared memory (zero q
-// and k columns leave the scores as they are, zero v columns give output
-// columns that are never written), writes D columns and scales by the true
+// D <= 256 runs the smallest width W >= D (the wrapper's dispatch picks it
+// and hands it over). It reads the caller's rows at their strides, fills
+// the columns past D with zeros in shared memory (zero q and k columns
+// leave the scores as they are, zero v columns give output columns that
+// are never written), writes D columns and scales by the true
 // D^-0.5; nothing is copied or padded in device memory. The bf16 body has
-// two instantiations a width: D = W keeps every address and bound at
+// two instantiations a width: D = W keeps every bound at
 // compile time, as the power-of-two head dims always ran; D < W multiplies
 // the zero columns too. (A version that took D at run time everywhere and
 // skipped the zero k-steps by a runtime bound ran every head dim at about
@@ -100,8 +109,23 @@
 // that cp.async needs, so the bf16 body reads such rows element by element
 // (the fp32 body always does); the choice is made once per tile, outside
 // the copy loops.
+//
+// Head dims above 256 run in column passes of 256 (kWide): pass c writes
+// output columns [256 c, 256 c + 256) and recomputes the scores over the
+// whole of D in k-steps of 256 columns (Q and K chunks reloaded per kv
+// tile, zeros past D), so the q . k work is done ceil(D / 256) times. A
+// single wider body does not fit: the bf16 warp's 16 x 256 fp32 O
+// accumulator is already 128 registers a thread. Every pass sums the score
+// chunks in the same order, so its m, l and log-sum-exp are the same bits;
+// pass 0 writes the log-sum-exp. The passes are one launch (blockIdx.x =
+// query tile * passes + pass).
+//
+// float16 runs the tensor-core body with f16 operands (mma.sync
+// m16n8k16.f32.f16.f16, P rounded to f16), accumulating in fp32 as bf16
+// does: one template over the 2-byte type.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,11 +143,59 @@ constexpr int kRows = kBQ / kWarps;  // query rows per warp
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+constexpr int kPassWidth = 256;  // output columns of one pass when D > 256
+
+// element strides of the batch, row and head axes of a (B, rows, heads, D)
+// input whose last axis is unit-stride: the caller's view, read in place.
+// The 2-byte bodies' 16-byte loads need every stride a multiple of 8
+// elements (the wrapper copies any other view).
+struct Axes {
+  long long b;  // may pass 2^31 elements
+  int s, h;     // the wrapper checks these fit an int
+  __host__ __device__ __forceinline__ size_t at(int bi, int si, int hi) const {
+    return (size_t)((long long)bi * b + (long long)si * s + (long long)hi * h);
+  }
+};
+// the inputs' strides as the wrapper hands them over: q, k, v, then (the
+// backward) o and dO
+struct InputAxes {
+  Axes q, k, v, o, dout;
+};
+inline InputAxes read_axes(const long long* p, int n) {
+  InputAxes a{};
+  Axes* dst[5] = {&a.q, &a.k, &a.v, &a.o, &a.dout};
+  for (int i = 0; i < n; ++i) *dst[i] = Axes{p[3 * i], (int)p[3 * i + 1], (int)p[3 * i + 2]};
+  return a;
+}
+// whether strides `a` are those of a dense (B, rows, heads, dh) tensor (an
+// axis of size 1 carries stride 0 from the wrapper: never used)
+inline bool is_dense(const Axes& a, int B, int rows, int heads, int dh) {
+  return (B == 1 || a.b == (long long)rows * heads * dh) &&
+         (rows == 1 || a.s == (long long)heads * dh) && (heads == 1 || a.h == dh);
+}
+
+// the tile range [k_begin, k_end) of kv positions a query block of rows
+// [qpos_lo, qpos_hi] must walk: under a causal mask the tiles past its last
+// row and, with a window, before its first row's window; all of [0, T) if
+// some row of the block sees no key (the note at the top)
+__device__ __forceinline__ void kv_range(int qpos_lo, int qpos_hi, int T_len, int causal,
+                                         int window, int tile, int& k_begin, int& k_end) {
+  k_begin = 0;
+  k_end = T_len;
+  if (!causal || (window > 0 && (long long)qpos_hi >= (long long)T_len + window - 1)) return;
+  k_end = min(T_len, qpos_hi + 1);
+  if (window > 0) k_begin = (max(0, qpos_lo - window + 1) / tile) * tile;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -143,14 +215,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * D + D * (kBK + 1) + kBK * D);
 }
 
-template <typename T, int D>
+// kWide: D = 256 and dh > 256, in column passes (the note at the top)
+template <typename T, int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int S, int T_len, int H, int KV, int dh, int causal, int window,
-                 float scale) {
+                 const InputAxes ax, int S, int T_len, int H, int KV, int dh, int causal,
+                 int window, float scale, int passes) {
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
-  const int d_end = (dh + 3) & ~3;      // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* q_s = smem;                    // [kBQ][D]
   float* kt_s = q_s + kBQ * D;          // [D][kBK + 1], K transposed
@@ -159,23 +231,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q0 = blockIdx.x * kBQ;
+  const int pass = kWide ? blockIdx.x % passes : 0;
+  const int q0 = (kWide ? blockIdx.x / passes : blockIdx.x) * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
+  const int c0 = pass * D;                   // the pass's first output column
+  const int n_dc = kWide ? (dh + D - 1) / D : 1;  // column chunks of the scores
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    const int s = q0 + r;
-    q_s[idx] = s < S && d < dh ? to_f32(q[((size_t)b * S + s) * H * dh + (size_t)h * dh + d])
-                               : 0.0f;
-  }
+  // columns [dc D, dc D + D) of the block's Q rows, zeros past dh
+  auto load_q = [&](int dc) {
+    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+      const int r = idx / D, d = idx % D + dc * D;
+      const int s = q0 + r;
+      q_s[idx] = s < S && d < dh ? to_f32(q[ax.q.at(b, s, h) + d]) : 0.0f;
+    }
+  };
+  if (!kWide) load_q(0);
 
-  int k_begin = 0, k_end = T_len;
-  if (causal) {  // tiles no row of [q0, q0 + kBQ) can see
-    k_end = min(T_len, q0 + kBQ);
-    if (window > 0) k_begin = (max(0, q0 - window + 1) / kBK) * kBK;
-  }
+  int k_begin, k_end;
+  kv_range(q0, min(S, q0 + kBQ) - 1, T_len, causal, window, kBK, k_begin, k_end);
 
   float m[kRows], l[kRows], acc[kRows][kCols];
 #pragma unroll
@@ -188,34 +263,41 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* q_rows = q_s + warp * kRows * D;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and Q is loaded)
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const int t = k0 + j;
-      const bool in = t < T_len && d < dh;
-      const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
-      kt_s[d * (kBK + 1) + j] = in ? to_f32(k[off]) : 0.0f;
-      v_s[j * D + d] = in ? to_f32(v[off]) : 0.0f;
-    }
-    __syncthreads();
-
-    // scores of this warp's rows against key k0 + lane
+    // scores of this warp's rows against key k0 + lane, chunk by chunk of
+    // columns (one chunk unless kWide); V's columns of the pass with the last
     float s[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // the previous tile or chunk is consumed (and Q is loaded)
+      if (kWide) load_q(dc);
+      for (int idx = tid; idx < kBK * D; idx += kThreads) {
+        const int j = idx / D, d = idx % D;
+        const int t = k0 + j;
+        const bool kin = t < T_len && d + dc * D < dh;
+        kt_s[d * (kBK + 1) + j] = kin ? to_f32(k[ax.k.at(b, t, kvh) + dc * D + d]) : 0.0f;
+        if (dc == n_dc - 1) {
+          const bool vin = t < T_len && d + c0 < dh;
+          v_s[j * D + d] = vin ? to_f32(v[ax.v.at(b, t, kvh) + c0 + d]) : 0.0f;
+        }
+      }
+      __syncthreads();
+      // the chunk's columns: past dh all zero
+      const int d_end = (min(D, dh - dc * D) + 3) & ~3;
 #pragma unroll 2
-    for (int d = 0; d < d_end; d += 4) {
-      const float k_a = kt_s[(d + 0) * (kBK + 1) + lane];
-      const float k_b = kt_s[(d + 1) * (kBK + 1) + lane];
-      const float k_c = kt_s[(d + 2) * (kBK + 1) + lane];
-      const float k_d = kt_s[(d + 3) * (kBK + 1) + lane];
+      for (int d = 0; d < d_end; d += 4) {
+        const float k_a = kt_s[(d + 0) * (kBK + 1) + lane];
+        const float k_b = kt_s[(d + 1) * (kBK + 1) + lane];
+        const float k_c = kt_s[(d + 2) * (kBK + 1) + lane];
+        const float k_d = kt_s[(d + 3) * (kBK + 1) + lane];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * D + d);
-        s[r] = fmaf(qv.x, k_a, s[r]);
-        s[r] = fmaf(qv.y, k_b, s[r]);
-        s[r] = fmaf(qv.z, k_c, s[r]);
-        s[r] = fmaf(qv.w, k_d, s[r]);
+        for (int r = 0; r < kRows; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * D + d);
+          s[r] = fmaf(qv.x, k_a, s[r]);
+          s[r] = fmaf(qv.y, k_b, s[r]);
+          s[r] = fmaf(qv.z, k_c, s[r]);
+          s[r] = fmaf(qv.w, k_d, s[r]);
+        }
       }
     }
 
@@ -261,36 +343,48 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    if (lse != nullptr && lane == 0) lse[((size_t)b * H + h) * S + qpos] = m[r] + logf(denom);
-    T* out_row = o + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh;
+    if (lse != nullptr && lane == 0 && pass == 0)
+      lse[((size_t)b * H + h) * S + qpos] = m[r] + logf(denom);
+    T* out_row = o + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh + c0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < dh) out_row[col] = from_f32<T>(acc[r][c] / denom);
+      if (c0 + col < dh) out_row[col] = from_f32<T>(acc[r][c] / denom);
     }
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-             int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
-             void* stream) {
+// Whether a wrapper's plan fits the head dim: one pass at a width that
+// holds dh (the switch on the width refuses one not instantiated), or
+// passes of 256 that cover dh exactly. The wrapper's dispatch chooses the
+// plan; the launches below only refuse one that would read or write out
+// of bounds.
+inline bool plan_fits(int dh, int width, int passes) {
+  if (dh < 1 || passes < 1) return false;
+  if (passes == 1) return dh <= width;
+  return width == kPassWidth && (passes - 1) * kPassWidth < dh && dh <= passes * kPassWidth;
+}
+
+template <typename T, int D, bool kWide>
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             const InputAxes& ax, int B, int S, int T_len, int H, int KV, int dh, int causal,
+             int window, int passes, float scale, void* stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<T, D, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)(((long long)S + kBQ - 1) / kBQ * passes), H, B);
+  flash_fwd_kernel<T, D, kWide><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, T_len, H, KV, dh, causal, window, scale);
+      static_cast<T*>(o), lse, ax, S, T_len, H, KV, dh, causal, window, scale, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16 body on the tensor cores -----------------------------------------
+// ---- bf16 / fp16 body on the tensor cores -----------------------------------
 
 using bf16 = __nv_bfloat16;
 
@@ -303,11 +397,11 @@ struct TcShape {
   static constexpr int kKeys = D <= 128 ? 64 : 32;  // keys per kv tile
   static constexpr int kChunks = D / 8;             // 16-byte chunks per row
   static constexpr int kSwz = kChunks < 8 ? kChunks - 1 : 7;
-  // per warp group: Q, then two stages of K and two of V, all bf16
+  // per warp group: Q, then two stages of K and two of V, all 2-byte
   static constexpr size_t kGroupSmem = sizeof(bf16) * (kTcRows * D + 4 * kKeys * D);
 };
 
-// element offset of (row, 16-byte chunk) in a swizzled [rows][D] bf16 tile
+// element offset of (row, 16-byte chunk) in a swizzled [rows][D] tile
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & TcShape<D>::kSwz)) << 3);
@@ -330,23 +424,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 16-byte chunk c (columns 8c .. 8c + 7) of a row of dh bf16 into shared
-// memory, zeros past dh and for a row that does not exist (!in). kVec (dh %
-// 8 == 0): the row moves by cp.async; another dh has rows off the 16-byte
-// grid, so its chunks are read element by element and stored whole. The
-// callers pick kVec once per tile, outside their copy loops.
-template <bool kVec>
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* row, int c, int dh, bool in) {
+// 16-byte chunk c (columns 8c .. 8c + 7) of a row of dh 2-byte elements
+// into shared memory, zeros past dh and for a row that does not exist
+// (!in). kVec (dh % 8 == 0): the row moves by cp.async; another dh has rows
+// off the 16-byte grid, so its chunks are read element by element and
+// stored whole. The callers pick kVec once per tile, outside their copy
+// loops.
+template <bool kVec, typename E>
+__device__ __forceinline__ void load_chunk(E* dst, const E* row, int c, int dh, bool in) {
   if (kVec || !in || c * 8 >= dh) {
     cp_async16(dst, in ? row + c * 8 : row, in && c * 8 < dh);
     return;
   }
+  const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
   uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c0 = c * 8 + 2 * i;
-    const uint32_t lo = c0 < dh ? __bfloat16_as_ushort(row[c0]) : 0u;
-    const uint32_t hi = c0 + 1 < dh ? __bfloat16_as_ushort(row[c0 + 1]) : 0u;
+    const uint32_t lo = c0 < dh ? r16[c0] : 0u;
+    const uint32_t hi = c0 + 1 < dh ? r16[c0 + 1] : 0u;
     w[i] = lo | (hi << 16);
   }
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -363,14 +459,22 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+// c (16 x 8 fp32) += a (16 x 16, row) . b (16 x 8, col), operands of type E
+template <typename E>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<E, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // barrier of one warp group (ids 1 and 2; 0 is __syncthreads)
@@ -378,20 +482,31 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kTcGroupThreads));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two floats rounded to a pair of E (lo in the low half)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // kPart: the tensors' head dim dh_arg is below the width D (rows read at
 // stride dh_arg, columns past it zero-filled); otherwise dh = D at compile
 // time and the body is the one the power-of-two head dims always ran.
-template <int D, bool kPart>
+// kWide (with kPart, D = 256): dh_arg > 256 in column passes, blockIdx.x =
+// (query tile pair) * passes + pass. kStrided (with kPart): q, k and v are
+// views read at the caller's strides (ax); otherwise they are dense and
+// read as the body always read them.
+template <typename E, int D, bool kPart, bool kWide, bool kStrided>
 __global__ void __launch_bounds__(kTcThreads)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                int S, int T_len, int H, int KV, int dh_arg, int causal, int window,
-                float scale_log2) {
+flash_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                const E* __restrict__ v, E* __restrict__ o, float* __restrict__ lse,
+                const InputAxes ax, int S, int T_len, int H, int KV, int dh_arg, int causal,
+                int window, float scale_log2, int passes) {
   constexpr int kKeys = TcShape<D>::kKeys;
   constexpr int kChunks = TcShape<D>::kChunks;
   constexpr int kNB = kKeys / 8;  // score n-blocks of 8 keys
@@ -399,71 +514,98 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int dh = kPart ? dh_arg : D;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const int group = threadIdx.x / kTcGroupThreads;
-  bf16* q_s = reinterpret_cast<bf16*>(tc_smem + group * TcShape<D>::kGroupSmem);  // [kTcRows][D]
-  bf16* k_s = q_s + kTcRows * D;    // [2][kKeys][D]
-  bf16* v_s = k_s + 2 * kKeys * D;  // [2][kKeys][D]
+  E* q_s = reinterpret_cast<E*>(tc_smem + group * TcShape<D>::kGroupSmem);  // [kTcRows][D]
+  E* k_s = q_s + kTcRows * D;    // [2][kKeys][D]
+  E* v_s = k_s + 2 * kKeys * D;  // [2][kKeys][D]
 
   const int tid = threadIdx.x % kTcGroupThreads;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int G = H / KV;
   const int rows = S * G;  // packed rows of one (batch, kv head)
+  const int pass = kWide ? blockIdx.x % passes : 0;
+  const int bx = kWide ? blockIdx.x / passes : blockIdx.x;
+  const int c0 = pass * D;                   // the pass's first output column
+  const int n_dc = kWide ? (dh + D - 1) / D : 1;  // column chunks of the scores
   // Group 0 takes query tile n - 1 - x (the most kv tiles under a causal
   // mask), group 1 its mirror x, so every block carries about the same work.
   const int n_q = (rows + kTcRows - 1) / kTcRows;
-  const int tile = group == 0 ? n_q - 1 - blockIdx.x : blockIdx.x;
-  if (group == 1 && tile >= n_q - 1 - blockIdx.x) return;  // odd n_q: no mirror
+  const int tile = group == 0 ? n_q - 1 - bx : bx;
+  if (group == 1 && tile >= n_q - 1 - bx) return;  // odd n_q: no mirror
   const int p0 = tile * kTcRows;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  // element offset of packed row p (query position p / G, head kvh * G + p % G)
-  auto q_off = [&](int p) {
+  // element offset of packed row p (query position p / G, head kvh * G +
+  // p % G) in a dense tensor (o; q unless kStrided) and in q at the
+  // caller's strides
+  auto dense_off = [&](int p) {
     return ((size_t)b * S + p / G) * H * dh + (size_t)(kvh * G + p % G) * dh;
   };
+  auto q_off = [&](int p) -> size_t {
+    if constexpr (kStrided)
+      return (long long)b * ax.q.b + (long long)(p / G) * ax.q.s +
+             (long long)(kvh * G + p % G) * ax.q.h;
+    else
+      return dense_off(p);
+  };
 
-  auto load_q = [&](auto vec) {
+  // columns [dc D, dc D + D) of the block's Q rows
+  auto load_q = [&](int dc, auto vec) {
     for (int idx = tid; idx < kTcRows * kChunks; idx += kTcGroupThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
       const bool in = p0 + r < rows;
-      load_chunk<decltype(vec)::value>(q_s + swz<D>(r, c), q + (in ? q_off(p0 + r) : 0), c,
-                                       dh, in);
+      load_chunk<decltype(vec)::value>(q_s + swz<D>(r, c),
+                                       q + (in ? q_off(p0 + r) + dc * D : 0), c, dh - dc * D,
+                                       in);
     }
   };
-  if (dh % 8 == 0)
-    load_q(std::true_type{});
-  else
-    load_q(std::false_type{});
-
-  int k_begin = 0, k_end = T_len;
-  if (causal) {  // tiles no row of the block can see
-    const int qpos_lo = p0 / G;
-    const int qpos_hi = min(S - 1, (p0 + kTcRows - 1) / G);
-    k_end = min(T_len, qpos_hi + 1);
-    if (window > 0) k_begin = (max(0, qpos_lo - window + 1) / kKeys) * kKeys;
+  if constexpr (!kWide) {
+    if (dh % 8 == 0)
+      load_q(0, std::true_type{});
+    else
+      load_q(0, std::false_type{});
   }
+
+  int k_begin, k_end;
+  kv_range(p0 / G, min(S - 1, (p0 + kTcRows - 1) / G), T_len, causal, window, kKeys, k_begin,
+           k_end);
   const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
 
-  auto load_kv_tile = [&](int j, auto vec) {
+  // kv tile j into stage j & 1 (stage 0 if kWide): K columns [kc, kc + D)
+  // and, with with_v, V columns [c0, c0 + D)
+  auto load_kv_tile = [&](int j, int kc, bool with_v, auto vec) {
     constexpr bool kVec = decltype(vec)::value;
     const int k0 = k_begin + j * kKeys;
-    bf16* ks = k_s + (j & 1) * kKeys * D;
-    bf16* vs = v_s + (j & 1) * kKeys * D;
+    E* ks = k_s + (kWide ? 0 : j & 1) * kKeys * D;
+    E* vs = v_s + (kWide ? 0 : j & 1) * kKeys * D;
     for (int idx = tid; idx < kKeys * kChunks; idx += kTcGroupThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
       const bool in = k0 + r < T_len;
-      const size_t off = in ? ((size_t)b * T_len + k0 + r) * KV * dh + (size_t)kvh * dh : 0;
-      load_chunk<kVec>(ks + swz<D>(r, c), k + off, c, dh, in);
-      load_chunk<kVec>(vs + swz<D>(r, c), v + off, c, dh, in);
+      if constexpr (kStrided) {  // key t at its batch and kv head's row + t * s
+        const E* krow = in ? k + ax.k.at(b, k0 + r, kvh) + kc : k;
+        load_chunk<kVec>(ks + swz<D>(r, c), krow, c, dh - kc, in);
+        if (with_v) {
+          const E* vrow = in ? v + ax.v.at(b, k0 + r, kvh) + c0 : v;
+          load_chunk<kVec>(vs + swz<D>(r, c), vrow, c, dh - c0, in);
+        }
+      } else {  // dense k and v: one offset for both
+        const size_t off = in ? ((size_t)b * T_len + k0 + r) * KV * dh + (size_t)kvh * dh : 0;
+        load_chunk<kVec>(ks + swz<D>(r, c), k + off + (in ? kc : 0), c, dh - kc, in);
+        if (with_v)
+          load_chunk<kVec>(vs + swz<D>(r, c), v + off + (in ? c0 : 0), c, dh - c0, in);
+      }
     }
   };
-  auto load_kv = [&](int j) {
+  auto load_kv = [&](int j, int kc, bool with_v) {
     if (dh % 8 == 0)
-      load_kv_tile(j, std::true_type{});
+      load_kv_tile(j, kc, with_v, std::true_type{});
     else
-      load_kv_tile(j, std::false_type{});
+      load_kv_tile(j, kc, with_v, std::false_type{});
   };
-  load_kv(0);
-  cp_async_commit();  // Q and the first kv tile
+  if constexpr (!kWide) {
+    load_kv(0, 0, true);
+    cp_async_commit();  // Q and the first kv tile
+  }
 
   // this thread's accumulator rows: wrow0 + lane / 4 and wrow0 + lane / 4 + 8
   const int wrow0 = warp * 16;
@@ -481,34 +623,68 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l[2] = {0.0f, 0.0f};  // this thread's partial row sums
 
   for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_kv(j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    group_sync(group);
-    const bf16* ks = k_s + (j & 1) * kKeys * D;
-    const bf16* vs = v_s + (j & 1) * kKeys * D;
-    const int k0 = k_begin + j * kKeys;
-
-    // S = Q . K^T for this warp's 16 rows
     float s[kNB][4];
+    const E* vs;
+    int k0;
+    if constexpr (!kWide) {  // double-buffered: tile j + 1 in flight while j is multiplied
+      if (j + 1 < n_tiles) {
+        load_kv(j + 1, 0, true);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      group_sync(group);
+      const E* ks = k_s + (j & 1) * kKeys * D;
+      vs = v_s + (j & 1) * kKeys * D;
+      k0 = k_begin + j * kKeys;
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+      // S = Q . K^T for this warp's 16 rows
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4];
-      ldsm_x4(qa, q_s + swz<D>(wrow0 + lane % 16, kk * 2 + lane / 16));
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, q_s + swz<D>(wrow0 + lane % 16, kk * 2 + lane / 16));
 #pragma unroll
-      for (int nb = 0; nb < kNB / 2; ++nb) {
-        uint32_t kb[4];
-        ldsm_x4(kb, ks + swz<D>(nb * 16 + lane % 8 + (lane / 16) * 8, kk * 2 + (lane / 8) % 2));
-        mma_bf16(s[2 * nb], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * nb + 1], qa, kb[2], kb[3]);
+        for (int nb = 0; nb < kNB / 2; ++nb) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + swz<D>(nb * 16 + lane % 8 + (lane / 16) * 8, kk * 2 + (lane / 8) % 2));
+          mma16816<E>(s[2 * nb], qa, kb[0], kb[1]);
+          mma16816<E>(s[2 * nb + 1], qa, kb[2], kb[3]);
+        }
+      }
+    } else {  // chunk dc of Q and K (stage 0), the pass's V with the last
+      vs = v_s;
+      k0 = k_begin + j * kKeys;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+      for (int dc = 0; dc < n_dc; ++dc) {
+        group_sync(group);  // the last chunk's operands are consumed
+        if (dh % 8 == 0)
+          load_q(dc, std::true_type{});
+        else
+          load_q(dc, std::false_type{});
+        load_kv(j, dc * D, dc == n_dc - 1);
+        cp_async_commit();
+        cp_async_wait<0>();
+        group_sync(group);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qa[4];
+          ldsm_x4(qa, q_s + swz<D>(wrow0 + lane % 16, kk * 2 + lane / 16));
+#pragma unroll
+          for (int nb = 0; nb < kNB / 2; ++nb) {
+            uint32_t kb[4];
+            ldsm_x4(kb,
+                    k_s + swz<D>(nb * 16 + lane % 8 + (lane / 16) * 8, kk * 2 + (lane / 8) % 2));
+            mma16816<E>(s[2 * nb], qa, kb[0], kb[1]);
+            mma16816<E>(s[2 * nb + 1], qa, kb[2], kb[3]);
+          }
+        }
       }
     }
 
@@ -559,20 +735,20 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[db][3] *= alpha[1];
     }
 
-    // O += P . V, P taken from the score fragment as bf16
+    // O += P . V, P taken from the score fragment in E
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack2<E>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<E>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<E>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int db = 0; db < kDB / 2; ++db) {
         uint32_t vb[4];
         ldsm_x4_trans(vb, vs + swz<D>(kk * 16 + lane % 8 + ((lane / 8) % 2) * 8,
                                       db * 2 + lane / 16));
-        mma_bf16(acc[2 * db], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * db + 1], pa, vb[2], vb[3]);
+        mma16816<E>(acc[2 * db], pa, vb[0], vb[1]);
+        mma16816<E>(acc[2 * db + 1], pa, vb[2], vb[3]);
       }
     }
     group_sync(group);  // this buffer is refilled by the next iteration's load
@@ -586,7 +762,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
     const int p = pw + lane / 4 + 8 * i;  // m is in base 2: lse = (m + log2 l) ln 2
-    if (lse != nullptr && lane % 4 == 0 && p < rows)
+    if (lse != nullptr && pass == 0 && lane % 4 == 0 && p < rows)
       lse[((size_t)b * H + kvh * G + p % G) * S + p / G] =
           (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
   }
@@ -594,87 +770,100 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int db = 0; db < kDB; ++db) {
     *reinterpret_cast<uint32_t*>(q_s + swz<D>(r0, db) + kcol) =
-        pack_bf16(acc[db][0] * inv[0], acc[db][1] * inv[0]);
+        pack2<E>(acc[db][0] * inv[0], acc[db][1] * inv[0]);
     *reinterpret_cast<uint32_t*>(q_s + swz<D>(r0 + 8, db) + kcol) =
-        pack_bf16(acc[db][2] * inv[1], acc[db][3] * inv[1]);
+        pack2<E>(acc[db][2] * inv[1], acc[db][3] * inv[1]);
   }
   __syncwarp();
+  const int dv = min(D, dh - c0);  // the pass's output columns
   for (int idx = lane; idx < 16 * kChunks; idx += 32) {
     const int r = idx / kChunks, c = idx % kChunks;
-    if (pw + r >= rows || c * 8 >= dh) continue;
-    const bf16* src = q_s + swz<D>(wrow0 + r, c);
-    bf16* dst = o + q_off(pw + r) + c * 8;
+    if (pw + r >= rows || c * 8 >= dv) continue;
+    const E* src = q_s + swz<D>(wrow0 + r, c);
+    E* dst = o + dense_off(pw + r) + c0 + c * 8;
     if (dh % 8 == 0) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {  // rows off the 16-byte grid: the columns below dh one by one
-      for (int i = 0; i < 8 && c * 8 + i < dh; ++i) dst[i] = src[i];
+    } else {  // rows off the 16-byte grid: the columns below dv one by one
+      for (int i = 0; i < 8 && c * 8 + i < dv; ++i) dst[i] = src[i];
     }
   }
 }
 
-template <int D, bool kPart>
-int launch_tc_body(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int S, int T_len, int H, int KV, int dh, int causal, int window,
-                   float scale, void* stream) {
+template <typename E, int D, bool kPart, bool kWide, bool kStrided>
+int launch_tc_body(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const InputAxes& ax, int B, int S, int T_len, int H, int KV, int dh,
+                   int causal, int window, int passes, float scale, void* stream) {
   constexpr size_t smem = 2 * TcShape<D>::kGroupSmem;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D, kPart>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<E, D, kPart, kWide, kStrided>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const long long n_q = ((long long)S * (H / KV) + kTcRows - 1) / kTcRows;
-  const dim3 grid((unsigned)((n_q + 1) / 2), KV, B);  // a query tile and its mirror
+  // a query tile and its mirror, in every pass
+  const dim3 grid((unsigned)((n_q + 1) / 2 * passes), KV, B);
   // the scale and log2(e) in one multiply: exp(x * scale) = exp2(x * scale_log2)
   const float scale_log2 = 1.4426950408889634f * scale;
-  flash_tc_kernel<D, kPart><<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, S, T_len, H, KV, dh, causal, window, scale_log2);
+  flash_tc_kernel<E, D, kPart, kWide, kStrided>
+      <<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+          static_cast<E*>(o), lse, ax, S, T_len, H, KV, dh, causal, window, scale_log2, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-              int T_len, int H, int KV, int dh, int causal, int window, float scale,
-              void* stream) {
-  return dh == D ? launch_tc_body<D, false>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal,
-                                            window, scale, stream)
-                 : launch_tc_body<D, true>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal,
-                                           window, scale, stream);
+template <typename E, int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+              const InputAxes& ax, bool strided, int B, int S, int T_len, int H, int KV, int dh,
+              int causal, int window, float scale, void* stream) {
+  if (strided)  // a view: the body with dh at run time, at the caller's strides
+    return launch_tc_body<E, D, true, false, true>(q, k, v, o, lse, ax, B, S, T_len, H, KV, dh,
+                                                   causal, window, 1, scale, stream);
+  return dh == D ? launch_tc_body<E, D, false, false, false>(q, k, v, o, lse, ax, B, S, T_len, H,
+                                                             KV, dh, causal, window, 1, scale,
+                                                             stream)
+                 : launch_tc_body<E, D, true, false, false>(q, k, v, o, lse, ax, B, S, T_len, H,
+                                                            KV, dh, causal, window, 1, scale,
+                                                            stream);
 }
 
-// The body is chosen by the input type: bf16 on the tensor cores, fp32 on
-// the FMA pipe (see the note at the top).
-template <typename T, int D>
-int launch_body(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
-                void* stream) {
-  if constexpr (sizeof(T) == 2)
-    return launch_tc<D>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, scale, stream);
-  else
-    return launch_d<T, D>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, scale,
-                          stream);
-}
-
-// the width a head dim runs at: the smallest instantiation that holds it
-// (0: none, dh outside 1 .. 256)
-inline int head_width(int dh) {
-  if (dh < 1 || dh > 256) return 0;
-  int w = 16;
-  while (w < dh) w *= 2;
-  return w;
-}
-
+// The body is chosen by the input type (2-byte types on the tensor cores,
+// fp32 on the FMA pipe; see the note at the top), the width and the column
+// passes by the wrapper (plan_fits).
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int T_len, int H, int KV, int dh, int causal, int window, float scale,
-           void* stream) {
-#define FA_FWD_CASE(DIM)                                                                  \
-  case DIM:                                                                               \
-    return launch_body<T, DIM>(q, k, v, o, lse, B, S, T_len, H, KV, dh, causal, window, \
-                               scale, stream);
-  switch (head_width(dh)) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const long long* strides, int B, int S, int T_len, int H, int KV, int dh, int causal,
+           int window, int width, int passes, float scale, void* stream) {
+  if (!plan_fits(dh, width, passes)) return static_cast<int>(cudaErrorInvalidValue);
+  const InputAxes ax = read_axes(strides, 3);
+  // the 2-byte body reads views in an instantiation of its own, so a
+  // dense call runs the addressing it always ran (one that read strides
+  // everywhere cost 7-12% at the serve shapes on an H100)
+  const bool strided = !is_dense(ax.q, B, S, H, dh) || !is_dense(ax.k, B, T_len, KV, dh) ||
+                       !is_dense(ax.v, B, T_len, KV, dh);
+  if (passes > 1) {
+    if constexpr (sizeof(T) == 2)
+      return strided ? launch_tc_body<T, kPassWidth, true, true, true>(
+                           q, k, v, o, lse, ax, B, S, T_len, H, KV, dh, causal, window, passes,
+                           scale, stream)
+                     : launch_tc_body<T, kPassWidth, true, true, false>(
+                           q, k, v, o, lse, ax, B, S, T_len, H, KV, dh, causal, window, passes,
+                           scale, stream);
+    else
+      return launch_d<T, kPassWidth, true>(q, k, v, o, lse, ax, B, S, T_len, H, KV, dh, causal,
+                                           window, passes, scale, stream);
+  }
+#define FA_FWD_CASE(DIM)                                                                     \
+  case DIM:                                                                                  \
+    if constexpr (sizeof(T) == 2)                                                            \
+      return launch_tc<T, DIM>(q, k, v, o, lse, ax, strided, B, S, T_len, H, KV, dh, causal, \
+                               window, scale, stream);                                       \
+    else                                                                                     \
+      return launch_d<T, DIM, false>(q, k, v, o, lse, ax, B, S, T_len, H, KV, dh, causal,    \
+                                     window, 1, scale, stream);
+  switch (width) {
     FA_FWD_CASE(16)
     FA_FWD_CASE(32)
     FA_FWD_CASE(64)
@@ -701,9 +890,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // The masks are the forward's: key position < T, kpos <= qpos if causal,
 // kpos > qpos - window if a window is set, positions from 0. A masked pair
 // gets P = 0: in a row that sees any key, the forward's p = exp(-1e30 - m)
-// was exactly 0 there too. (A row that sees no key has no gradient to
-// give; the wrapper refuses inputs with such rows.) Tiles that no pair of
-// which is visible are skipped.
+// was exactly 0 there too. A row that sees no key (a window, query
+// positions from T + window - 1 on) is the uniform average over the T keys
+// in the forward; its scores are the constant sentinel, so it gives dQ and
+// dK nothing (dS = 0) and adds dO / T to every key's dV (P = 1 / T): the
+// gradient of the plain version, which the reference differentiates. Tiles
+// that no pair of which is visible are skipped, except that a key tile
+// takes the query tiles of such rows.
 //
 // What bounds it on an H100: operations. The function is five products
 // over the visible (query, key) pairs, 10 D flops a pair and head: at
@@ -711,7 +904,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // ~2.2e10 flops, ~22 us at 989 TFLOP/s bf16, against ~27 MB of bf16
 // q/k/v/o/dO in and dq/dk/dv out (~8 us at 3.35 TB/s).
 //
-// bf16 (bwd_wgmma_kernel) runs at width 128 or 256. A narrower head dim
+// bf16 and fp16 (bwd_wgmma_kernel, one template over the 2-byte type: wgmma
+// .f16 and TMA FLOAT16 for fp16) run at width 128 or 256. A narrower head dim
 // (96: phi3-mini; any D % 8 == 0) reads as zero columns past D, which the
 // copies fill in shared memory (zero q and k columns leave the scores as
 // they are, zero v and dO columns give gradient columns that are not
@@ -776,6 +970,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // device memory (2 x 16.8 MB at the training shape); dQ recomputes S and
 // dP; head dims below 128 run at width 128.
 //
+// Head dims above 256, in every type, run the fp32-math bodies below in
+// column passes of 256 (kWide, as the forward's): the wgmma body's 64 x D
+// tiles of four tensors no longer fit shared memory, and its TMA pipeline
+// streams whole-D tiles. A pass recomputes S and dP over all of D in
+// k-steps of 256 columns and accumulates its own 256 columns of dQ (or of
+// dK and dV); it reads and writes the caller's type.
+//
 // fp32 (dkv_f32_kernel, dq_f32_kernel, after delta_kernel): fp32 FMAs
 // outside the tensor cores, which keeps the fp32 tolerance, laid out as
 // the forward's fp32 body: a lane owns one key (or query) column for the
@@ -801,23 +1002,30 @@ constexpr int kDeltaWarps = 8;
 template <typename T>
 __global__ void __launch_bounds__(32 * kDeltaWarps)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-             int S, int H, int D, long long n_rows) {
+             const Axes o_ax, const Axes do_ax, int S, int H, int D, long long n_rows) {
   const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= n_rows) return;
-  const T* o_row = o + row * D;
-  const T* d_row = dout + row * D;
+  // row = (b * S + s) * H + h  ->  delta[(b * H + h) * S + s]
+  const int h = (int)(row % H);
+  const long long bs = row / H;
+  const int b = (int)(bs / S), s = (int)(bs % S);
+  const T* o_row = o + o_ax.at(b, s, h);
+  const T* d_row = dout + do_ax.at(b, s, h);
   float acc = 0.0f;
   for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(o_row[d]), to_f32(d_row[d]), acc);
   acc = warp_sum(acc);
-  if (lane == 0) {  // row = (b * S + s) * H + h  ->  delta[(b * H + h) * S + s]
-    const int h = (int)(row % H);
-    const long long bs = row / H;
-    delta[(bs / S * H + h) * S + bs % S] = acc;
-  }
+  if (lane == 0) delta[((long long)b * H + h) * S + s] = acc;
 }
 
-// ---- fp32 bodies on the FMA pipe (kBQ, kBK, kThreads, kRows as the forward's)
+// the first query position that sees no key (a window reaches no further
+// back than T - 1 from there on), or past every row when there is none
+__host__ __device__ __forceinline__ int first_nokey_row(int S, int T_len, int window) {
+  const long long first = (long long)T_len + window - 1;
+  return window > 0 && first < S ? (int)first : S;
+}
+
+// ---- fp32-math bodies on the FMA pipe (kBQ, kBK, kThreads, kRows as the forward's)
 
 template <int D>
 constexpr size_t bwd_f32_smem_bytes() {
@@ -826,16 +1034,18 @@ constexpr size_t bwd_f32_smem_bytes() {
 
 // dQ for 32 query rows of one (batch, head): smem q, dO rows [32][D], K and
 // V transposed [D][33]. Lane = key column for S and dP, output columns
-// lane + 32 c for dQ += dS K.
-template <int D>
+// lane + 32 c for dQ += dS K. kWide: D = 256, dh > 256 in column passes
+// (blockIdx.x = query tile * passes + pass); Q, dO, K and V come chunk by
+// chunk of 256 columns for S and dP, then K's columns of the pass. A row
+// that sees no key gets dQ = 0 (its dS is 0).
+template <typename E, int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+dq_f32_kernel(const E* __restrict__ q, const E* __restrict__ k,
+              const E* __restrict__ v, const E* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int S, int T_len, int H, int KV, int dh, int causal,
-              int window, float scale) {
+              E* __restrict__ dq, const InputAxes ax, int S, int T_len, int H, int KV, int dh,
+              int causal, int window, float scale, int passes) {
   constexpr int kCols = (D + 31) / 32;
-  const int d_end = (dh + 3) & ~3;  // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* q_s = smem;                   // [kBQ][D]
   float* do_s = q_s + kBQ * D;         // [kBQ][D]
@@ -843,16 +1053,31 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vt_s = kt_s + D * (kBK + 1);  // [D][kBK + 1]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int pass = kWide ? blockIdx.x % passes : 0;
+  const int q0 = (kWide ? blockIdx.x / passes : blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
+  const int c0 = pass * D;
+  const int n_dc = kWide ? (dh + D - 1) / D : 1;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D, s = q0 + r;
-    const bool in = s < S && d < dh;
-    const size_t off = ((size_t)b * S + s) * H * dh + (size_t)h * dh + d;
-    q_s[idx] = in ? q[off] : 0.0f;
-    do_s[idx] = in ? dout[off] : 0.0f;
-  }
+  auto load_rows = [&](int dc) {  // Q and dO, columns [dc D, dc D + D)
+    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+      const int r = idx / D, d = idx % D + dc * D, s = q0 + r;
+      const bool in = s < S && d < dh;
+      q_s[idx] = in ? to_f32(q[ax.q.at(b, s, h) + d]) : 0.0f;
+      do_s[idx] = in ? to_f32(dout[ax.dout.at(b, s, h) + d]) : 0.0f;
+    }
+  };
+  auto load_kv = [&](int k0, int col0, bool with_v) {  // K (and V) transposed
+    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+      const int j = idx / D, d = idx % D, t = k0 + j;
+      const bool in = t < T_len && d + col0 < dh;
+      kt_s[d * (kBK + 1) + j] = in ? to_f32(k[ax.k.at(b, t, kvh) + col0 + d]) : 0.0f;
+      if (with_v)
+        vt_s[d * (kBK + 1) + j] = in ? to_f32(v[ax.v.at(b, t, kvh) + col0 + d]) : 0.0f;
+    }
+  };
+  if (!kWide) load_rows(0);
   float lse_r[kRows], dl_r[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -862,9 +1087,10 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dl_r[r] = qpos < S ? delta[off] : 0.0f;
   }
 
+  // the tiles the rows see (a row that sees no key needs none)
   int k_begin = 0, k_end = T_len;
-  if (causal) {  // the forward's range: tiles no row of the block can see
-    k_end = min(T_len, q0 + kBQ);
+  if (causal) {
+    k_end = min(T_len, min(S, q0 + kBQ));
     if (window > 0) k_begin = (max(0, q0 - window + 1) / kBK) * kBK;
   }
 
@@ -877,34 +1103,36 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* do_rows = do_s + warp * kRows * D;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and Q, dO are loaded)
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D, t = k0 + j;
-      const bool in = t < T_len && d < dh;
-      const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
-      kt_s[d * (kBK + 1) + j] = in ? k[off] : 0.0f;
-      vt_s[d * (kBK + 1) + j] = in ? v[off] : 0.0f;
-    }
-    __syncthreads();
-
     float s[kRows], dp[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.0f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // the previous tile is consumed (and Q, dO are loaded)
+      if (kWide) load_rows(dc);
+      load_kv(k0, dc * D, true);
+      __syncthreads();
+      const int d_end = (min(D, dh - dc * D) + 3) & ~3;  // past dh all zero
 #pragma unroll 2
-    for (int d = 0; d < d_end; d += 4) {
-      float kk[4], vv[4];
+      for (int d = 0; d < d_end; d += 4) {
+        float kk[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kk[i] = kt_s[(d + i) * (kBK + 1) + lane];
-        vv[i] = vt_s[(d + i) * (kBK + 1) + lane];
-      }
+        for (int i = 0; i < 4; ++i) {
+          kk[i] = kt_s[(d + i) * (kBK + 1) + lane];
+          vv[i] = vt_s[(d + i) * (kBK + 1) + lane];
+        }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * D + d);
-        const float4 gv = *reinterpret_cast<const float4*>(do_rows + r * D + d);
-        s[r] = fmaf(qv.x, kk[0], fmaf(qv.y, kk[1], fmaf(qv.z, kk[2], fmaf(qv.w, kk[3], s[r]))));
-        dp[r] = fmaf(gv.x, vv[0], fmaf(gv.y, vv[1], fmaf(gv.z, vv[2], fmaf(gv.w, vv[3], dp[r]))));
+        for (int r = 0; r < kRows; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * D + d);
+          const float4 gv = *reinterpret_cast<const float4*>(do_rows + r * D + d);
+          s[r] = fmaf(qv.x, kk[0], fmaf(qv.y, kk[1], fmaf(qv.z, kk[2], fmaf(qv.w, kk[3], s[r]))));
+          dp[r] = fmaf(gv.x, vv[0], fmaf(gv.y, vv[1], fmaf(gv.z, vv[2], fmaf(gv.w, vv[3], dp[r]))));
+        }
       }
+    }
+    if (kWide) {  // K's columns of the pass
+      __syncthreads();
+      load_kv(k0, c0, false);
+      __syncthreads();
     }
     const int kpos = k0 + lane;
     float ds[kRows];
@@ -937,11 +1165,11 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= S) continue;
-    float* out = dq + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh;
+    E* out = dq + ((size_t)b * S + qpos) * H * dh + (size_t)h * dh + c0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < dh) out[col] = acc[r][c] * scale;
+      if (c0 + col < dh) out[col] = from_f32<E>(acc[r][c] * scale);
     }
   }
 }
@@ -949,16 +1177,16 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dK and dV for 32 keys of one (batch, kv head): smem K, V rows [32][D], Q
 // and dO transposed [D][33]. Lane = query column for S^T and dP^T, output
 // columns lane + 32 c for dV += P^T dO and dK += dS^T Q. Loops over the G
-// heads of the kv head, then the query tiles that see the keys.
-template <int D>
+// heads of the kv head, then the query tiles that see the keys, and the
+// tiles of rows that see no key (P = 1 / T, dS = 0). kWide as dq's.
+template <typename E, int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
+dkv_f32_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, const E* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int S, int T_len, int H, int KV,
-               int dh, int causal, int window, float scale) {
+               E* __restrict__ dk, E* __restrict__ dv, const InputAxes ax, int S, int T_len,
+               int H, int KV, int dh, int causal, int window, float scale, int passes) {
   constexpr int kCols = (D + 31) / 32;
-  const int d_end = (dh + 3) & ~3;  // the score loop's columns: past dh all zero
   extern __shared__ float smem[];
   float* k_s = smem;                    // [kBK][D]
   float* v_s = k_s + kBK * D;           // [kBK][D]
@@ -966,21 +1194,38 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* dot_s = qt_s + D * (kBQ + 1);  // [D][kBQ + 1]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * kBK, kvh = blockIdx.y, b = blockIdx.z;
+  const int pass = kWide ? blockIdx.x % passes : 0;
+  const int k0 = (kWide ? blockIdx.x / passes : blockIdx.x) * kBK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
+  const int c0 = pass * D;
+  const int n_dc = kWide ? (dh + D - 1) / D : 1;
+  const int nokey = first_nokey_row(S, T_len, window);
+  const float inv_t = 1.0f / (float)T_len;
 
-  for (int idx = tid; idx < kBK * D; idx += kThreads) {
-    const int j = idx / D, d = idx % D, t = k0 + j;
-    const bool in = t < T_len && d < dh;
-    const size_t off = ((size_t)b * T_len + t) * KV * dh + (size_t)kvh * dh + d;
-    k_s[idx] = in ? k[off] : 0.0f;
-    v_s[idx] = in ? v[off] : 0.0f;
-  }
-  // query positions that can see a key of [k0, k0 + kBK)
+  auto load_keys = [&](int dc) {  // K and V rows, columns [dc D, dc D + D)
+    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+      const int j = idx / D, d = idx % D + dc * D, t = k0 + j;
+      const bool in = t < T_len && d < dh;
+      k_s[idx] = in ? to_f32(k[ax.k.at(b, t, kvh) + d]) : 0.0f;
+      v_s[idx] = in ? to_f32(v[ax.v.at(b, t, kvh) + d]) : 0.0f;
+    }
+  };
+  auto load_rows = [&](int h, int qt0, int col0) {  // Q and dO transposed
+    for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+      const int i = idx / D, d = idx % D, s = qt0 + i;
+      const bool in = s < S && d + col0 < dh;
+      qt_s[d * (kBQ + 1) + i] = in ? to_f32(q[ax.q.at(b, s, h) + col0 + d]) : 0.0f;
+      dot_s[d * (kBQ + 1) + i] = in ? to_f32(dout[ax.dout.at(b, s, h) + col0 + d]) : 0.0f;
+    }
+  };
+  if (!kWide) load_keys(0);
+  // query positions that can see a key of [k0, k0 + kBK), then those that
+  // see no key at all
   const int k_last = min(T_len, k0 + kBK) - 1;
   int q_begin = 0, q_end = S;
   if (causal) q_begin = (min(k0, S) / kBQ) * kBQ;
-  if (window > 0) q_end = min(S, k_last + window);
+  if (window > 0) q_end = nokey < S ? S : min(S, k_last + window);
 
   float acc_k[kRows][kCols], acc_v[kRows][kCols];
 #pragma unroll
@@ -993,15 +1238,6 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     for (int qt0 = q_begin; qt0 < q_end; qt0 += kBQ) {
-      __syncthreads();  // the previous tile is consumed (and K, V are loaded)
-      for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-        const int i = idx / D, d = idx % D, s = qt0 + i;
-        const bool in = s < S && d < dh;
-        const size_t off = ((size_t)b * S + s) * H * dh + (size_t)h * dh + d;
-        qt_s[d * (kBQ + 1) + i] = in ? q[off] : 0.0f;
-        dot_s[d * (kBQ + 1) + i] = in ? dout[off] : 0.0f;
-      }
-      __syncthreads();
       const int qpos = qt0 + lane;
       const size_t roff = ((size_t)b * H + h) * S + qpos;
       const float lse_q = qpos < S ? lse[roff] : 0.0f;
@@ -1010,21 +1246,33 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float s[kRows], dp[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.0f;
+      for (int dc = 0; dc < n_dc; ++dc) {
+        __syncthreads();  // the previous tile is consumed (and K, V are loaded)
+        if (kWide) load_keys(dc);
+        load_rows(h, qt0, dc * D);
+        __syncthreads();
+        const int d_end = (min(D, dh - dc * D) + 3) & ~3;  // past dh all zero
 #pragma unroll 2
-      for (int d = 0; d < d_end; d += 4) {
-        float qq[4], gg[4];
+        for (int d = 0; d < d_end; d += 4) {
+          float qq[4], gg[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qq[i] = qt_s[(d + i) * (kBQ + 1) + lane];
-          gg[i] = dot_s[(d + i) * (kBQ + 1) + lane];
-        }
+          for (int i = 0; i < 4; ++i) {
+            qq[i] = qt_s[(d + i) * (kBQ + 1) + lane];
+            gg[i] = dot_s[(d + i) * (kBQ + 1) + lane];
+          }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 kv4 = *reinterpret_cast<const float4*>(k_rows + r * D + d);
-          const float4 vv4 = *reinterpret_cast<const float4*>(v_rows + r * D + d);
-          s[r] = fmaf(kv4.x, qq[0], fmaf(kv4.y, qq[1], fmaf(kv4.z, qq[2], fmaf(kv4.w, qq[3], s[r]))));
-          dp[r] = fmaf(vv4.x, gg[0], fmaf(vv4.y, gg[1], fmaf(vv4.z, gg[2], fmaf(vv4.w, gg[3], dp[r]))));
+          for (int r = 0; r < kRows; ++r) {
+            const float4 kv4 = *reinterpret_cast<const float4*>(k_rows + r * D + d);
+            const float4 vv4 = *reinterpret_cast<const float4*>(v_rows + r * D + d);
+            s[r] = fmaf(kv4.x, qq[0], fmaf(kv4.y, qq[1], fmaf(kv4.z, qq[2], fmaf(kv4.w, qq[3], s[r]))));
+            dp[r] = fmaf(vv4.x, gg[0], fmaf(vv4.y, gg[1], fmaf(vv4.z, gg[2], fmaf(vv4.w, gg[3], dp[r]))));
+          }
         }
+      }
+      if (kWide) {  // Q's and dO's columns of the pass
+        __syncthreads();
+        load_rows(h, qt0, c0);
+        __syncthreads();
       }
       float p[kRows], ds[kRows];
 #pragma unroll
@@ -1033,6 +1281,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const bool vis = qpos < S && visible(qpos, kpos, T_len, causal, window);
         p[r] = vis ? expf(s[r] * scale - lse_q) : 0.0f;
         ds[r] = p[r] * (dp[r] - dl_q);
+        if (qpos >= nokey && qpos < S && kpos < T_len) p[r] = inv_t;  // a row that sees no key
       }
 #pragma unroll 4
       for (int i = 0; i < kBQ; ++i) {
@@ -1062,13 +1311,13 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int kpos = k0 + warp * kRows + r;
     if (kpos >= T_len) continue;
-    const size_t off = ((size_t)b * T_len + kpos) * KV * dh + (size_t)kvh * dh;
+    const size_t off = ((size_t)b * T_len + kpos) * KV * dh + (size_t)kvh * dh + c0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < dh) {
-        dk[off + col] = acc_k[r][c] * scale;
-        dv[off + col] = acc_v[r][c];
+      if (c0 + col < dh) {
+        dk[off + col] = from_f32<E>(acc_k[r][c] * scale);
+        dv[off + col] = from_f32<E>(acc_v[r][c]);
       }
     }
   }
@@ -1101,13 +1350,15 @@ struct BwdLayout {  // byte offsets into the (1024-aligned) dynamic shared memor
 
 struct BwdArgs {
   const float* stats;  // [2][B H][S_pad]: lse * log2(e) (+inf past S), then delta (0 past S)
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  void* dq;            // of the inputs' 2-byte type, as dk and dv
+  void* dk;
+  void* dv;
   float* part;  // G > 1: [2][B][H][T][dh] fp32 partial dK (unscaled), then dV; else null
   int B, S, T, H, KV, S_pad, causal, window;
   int dh;  // the tensors' head dim: D, or less (the tiles' columns past dh are zeros)
   float scale_log2, scale;
+  int nokey;    // the first query row that sees no key (S: none)
+  float inv_t;  // 1 / T: such a row's P on every key
 };
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -1199,54 +1450,70 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t panel, int kk) {
   return sw128_desc(panel + kk * 2048, 1024, 1024);
 }
 
-// d (64 x 64 fp32) = A . B (+ d if accumulate), A and B read K-major from
-// shared memory through their descriptors
+// The 32 accumulator registers of a m64n64 wgmma, as asm operands 0-31
+#define WG_ACC                                                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_REGS                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// d (64 x 64 fp32) = A . B (+ d if accumulate), A and B (of type E) read
+// K-major from shared memory through their descriptors
+template <typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (std::is_same<E, __half>::value)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_REGS
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WG_ACC
+                 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WG_ACC
+                 : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 fp32) = A . B (+ d if accumulate), A (64 x 16 bf16) from
+// d (64 x 64 fp32) = A . B (+ d if accumulate), A (64 x 16 of E) from
 // registers in the mma.m16n8k16 fragment layout (warp w holds rows 16 w ..
 // 16 w + 15), B read MN-major from shared memory
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  if constexpr (std::is_same<E, __half>::value)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_REGS
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WG_ACC
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WG_ACC
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
+#undef WG_ACC
+#undef WG_REGS
 
 // The accumulator of a 64 x 64 product holds, in thread (warp w, lane l),
 // rows 16 w + l / 4 + 8 i and columns 8 j + 2 (l % 4) + e at register
 // 4 j + 2 i + e: the A fragment layout, so it feeds the next product as
-// bf16 registers (k-step kk: columns 16 kk .. 16 kk + 15).
+// E registers (k-step kk: columns 16 kk .. 16 kk + 15).
+template <typename E>
 __device__ __forceinline__ void to_a_frags(const float (&x)[32], uint32_t (&af)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    af[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    af[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    af[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    af[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+    af[kk][0] = pack2<E>(x[8 * kk + 0], x[8 * kk + 1]);
+    af[kk][1] = pack2<E>(x[8 * kk + 2], x[8 * kk + 3]);
+    af[kk][2] = pack2<E>(x[8 * kk + 4], x[8 * kk + 5]);
+    af[kk][3] = pack2<E>(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
@@ -1260,7 +1527,7 @@ struct BwdItem {
 
 // dK/dV item u: key tile u / (B H), ascending (under a causal mask a tile
 // is seen by no fewer query tiles than the next), and the query tiles
-// that see its keys
+// that see its keys, then those of rows that see no key
 __device__ __forceinline__ BwdItem dkv_item(int u, const BwdArgs& a) {
   const int bh = u % (a.B * a.H);
   BwdItem it;
@@ -1270,7 +1537,7 @@ __device__ __forceinline__ BwdItem dkv_item(int u, const BwdArgs& a) {
   it.row0 = (u / (a.B * a.H)) * kBwdRows;
   const int k_last = min(a.T, it.row0 + kBwdRows) - 1;
   it.begin = a.causal ? (min(it.row0, a.S) / kBwdRows) * kBwdRows : 0;
-  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  const int q_end = a.window > 0 && a.nokey >= a.S ? min(a.S, k_last + a.window) : a.S;
   it.n_tiles = q_end > it.begin ? (q_end - it.begin + kBwdRows - 1) / kBwdRows : 0;
   return it;
 }
@@ -1320,10 +1587,11 @@ __device__ __forceinline__ bool tile_needs_mask(int q0, int k0, const BwdArgs& a
 
 // 1. delta = rowsum(dO o O) and lse * log2(e), rows padded to whole tiles:
 // one warp a row, 16-byte loads
+template <typename E>
 __global__ void __launch_bounds__(32 * kDeltaWarps)
-bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, float* __restrict__ stats, int S, int H, int dh,
-                int S_pad, long long n_rows) {
+bwd_prep_kernel(const E* __restrict__ o, const E* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ stats, const Axes o_ax,
+                const Axes do_ax, int S, int H, int dh, int S_pad, long long n_rows) {
   const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;  // (b h, s)
   const int lane = threadIdx.x % 32;
   if (row >= n_rows) return;
@@ -1331,15 +1599,17 @@ bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const int s = (int)(row % S_pad);
   float l2 = __int_as_float(0x7f800000), dl = 0.0f;  // +inf: a padded row weighs nothing
   if (s < S) {
-    const size_t off = (((size_t)(bh / H) * S + s) * H + bh % H) * dh;
+    const int b = (int)(bh / H), h = (int)(bh % H);
+    const E* o_row = o + o_ax.at(b, s, h);
+    const E* d_row = dout + do_ax.at(b, s, h);
     float acc = 0.0f;
     for (int d = lane * 8; d < dh; d += 256) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + off + d);
-      const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + d);
-      const bf16* op = reinterpret_cast<const bf16*>(&ov);
-      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+      const uint4 ov = *reinterpret_cast<const uint4*>(o_row + d);
+      const uint4 gv = *reinterpret_cast<const uint4*>(d_row + d);
+      const E* op = reinterpret_cast<const E*>(&ov);
+      const E* gp = reinterpret_cast<const E*>(&gv);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(op[e]), __bfloat162float(gp[e]), acc);
+      for (int e = 0; e < 8; ++e) acc = fmaf(to_f32(op[e]), to_f32(gp[e]), acc);
     }
     dl = warp_sum(acc);
     l2 = lse[bh * S + s] * kLog2e;
@@ -1437,8 +1707,10 @@ __device__ __forceinline__ void bwd_produce(const BwdSmem<D>& m, const CUtensorM
 }
 
 // 2a. dK, dV of a 64-key item: group 0 owns S^T, P^T and dV, group 1 dP^T,
-// dS^T and dK
-template <int D>
+// dS^T and dK. kNoKey: some query rows see no key (P = 1 / T there, dS = 0);
+// a separate instantiation, so the calls without such rows run the body
+// they ran before
+template <typename E, int D, bool kNoKey>
 __device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& it,
                                             const BwdArgs& a, int role, int tid, int& sc,
                                             int& ic) {
@@ -1466,7 +1738,7 @@ __device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& 
     float st[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(st, desc_k(kv_s, kk), desc_k(x_s, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<E>(st, desc_k(kv_s, kk), desc_k(x_s, kk), kk);
     wg_commit();
     wg_wait0();
     fence_acc(st);
@@ -1485,7 +1757,11 @@ __device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& 
           for (int e = 0; e < 2; ++e) {
             float& x = st[4 * j + 2 * i + e];
             const float p = exp2f(x * a.scale_log2 - (e ? l2.y : l2.x));
-            x = need && !visible(q0 + col + e, key, a.T, a.causal, a.window) ? 0.0f : p;
+            const int qpos = q0 + col + e;
+            // a row that sees no key: 1 / T on every key
+            const float off =
+                kNoKey && qpos >= a.nokey && qpos < a.S && key < a.T ? a.inv_t : 0.0f;
+            x = need && !visible(qpos, key, a.T, a.causal, a.window) ? off : p;
           }
         }
       }
@@ -1507,16 +1783,24 @@ __device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& 
           st[4 * j + 2 * i] = p[4 * j + 2 * i] * (st[4 * j + 2 * i] - dl.x);
           st[4 * j + 2 * i + 1] = p[4 * j + 2 * i + 1] * (st[4 * j + 2 * i + 1] - dl.y);
         }
+        if (kNoKey) {  // rows that see no key give dK nothing
+          const int qpos = q0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (qpos + e >= a.nokey) st[4 * j + 2 * i + e] = 0.0f;
+        }
       }
     }
     uint32_t af[4][4];
-    to_a_frags(st, af);
+    to_a_frags<E>(st, af);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int p = 0; p < L::kPanels; ++p)
-        wgmma_rs(acc[p], af[kk], desc_mn(y_s + p * kPanelBytes, kk), 1);
+        wgmma_rs<E>(acc[p], af[kk], desc_mn(y_s + p * kPanelBytes, kk), 1);
     wg_commit();
     wg_wait0();
 #pragma unroll
@@ -1547,16 +1831,16 @@ __device__ __forceinline__ void dkv_consume(const BwdSmem<D>& m, const BwdItem& 
               a.part + ((((size_t)(1 - role) * a.B + it.b) * a.H + it.h) * a.T + key) * a.dh +
               col) = make_float2(x0, x1);
         else
-          *reinterpret_cast<uint32_t*>((role ? a.dk : a.dv) +
+          *reinterpret_cast<uint32_t*>(static_cast<E*>(role ? a.dk : a.dv) +
                                        (((size_t)it.b * a.T + key) * a.KV + kvh) * a.dh + col) =
-              pack_bf16(x0 * mul, x1 * mul);
+              pack2<E>(x0 * mul, x1 * mul);
       }
   }
 }
 
 // 2b. dQ of a 64-row item: group 0 owns S and P, group 1 dP and dS; each
 // accumulates half of dQ's columns
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& it,
                                            const BwdArgs& a, int role, int tid, int& sc,
                                            int& ic) {
@@ -1589,7 +1873,7 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc_, desc_k(x_s, kk), desc_k(k_s + role * L::kTile, kk), kk);
+      wgmma_ss<E>(sc_, desc_k(x_s, kk), desc_k(k_s + role * L::kTile, kk), kk);
     wg_commit();
     wg_wait0();
     fence_acc(sc_);
@@ -1622,7 +1906,7 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
           sc_[x] = pbuf[x * 128 + tid] * (sc_[x] - rs[i]);
           sc_[x + 1] = pbuf[(x + 1) * 128 + tid] * (sc_[x + 1] - rs[i]);
         }
-      to_a_frags(sc_, af);
+      to_a_frags<E>(sc_, af);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -1640,7 +1924,7 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int p = 0; p < kHalf; ++p)
-        wgmma_rs(acc[p], af[kk], desc_mn(k_s + (role * kHalf + p) * kPanelBytes, kk), 1);
+        wgmma_rs<E>(acc[p], af[kk], desc_mn(k_s + (role * kHalf + p) * kPanelBytes, kk), 1);
     wg_commit();
     wg_wait0();
 #pragma unroll
@@ -1652,7 +1936,7 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
   for (int i = 0; i < 2; ++i) {
     const int qpos = it.row0 + 16 * warp + lane / 4 + 8 * i;
     if (qpos >= a.S) continue;
-    bf16* row = a.dq + (((size_t)it.b * a.S + qpos) * a.H + it.h) * a.dh;
+    E* row = static_cast<E*>(a.dq) + (((size_t)it.b * a.S + qpos) * a.H + it.h) * a.dh;
 #pragma unroll
     for (int p = 0; p < kHalf; ++p)
 #pragma unroll
@@ -1660,13 +1944,13 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
         const int col = role * (D / 2) + p * 64 + 8 * j + 2 * (lane % 4);
         if (col < a.dh)
           *reinterpret_cast<uint32_t*>(row + col) =
-              pack_bf16(acc[p][4 * j + 2 * i] * a.scale, acc[p][4 * j + 2 * i + 1] * a.scale);
+              pack2<E>(acc[p][4 * j + 2 * i] * a.scale, acc[p][4 * j + 2 * i + 1] * a.scale);
       }
   }
 }
 
 // 2. dK/dV and dQ items in one persistent launch, one block per SM
-template <int D>
+template <typename E, int D, bool kNoKey>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -1695,17 +1979,18 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       if (c >= n_kv + n_q) break;
       const BwdItem it = bwd_item(c, n_kv, n_q, a);
       if (it.dq)
-        dq_consume<D>(m, it, a, role, tid, sc, ic);
+        dq_consume<E, D>(m, it, a, role, tid, sc, ic);
       else
-        dkv_consume<D>(m, it, a, role, tid, sc, ic);
+        dkv_consume<E, D, kNoKey>(m, it, a, role, tid, sc, ic);
     }
   }
 }
 
 // 3. G > 1: dK = scale * sum_g partial dK, dV = sum_g partial dV, heads in
 // order, 4 columns a thread
+template <typename E>
 __global__ void __launch_bounds__(256)
-dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
+dkv_reduce_kernel(const float* __restrict__ part, E* __restrict__ dk, E* __restrict__ dv,
                   int B, int T, int H, int KV, int D, float scale, long long n4) {
   const int G = H / KV;
   const size_t half = (size_t)B * H * T * D;
@@ -1726,8 +2011,8 @@ dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* _
       sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
     }
     *reinterpret_cast<uint2*>(dk + e) =
-        make_uint2(pack_bf16(sk.x * scale, sk.y * scale), pack_bf16(sk.z * scale, sk.w * scale));
-    *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+        make_uint2(pack2<E>(sk.x * scale, sk.y * scale), pack2<E>(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack2<E>(sv.x, sv.y), pack2<E>(sv.z, sv.w));
   }
 }
 
@@ -1767,34 +2052,48 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a contiguous (B, rows, heads, D) bf16 tensor as TMA boxes of 64 rows x 64
-// columns of one head, 128-byte swizzled, zero-filled past the edges (so a
-// head dim below the kernel's width reads as zero columns)
-bool make_tile_map(CUtensorMap* map, const void* base, int B, int rows, int heads, int D) {
+// a (B, rows, heads, D) 2-byte tensor at the strides `ax` (each a multiple
+// of 8 elements, as TMA needs 16-byte strides) as TMA boxes of 64 rows x
+// 64 columns of one head, 128-byte swizzled, zero-filled past the edges (so
+// a head dim below the kernel's width reads as zero columns)
+bool make_tile_map(CUtensorMap* map, const void* base, const Axes& ax, int B, int rows,
+                   int heads, int D, CUtensorMapDataType type) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  // a size-1 axis may carry any stride; TMA wants a 16-byte one all the same
+  const auto stride = [](long long st, int n, long long dense) {
+    return (cuuint64_t)(n > 1 ? st : dense) * 2;
+  };
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint64_t strides[3] = {stride(ax.h, heads, D), stride(ax.s, rows, (long long)heads * D),
+                                 stride(ax.b, B, (long long)rows * heads * D)};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBwdRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <typename E, int D>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const float* lse, float* stats, float* part, void* dq, void* dk, void* dv, int B,
-                  int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
-                  cudaStream_t stream) {
+                  const float* lse, float* stats, float* part, void* dq, void* dk, void* dv,
+                  const InputAxes& ax, int B, int S, int T_len, int H, int KV, int dh, int causal,
+                  int window, float scale, cudaStream_t stream) {
   using L = BwdLayout<D>;
-  static bool configured = false;  // one attribute call per instantiation
-  cudaError_t err = set_smem(bwd_wgmma_kernel<D>, L::kBytes, configured);
+  // rows that see no key take their own instantiation (dkv_consume)
+  const int nokey = first_nokey_row(S, T_len, window);
+  const auto kernel = nokey < S ? bwd_wgmma_kernel<E, D, true> : bwd_wgmma_kernel<E, D, false>;
+  static bool configured[2] = {false, false};  // one attribute call per instantiation
+  cudaError_t err = set_smem(kernel, L::kBytes, configured[nokey < S]);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const CUtensorMapDataType type = std::is_same<E, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_tile_map(&mq, q, B, S, H, dh) || !make_tile_map(&mdo, dout, B, S, H, dh) ||
-      !make_tile_map(&mk, k, B, T_len, KV, dh) || !make_tile_map(&mv, v, B, T_len, KV, dh))
+  if (!make_tile_map(&mq, q, ax.q, B, S, H, dh, type) ||
+      !make_tile_map(&mdo, dout, ax.dout, B, S, H, dh, type) ||
+      !make_tile_map(&mk, k, ax.k, B, T_len, KV, dh, type) ||
+      !make_tile_map(&mv, v, ax.v, B, T_len, KV, dh, type))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, n_sm = 0;
   err = cudaGetDevice(&dev);
@@ -1803,145 +2102,215 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, co
 
   const int S_pad = (S + kBwdRows - 1) / kBwdRows * kBwdRows;
   const long long n_rows = (long long)B * H * S_pad;
-  bwd_prep_kernel<<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
-                    stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-                              stats, S, H, dh, S_pad, n_rows);
+  bwd_prep_kernel<E><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
+                       stream>>>(static_cast<const E*>(o), static_cast<const E*>(dout), lse, stats,
+                                 ax.o, ax.dout, S, H, dh, S_pad, n_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = H / KV;
-  const BwdArgs args{stats, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                     static_cast<bf16*>(dv), G > 1 ? part : nullptr, B, S, T_len, H, KV, S_pad,
-                     causal, window, dh, scale * kLog2e, scale};
+  const BwdArgs args{stats, dq, dk, dv, G > 1 ? part : nullptr, B, S, T_len, H, KV, S_pad,
+                     causal, window, dh, scale * kLog2e, scale, nokey, 1.0f / (float)T_len};
   const int units = B * H * ((T_len + kBwdRows - 1) / kBwdRows + (S + kBwdRows - 1) / kBwdRows);
-  bwd_wgmma_kernel<D><<<std::min(units, n_sm), kBwdThreads, L::kBytes, stream>>>(mq, mk, mv, mdo,
-                                                                               args);
+  kernel<<<std::min(units, n_sm), kBwdThreads, L::kBytes, stream>>>(mq, mk, mv, mdo, args);
   err = cudaGetLastError();
   if (err != cudaSuccess || G == 1) return static_cast<int>(err);
   const long long n4 = (long long)B * T_len * KV * dh / 4;
   const long long blocks = std::min<long long>((n4 + 255) / 256, 16LL * n_sm);
-  dkv_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, static_cast<bf16*>(dk),
-                                                          static_cast<bf16*>(dv), B, T_len, H, KV,
-                                                          dh, scale, n4);
+  dkv_reduce_kernel<E><<<(unsigned)blocks, 256, 0, stream>>>(
+      part, static_cast<E*>(dk), static_cast<E*>(dv), B, T_len, H, KV, dh, scale, n4);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                   int S, int T_len, int H, int KV, int dh, int causal, int window, float scale,
-                   cudaStream_t stream) {
+template <typename E, int D, bool kWide>
+int launch_bwd_fma(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                   const InputAxes& ax, int B, int S, int T_len, int H, int KV, int dh,
+                   int causal, int window, int passes, float scale, cudaStream_t stream) {
   constexpr size_t smem = bwd_f32_smem_bytes<D>();
   static bool cfg_kv = false, cfg_q = false;
-  cudaError_t err = set_smem(dkv_f32_kernel<D>, smem, cfg_kv);
-  if (err == cudaSuccess) err = set_smem(dq_f32_kernel<D>, smem, cfg_q);
+  cudaError_t err = set_smem(dkv_f32_kernel<E, D, kWide>, smem, cfg_kv);
+  if (err == cudaSuccess) err = set_smem(dq_f32_kernel<E, D, kWide>, smem, cfg_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_f32_kernel<D><<<dim3((T_len + kBK - 1) / kBK, KV, B), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, T_len, H, KV, dh, causal, window, scale);
+  dkv_f32_kernel<E, D, kWide>
+      <<<dim3((unsigned)(((long long)T_len + kBK - 1) / kBK * passes), KV, B), kThreads, smem,
+          stream>>>(static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+                    static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk),
+                    static_cast<E*>(dv), ax, S, T_len, H, KV, dh, causal, window, scale, passes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_f32_kernel<D><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, T_len, H, KV,
-      dh, causal, window, scale);
+  dq_f32_kernel<E, D, kWide>
+      <<<dim3((unsigned)(((long long)S + kBQ - 1) / kBQ * passes), H, B), kThreads, smem,
+          stream>>>(static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+                    static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), ax, S, T_len, H,
+                    KV, dh, causal, window, scale, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bwd_f32_all(const void* q, const void* k, const void* v, const void* o,
+// delta, then the FMA bodies at the wrapper's width and passes: fp32 at
+// any D (the forward's widths, passes past 256), the 2-byte types in passes
+template <typename E>
+int launch_bwd_fma_all(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int S, int T_len, int H, int KV, int D, int causal,
-                       int window, float scale, cudaStream_t stream) {
-  if (head_width(D) == 0) return static_cast<int>(cudaErrorInvalidValue);
+                       void* dv, const InputAxes& ax, int B, int S, int T_len, int H, int KV,
+                       int D, int causal, int window, int width, int passes, float scale,
+                       cudaStream_t stream) {
+  if (!plan_fits(D, width, passes) || (sizeof(E) == 2 && passes == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long n_rows = (long long)B * S * H;
-  delta_kernel<float><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps,
-                        0, stream>>>(static_cast<const float*>(o),
-                                     static_cast<const float*>(dout), delta, S, H, D, n_rows);
+  delta_kernel<E><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
+                    stream>>>(static_cast<const E*>(o), static_cast<const E*>(dout), delta, ax.o,
+                              ax.dout, S, H, D, n_rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-#define FA_BWD_CASE(DIM)                                                                       \
-  case DIM:                                                                                    \
-    return launch_bwd_f32<DIM>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_len, H, KV, D,   \
-                               causal, window, scale, stream);
-  switch (head_width(D)) {
-    FA_BWD_CASE(16)
-    FA_BWD_CASE(32)
-    FA_BWD_CASE(64)
-    FA_BWD_CASE(128)
-    FA_BWD_CASE(256)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (passes > 1)
+    return launch_bwd_fma<E, kPassWidth, true>(q, k, v, dout, lse, delta, dq, dk, dv, ax, B,
+                                               S, T_len, H, KV, D, causal, window, passes,
+                                               scale, stream);
+  if constexpr (sizeof(E) == 4) {
+#define FA_BWD_CASE(DIM)                                                                     \
+  case DIM:                                                                                  \
+    return launch_bwd_fma<E, DIM, false>(q, k, v, dout, lse, delta, dq, dk, dv, ax, B, S,    \
+                                         T_len, H, KV, D, causal, window, 1, scale, stream);
+    switch (width) {
+      FA_BWD_CASE(16)
+      FA_BWD_CASE(32)
+      FA_BWD_CASE(64)
+      FA_BWD_CASE(128)
+      FA_BWD_CASE(256)
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 #undef FA_BWD_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // 2-byte types in one pass run wgmma
+}
+
+// the bodies a backward entry is handed (the wrapper's _BWD_BODY)
+constexpr int kBodyWgmma = 0, kBodyFma = 1;
+
+// the 2-byte backward: wgmma at width 128 or 256 in one pass (D % 8 == 0:
+// TMA rows on the 16-byte grid), or the FMA bodies in passes
+template <typename E>
+int launch_bwd_2byte(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* stats, void* part, void* dq,
+                     void* dk, void* dv, const long long* strides, int B, int S, int T, int H,
+                     int KV, int D, int causal, int window, int body, int width, int passes,
+                     float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const InputAxes ax = read_axes(strides, 5);
+  const float* l = static_cast<const float*>(lse);
+  float* st = static_cast<float*>(stats);
+  float* pt = static_cast<float*>(part);
+  if (body == kBodyFma)  // stats: an fp32 (B, H, S) scratch for delta
+    return launch_bwd_fma_all<E>(q, k, v, o, dout, l, st, dq, dk, dv, ax, B, S, T, H, KV, D,
+                                 causal, window, width, passes, scale, s);
+  if (body != kBodyWgmma || passes != 1 || !plan_fits(D, width, 1) ||
+      (width != 128 && width != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)stats | (uintptr_t)part) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (H > KV && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 != 0 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (width == 128)  // the tiles' columns past D are zero-filled by the copies
+    return launch_bwd_tc<E, 128>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H, KV, D,
+                                 causal, window, scale, s);
+  return launch_bwd_tc<E, 256>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H, KV, D,
+                               causal, window, scale, s);
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes. q (B, S, H, D), k/v (B, T, KV, D) and
-// o (B, S, H, D) are contiguous; lse is null or an fp32 (B, H, S) buffer;
-// H % KV == 0; any D from 1 to 256, run at the smallest width of 16, 32,
-// 64, 128 and 256 that holds it (rows read at stride D, the columns past D
-// zeros on the card, only D columns written); causal is 0/1, window <= 0
-// means none; scores are scaled by `scale` (D^-0.5). The bf16 entry also
-// needs each pointer 16-byte aligned (rows of D % 8 == 0 move by 16-byte
-// cp.async). Each launches on `stream` and returns the CUDA error code (0
-// on success).
+// Plain C entry points for ctypes. q (B, S, H, D) and k/v (B, T, KV, D)
+// are read at `strides`: 9 element strides, the batch, row and head axes
+// of q, k and v in turn (the last axis unit-stride); o (B, S, H, D) is
+// contiguous; lse is null or an fp32 (B, H, S) buffer;
+// H % KV == 0; any D >= 1, at the wrapper's `width` and column `passes`:
+// one pass at a width of 16, 32, 64, 128 or 256 that holds D (rows read at
+// stride D, the columns past D zeros on the card, only D columns written),
+// or ceil(D / 256) passes at width 256 (a plan that does not fit D is
+// refused); causal is 0/1, window <= 0 means none; scores are scaled by
+// `scale` (D^-0.5). The 2-byte entries also need each pointer 16-byte
+// aligned (rows of D % 8 == 0 move by 16-byte cp.async). Each launches on
+// `stream` and returns the CUDA error code (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                                       void* o, void* lse, int B, int S, int T, int H, int KV,
-                                       int D, int causal, int window, float scale,
+                                       void* o, void* lse, const long long* strides, int B,
+                                       int S, int T, int H, int KV, int D, int causal,
+                                       int window, int width, int passes, float scale,
                                        void* stream) {
-  return launch<float>(q, k, v, o, static_cast<float*>(lse), B, S, T, H, KV, D, causal,
-                       window, scale, stream);
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV, D, causal,
+                       window, width, passes, scale, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                        void* o, void* lse, int B, int S, int T, int H, int KV,
-                                        int D, int causal, int window, float scale,
+                                        void* o, void* lse, const long long* strides, int B,
+                                        int S, int T, int H, int KV, int D, int causal,
+                                        int window, int width, int passes, float scale,
                                         void* stream) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, S, T, H, KV, D,
-                               causal, window, scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV,
+                               D, causal, window, width, passes, scale, stream);
 }
 
-// Plain C entry points for ctypes. q, o, dout, dq (B, S, H, D) and k, v, dk,
-// dv (B, T, KV, D) are contiguous and of one type; lse is the forward's
+extern "C" int flash_attention_fwd_f16(const void* q, const void* k, const void* v,
+                                       void* o, void* lse, const long long* strides, int B,
+                                       int S, int T, int H, int KV, int D, int causal,
+                                       int window, int width, int passes, float scale,
+                                       void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return launch<__half>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV, D, causal,
+                        window, width, passes, scale, stream);
+}
+
+// Plain C entry points for ctypes. q, o, dout (B, S, H, D) and k, v
+// (B, T, KV, D) are of one type and read at `strides`: 15 element strides,
+// the batch, row and head axes of q, k, v, o and dout in turn (the last
+// axis unit-stride; the 2-byte types' strides multiples of 8); dq, dk, dv
+// are contiguous; lse is the forward's
 // (B, H, S) fp32 log-sum-exp; causal 0/1, window <= 0 means none; `scale`
-// as in the forward. Each launches its kernels on `stream` and returns the
-// CUDA error code (0 on success).
-//   fp32: any D from 1 to 256, run at the forward's widths; stats is an
-//   fp32 (B, H, S) scratch buffer the call fills with delta; part is unused.
-//   bf16: D a multiple of 8 up to 256 (run at width 128 or 256); every
-//   pointer 16-byte aligned; stats is an fp32 scratch of 2 B H S_pad (S_pad:
-//   S rounded up to 64); part, when H > KV, an fp32 scratch of 2 B H T D for
-//   the per-head partial dK and dV.
+// as in the forward; `body`, `width` and `passes` are the wrapper's plan
+// (one that does not fit D is refused). Each launches its kernels on
+// `stream` and returns the CUDA error code (0 on success).
+//   body 1 (the FMA bodies): fp32 at any D >= 1 at the forward's widths and
+//   passes, the 2-byte types in passes of 256; stats is an fp32 (B, H, S)
+//   scratch buffer the call fills with delta; part is unused.
+//   body 0 (wgmma, the 2-byte types in one pass): D a multiple of 8 at
+//   width 128 or 256; every pointer 16-byte aligned; stats is an fp32
+//   scratch of 2 B H S_pad (S_pad: S rounded up to 64); part, when H > KV,
+//   an fp32 scratch of 2 B H T D for the per-head partial dK and dV.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* stats, void* part, void* dq, void* dk, void* dv,
-                                       int B, int S, int T, int H, int KV, int D, int causal,
-                                       int window, float scale, void* stream) {
+                                       const long long* strides, int B, int S, int T, int H,
+                                       int KV, int D, int causal, int window, int body,
+                                       int width, int passes, float scale, void* stream) {
   (void)part;
-  return launch_bwd_f32_all(q, k, v, o, dout, static_cast<const float*>(lse),
-                            static_cast<float*>(stats), dq, dk, dv, B, S, T, H, KV, D, causal,
-                            window, scale, static_cast<cudaStream_t>(stream));
+  if (body != kBodyFma) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_fma_all<float>(q, k, v, o, dout, static_cast<const float*>(lse),
+                                   static_cast<float*>(stats), dq, dk, dv,
+                                   read_axes(strides, 5), B, S, T, H, KV, D, causal, window,
+                                   width, passes, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         void* stats, void* part, void* dq, void* dk, void* dv,
-                                        int B, int S, int T, int H, int KV, int D, int causal,
-                                        int window, float scale, void* stream) {
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
-       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)stats | (uintptr_t)part) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  if (H > KV && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* st = static_cast<float*>(stats);
-  float* pt = static_cast<float*>(part);
-  if (D % 8 != 0 || D < 8 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 128)  // the tiles' columns past D are zero-filled by the copies
-    return launch_bwd_tc<128>(q, k, v, o, dout, l, st, pt, dq, dk, dv, B, S, T, H, KV, D, causal,
-                              window, scale, s);
-  return launch_bwd_tc<256>(q, k, v, o, dout, l, st, pt, dq, dk, dv, B, S, T, H, KV, D, causal,
-                            window, scale, s);
+                                        const long long* strides, int B, int S, int T, int H,
+                                        int KV, int D, int causal, int window, int body,
+                                        int width, int passes, float scale, void* stream) {
+  return launch_bwd_2byte<__nv_bfloat16>(q, k, v, o, dout, lse, stats, part, dq, dk, dv,
+                                         strides, B, S, T, H, KV, D, causal, window, body, width,
+                                         passes, scale, stream);
+}
+
+extern "C" int flash_attention_bwd_f16(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const void* lse,
+                                       void* stats, void* part, void* dq, void* dk, void* dv,
+                                       const long long* strides, int B, int S, int T, int H,
+                                       int KV, int D, int causal, int window, int body,
+                                       int width, int passes, float scale, void* stream) {
+  return launch_bwd_2byte<__half>(q, k, v, o, dout, lse, stats, part, dq, dk, dv, strides, B, S,
+                                  T, H, KV, D, causal, window, body, width, passes, scale,
+                                  stream);
 }

@@ -15,7 +15,11 @@
 //   * r multiplies the fp32 sum once, in the epilogue, and the result is
 //     converted to the input type;
 //   * ragged edges are zero-filled here, so the caller pads nothing.
-// A, H and out share one type (fp32 or bf16); r and c are of that type too.
+// A, H and out share one type (fp32, bf16 or fp16); r and c are of that type
+// too. The 2-byte types are widened to fp32 as they are staged, so all three
+// run the same fp32 FMAs and round once, at the output. (An adjacency of
+// another type than H's is promoted by the wrapper to fp32 with H, which is
+// what the plain version computes: fp32 products, then a cast to H's type.)
 //
 // What bounds it on an H100: fp32 FMA throughput. The planner's largest
 // bucket is M = N = 1024 with D = 213 (the GNN hidden width): 2 * 1024 * 1024 * 213
@@ -58,6 +62,7 @@
 // bucket for the launch-bound small buckets.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,11 +97,15 @@ struct __align__(16) Smem {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -104,13 +113,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // One element into a stage: 4-byte cp.async for fp32 (zero-filled when
-// !valid), a widening load and store for bf16.
+// !valid), a widening load and store for bf16 and fp16.
 __device__ __forceinline__ void stage_elem(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void stage_elem(float* dst, const __nv_bfloat16* src, bool valid) {
   *dst = valid ? __bfloat162float(*src) : 0.0f;
+}
+__device__ __forceinline__ void stage_elem(float* dst, const __half* src, bool valid) {
+  *dst = valid ? __half2float(*src) : 0.0f;
 }
 __device__ __forceinline__ void stage_vec4(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
@@ -369,4 +381,10 @@ extern "C" int gcn_scaled_spmm_bf16(const void* a, const void* h, const void* r,
                                     const void* c, void* out, int m, int n, int d,
                                     void* stream) {
   return launch<__nv_bfloat16>(a, h, r, c, out, m, n, d, stream);
+}
+
+extern "C" int gcn_scaled_spmm_f16(const void* a, const void* h, const void* r,
+                                   const void* c, void* out, int m, int n, int d,
+                                   void* stream) {
+  return launch<__half>(a, h, r, c, out, m, n, d, stream);
 }

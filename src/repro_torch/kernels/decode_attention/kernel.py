@@ -6,12 +6,20 @@ flash-decoding whose chunks are combined inside a thread-block cluster: no
 scratch, no atomics, and nothing kept between calls, so a call can be
 captured in a CUDA graph. The wrapper allocates only the output; nothing is
 transposed, and the boolean slot mask is read as it is, one byte a slot.
-Every argument is checked before a pointer is handed over. Head dims: any D
-from 1 to ``MAX_HEAD_DIM`` (256), as the reference's Pallas kernel takes
-any D. The kernel runs at the smallest width of 16, 32, 64, 128 and 256 that
-holds D, reads the cache's rows as they are (stride D), fills the columns
-past D with zeros on the card, writes D columns and scales by the true
-D^-0.5: nothing is padded or copied here. A larger D is refused.
+Every argument is checked before a pointer is handed over. Inputs:
+float32, bfloat16 or float16. Head dims: any D >= 1, as the reference's
+Pallas kernel takes any D. Up to 256 the kernel runs at the smallest width
+of 16, 32, 64, 128 and 256 that holds D, reads the cache's rows as they are
+(at their strides), fills the columns past D with zeros on the card,
+writes D columns and scales by the true D^-0.5: nothing is padded here. Past 256 it
+runs in column passes of 256 (one launch), each streaming K whole for the
+scores and its own 256 columns of V. ``dispatch`` is the rule, a pure
+function: the width and the passes (handed to the C entry point, which
+runs them and chooses none of its own), and which inputs are copied dense
+first. q, k and v are read through their strides, so a view whose last
+axis is unit-stride is read in place; a view whose address or strides lie
+off the 16-byte grid the kernel's loads need is copied (the model's own
+calls copy nothing), and so is a mask that is not dense.
 
 Launch counting: ``LAUNCHES["decode_attention"]`` counts launches that ran
 on the card. A call made while the current stream is capturing a CUDA graph
@@ -26,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _layout
 
 # wrapper name -> number of kernel launches that ran on the card
 LAUNCHES = {"decode_attention": 0}
@@ -34,10 +42,13 @@ LAUNCHES = {"decode_attention": 0}
 CAPTURED = {"decode_attention": 0}
 
 _ENTRY = {torch.float32: "decode_attention_f32",
-          torch.bfloat16: "decode_attention_bf16"}
-MAX_HEAD_DIM = 256   # the widest instantiation
+          torch.bfloat16: "decode_attention_bf16",
+          torch.float16: "decode_attention_f16"}
+WIDTHS = (16, 32, 64, 128, 256)   # the instantiated widths
+PASS_WIDTH = 256   # output columns of one pass past the widest width
+ALIGN = 16   # q, k and v rows are read 16 bytes at a time
 _INT_MAX = 2 ** 31 - 1
-_UNITS_MAX = 65535   # gridDim.y: B * KV * ceil(G / 8)
+_UNITS_MAX = 65535   # gridDim.y: B * KV * ceil(G / 8) * passes
 _READY: set = set()  # CUDA device indices whose kernel attributes are set
 
 
@@ -64,7 +75,8 @@ def _lib(device: torch.device) -> ctypes.CDLL:
                                "must run eagerly, before any CUDA graph capture")
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] \
+                + [ctypes.c_int] * 7 \
                 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.decode_attention_setup.argtypes = []
@@ -76,18 +88,31 @@ def _lib(device: torch.device) -> ctypes.CDLL:
     return lib
 
 
+def dispatch(d: int, tensors) -> dict:
+    """The wrapper's choices for one call, from the head dim and q, k, v
+    and valid (their layout and address only): the kernel's ``width`` (the
+    smallest of ``WIDTHS`` that holds d, ``PASS_WIDTH`` past it), the
+    output column ``passes``, and ``copy``: per tensor, whether it is
+    copied dense first (q, k, v are read through their strides, on the
+    16-byte grid; the mask dense, at any address)."""
+    return {"width": next((w for w in WIDTHS if w >= d), PASS_WIDTH),
+            "passes": -(-d // PASS_WIDTH),
+            "copy": [not (_layout.in_place(x, ALIGN, strided=True) if i < 3
+                          else _layout.in_place(x, 1))
+                     for i, x in enumerate(tensors)]}
+
+
 def _check(q, k, v, valid) -> None:
     d = q.shape[-1] if q.dim() else 0
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}: the kernel's "
-                         f"widest instantiation is {MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"head_dim {d} must be at least 1")
     for name, x in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device {q.device}, "
                              f"got {x.device}")
     if q.dtype not in _ENTRY:
-        raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"decode_attention kernel takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"need q (B, 1, H, D) and k/v (B, T, KV, D); got "
@@ -99,30 +124,27 @@ def _check(q, k, v, valid) -> None:
     if tuple(valid.shape) != (t,) or valid.dtype != torch.bool:
         raise ValueError(f"valid must be bool of shape ({t},), got "
                          f"{valid.dtype} {tuple(valid.shape)}")
-    if b * kvh * -(-(h // kvh) // 8) > _UNITS_MAX or any(
+    if b * kvh * -(-(h // kvh) // 8) * -(-d // PASS_WIDTH) > _UNITS_MAX or any(
             n > _INT_MAX for n in (b * h, k.numel(), q.numel())):
         raise ValueError("decode_attention kernel sizes out of range")
     for name, x in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if name != "valid" and x.dtype != q.dtype:
             raise TypeError(f"{name} must be {q.dtype}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
         if x.requires_grad:
             raise RuntimeError(f"{name} requires grad, but the decode_attention "
                                "kernel is forward-only")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary: the "
-                             "kernel reads its rows 16 bytes at a time")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
-    """q (B, 1, H, D); k/v (B, T, KV, D) of q's dtype (float32 or bfloat16);
-    valid (T,) bool, True = attend; all contiguous on one CUDA device.
-    Returns (B, 1, H, D) in q's dtype."""
+    """q (B, 1, H, D); k/v (B, T, KV, D) of q's dtype (float32, bfloat16 or
+    float16); valid (T,) bool, True = attend; any layout, on one CUDA
+    device. Returns (B, 1, H, D) in q's dtype."""
     _check(q, k, v, valid)
-    out = torch.empty_like(q)
+    plan = dispatch(q.shape[-1], (q, k, v, valid))
+    q, k, v, valid = (x.clone(memory_format=torch.contiguous_format) if c else x
+                      for x, c in zip((q, k, v, valid), plan["copy"]))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, _, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if out.numel() == 0 or t == 0:
@@ -131,7 +153,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = getattr(_lib(q.device), _ENTRY[q.dtype])
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), b, t, h, kvh, d, d ** -0.5, stream)
+                 out.data_ptr(), _layout.axes(q, k, v), b, t, h, kvh, d,
+                 plan["width"], plan["passes"], d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
     if torch.cuda.is_current_stream_capturing():

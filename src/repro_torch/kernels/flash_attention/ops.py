@@ -7,7 +7,9 @@ switch). A meta tensor goes to the plain version too: it computes nothing,
 and a shape-only run (``analysis.program_cost``) prices the plain function's
 work there. Any other device raises. The kernel reads the model layout and
 masks its own ragged edges, so unlike the TPU wrapper nothing is transposed
-or padded.
+or padded; the kernels read each input through its strides, and the kernel
+wrapper's ``dispatch`` rule copies only a view they cannot take (a last
+axis that is not unit-stride, a 2-byte tensor off the 16-byte grid).
 
 The reference's keywords: ``force_ref=True`` runs the plain version on any
 device, CUDA included, and launches nothing. ``block_q`` and ``block_kv``

@@ -53,8 +53,10 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                       window=None):
     """(dq, dk, dv) of ``attention_ref`` from its output ``o`` and the
     log-sum-exp ``lse``, in fp32 math: P = exp(s - lse) on visible pairs,
-    delta = rowsum(dO o O), dS = P (dP - delta). Returns each in its input's
-    dtype and layout."""
+    delta = rowsum(dO o O), dS = P (dP - delta). A row that sees no key
+    (its output the uniform average over the T keys) adds dO / T to every
+    key's dV and nothing to dQ and dK, as autograd of ``attention_ref``
+    gives. Returns each in its input's dtype and layout."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -71,6 +73,8 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     ds = p * (dp - delta.permute(0, 2, 1, 3)[..., None])
     dq = torch.einsum("bksgt,btkd->bskgd", ds, k.float()) * scale
     dk = torch.einsum("bksgt,bskgd->btkd", ds, qf) * scale
+    nokey = ~mask.any(-1)                                        # (S,)
+    p = p + (nokey.float() / t)[None, None, :, None, None]
     dv = torch.einsum("bksgt,bskgd->btkd", p, dof)
     return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

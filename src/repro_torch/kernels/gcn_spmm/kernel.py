@@ -12,6 +12,15 @@ output tiles alone leave SMs idle the kernel splits K over a thread-block
 cluster and sums the partial tiles in a fixed order, so repeated calls give
 the same bits and no scratch buffer is needed.
 
+Inputs: float32, bfloat16 or float16 features (the 2-byte types widened to
+fp32 as they are staged; fp32 accumulation, output in the features' type).
+``dispatch`` is the rule, a pure function: an adjacency of another type
+than the features' is promoted with them (and the scales) to fp32, runs the
+fp32 body and the result is cast to the features' type, which is what the
+plain version computes (fp32 products, then the cast); a view that is not
+dense is copied dense first. Same-typed dense inputs (the planner's calls)
+copy nothing.
+
 Forward only, like the reference: training runs the ``use_pallas=False``
 path, so an input that requires grad is refused instead of silently
 dropping its gradient.
@@ -22,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _layout
 
 # wrapper name -> number of kernel launches that ran on the card
 LAUNCHES = {"scaled_spmm": 0, "spmm": 0}
@@ -30,7 +39,8 @@ LAUNCHES = {"scaled_spmm": 0, "spmm": 0}
 CAPTURED = {"scaled_spmm": 0, "spmm": 0}
 
 _ENTRY = {torch.float32: "gcn_scaled_spmm_f32",
-          torch.bfloat16: "gcn_scaled_spmm_bf16"}
+          torch.bfloat16: "gcn_scaled_spmm_bf16",
+          torch.float16: "gcn_scaled_spmm_f16"}
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -57,10 +67,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def dispatch(feats_dtype: torch.dtype, tensors) -> dict:
+    """The wrapper's choices for one call, from the features' dtype and the
+    operands (adj, feats, then the scales): ``body``, the entry's dtype
+    (the features' when every operand has it, else float32 with
+    ``promote``: every operand cast to fp32 and the result back to the
+    features' type), and ``copy``: per operand, whether it is copied dense
+    first (each operand needs its element's alignment only)."""
+    promote = any(x.dtype != feats_dtype for x in tensors)
+    return {"body": torch.float32 if promote else feats_dtype,
+            "promote": promote,
+            "copy": [not _layout.in_place(x, 1) for x in tensors]}
+
+
 def _check(adj: torch.Tensor, feats: torch.Tensor, vecs: dict) -> None:
     if feats.dtype not in _ENTRY:
-        raise TypeError(f"gcn_spmm kernel takes float32 or bfloat16 features, "
-                        f"got {feats.dtype}")
+        raise TypeError(f"gcn_spmm kernel takes float32, bfloat16 or float16 "
+                        f"features, got {feats.dtype}")
     if adj.dim() != 2 or feats.dim() != 2 or adj.shape[1] != feats.shape[0]:
         raise ValueError(f"need adj (M, N) and feats (N, D); got "
                          f"{tuple(adj.shape)} and {tuple(feats.shape)}")
@@ -72,10 +95,8 @@ def _check(adj: torch.Tensor, feats: torch.Tensor, vecs: dict) -> None:
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must lie on feats' CUDA device "
                              f"{feats.device}, got {t.device}")
-        if t.dtype != feats.dtype:
+        if name in vecs and t.dtype != feats.dtype:
             raise TypeError(f"{name} must be {feats.dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
         if t.requires_grad:
             raise RuntimeError(f"{name} requires grad, but the gcn_spmm kernel "
                                "is forward-only; train with use_pallas=False")
@@ -88,11 +109,21 @@ def _launch(wrapper: str, adj, feats, row_scale, col_scale) -> torch.Tensor:
     vecs = {k: v for k, v in (("row_scale", row_scale),
                               ("col_scale", col_scale)) if v is not None}
     _check(adj, feats, vecs)
+    out_dtype = feats.dtype
+    ops = [adj, feats, *vecs.values()]
+    plan = dispatch(out_dtype, ops)
+    ops = [x.clone(memory_format=torch.contiguous_format) if c else x
+           for x, c in zip(ops, plan["copy"])]
+    if plan["promote"]:
+        ops = [x.float() for x in ops]
+    adj, feats = ops[0], ops[1]
+    scales = dict(zip(vecs, ops[2:]))
+    row_scale, col_scale = scales.get("row_scale"), scales.get("col_scale")
     m, n = adj.shape
     d = feats.shape[1]
     out = torch.empty((m, d), dtype=feats.dtype, device=feats.device)
     if m == 0 or d == 0:
-        return out
+        return out.to(out_dtype)
     fn = getattr(_lib(), _ENTRY[feats.dtype])
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(feats.device):
@@ -105,17 +136,19 @@ def _launch(wrapper: str, adj, feats, row_scale, col_scale) -> torch.Tensor:
         CAPTURED[wrapper] += 1
     else:
         LAUNCHES[wrapper] += 1
-    return out
+    return out.to(out_dtype)
 
 
 def scaled_spmm(adj: torch.Tensor, feats: torch.Tensor,
                 row_scale: torch.Tensor, col_scale: torch.Tensor) -> torch.Tensor:
     """(diag(row_scale) @ adj @ diag(col_scale)) @ feats -> (M, D) in feats'
-    dtype. adj (M, N), feats (N, D), row_scale (M,), col_scale (N,), all of
-    feats' dtype (float32 or bfloat16), contiguous, on one CUDA device."""
+    dtype. adj (M, N) of any float type, feats (N, D) float32, bfloat16 or
+    float16, row_scale (M,) and col_scale (N,) of feats' dtype, any layout,
+    on one CUDA device."""
     return _launch("scaled_spmm", adj, feats, row_scale, col_scale)
 
 
 def spmm(adj: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-    """adj (M, N) @ feats (N, D) -> (M, D), fp32 accumulation."""
+    """adj (M, N) @ feats (N, D) -> (M, D) in feats' dtype, fp32
+    accumulation."""
     return _launch("spmm", adj, feats, None, None)

@@ -298,28 +298,10 @@ def test_kernels_refuse_cpu_tensors_grad_and_bad_shapes():
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tflash.flash_attention(q, torch.ones(1, 8, 3, 64, device="cuda"),
                                torch.ones(1, 8, 3, 64, device="cuda"))
-    with pytest.raises(ValueError, match="head_dim 320 outside"):
-        wide = torch.ones(1, 8, 2, 320, device="cuda")
-        tflash.flash_attention(torch.ones(1, 8, 4, 320, device="cuda"), wide,
-                               wide)
-    with pytest.raises(ValueError, match="head_dim 320 outside"):
-        tdec.decode_attention(torch.ones(1, 1, 4, 320, device="cuda"), wide,
-                              wide, valid)
     with pytest.raises(ValueError, match=r"need q \(B, 1, H, D\)"):
         tdec.decode_attention(q, k, k, valid)
     with pytest.raises(ValueError, match="valid must be bool"):
         tdec.decode_attention(q[:, :1], k, k, valid[:5])
     with pytest.raises(ValueError, match="valid must be bool"):
         tdec.decode_attention(q[:, :1], k, k, valid.int())
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        kb = torch.ones(8 * 2 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:]
-        tdec.decode_attention(q[:, :1].to(torch.bfloat16), kb.view(1, 8, 2, 64),
-                              k.to(torch.bfloat16), valid)
-    with pytest.raises(ValueError, match="contiguous"):
-        tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
-                               k, k)
-    qb = torch.ones(8 * 4 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:]
-    kb = k.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        tflash.flash_attention(qb.view(1, 8, 4, 64), kb, kb)
     assert (tflash.LAUNCHES, tdec.LAUNCHES) == counts

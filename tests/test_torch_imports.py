@@ -114,7 +114,13 @@ GRAPH_MODULES = (
     "repro_torch.training.train_step", "repro_torch.launch.train",
     "repro_torch.kernels.gcn_spmm.kernel",
     "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.decode_attention.kernel",
+    "repro_torch.kernels._layout",
 )
+
+# Card-only test files: the machine with the card has no JAX, so each must
+# import without it (they run there with --noconftest).
+CARD_TEST_MODULES = ("test_torch_kernel_domain_gpu", "test_torch_head_dims_gpu")
 
 # The reference's examples as the port's twins.
 EXAMPLE_MODULES = (
@@ -164,6 +170,21 @@ def test_graph_module_imports_alone_without_jax_or_repro(module):
         "assert not torch.cuda.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code, module],
                           env=dict(os.environ, PYTHONPATH=SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", CARD_TEST_MODULES)
+def test_card_test_file_imports_without_jax_or_repro(module):
+    """Importing one touches no device: its cases build their inputs on
+    the card when they run."""
+    code = _IMPORT_ONE + (
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n")
+    tests_dir = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code, module],
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.pathsep.join((SRC, tests_dir))),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
