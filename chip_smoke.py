@@ -1452,49 +1452,55 @@ CALL_KERNELS = {
 def _calls_profile(torch, fns):
     """For each of ``fns``, the device activities (kernels, copies, fills)
     that one call ran, name -> summed device ms: every call (after an
-    unprofiled one) under one torch.profiler session, each after a sleep
-    kernel that marks its start on the card's clock. (One session per call
-    lost all its records after some tens of sessions on the card.) A
-    session can miss its first kernel on the card, so a primer (a sleep
-    kernel, waited for) runs before the first call's marker, and the
-    session's markers are taken as its last ones. Returns (calls, None),
-    or (None, the reason) when it shows fewer markers than calls."""
-    from torch.profiler import ProfilerActivity, profile
+    unprofiled one) under one torch.profiler session (one session per
+    call lost all its records after some tens of sessions on the card),
+    each inside a ``record_function`` range of its own. The profiler ties
+    the launches made inside a range to it by correlation id and records
+    the range's device-side span (a ``gpu_user_annotation`` event named
+    after it) from the first to the last of them; the activities that
+    start inside a call's span are the call's. (Host ops link only the
+    kernels of aten ops, not the port's own ctypes launches.) A primer (a
+    sleep kernel, waited for) runs before the first call, as a session can
+    miss its first kernel on the card. Returns (calls, None), or (None,
+    the reason) when a call has no span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    names = [f"chip_smoke.call.{i}" for i in range(len(fns))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)   # the primer
         torch.cuda.synchronize()
-        for fn in fns:
-            torch.cuda._sleep(1000)   # the call's marker
-            fn()
+        for name, fn in zip(names, fns):
+            with record_function(name):
+                fn()
         torch.cuda.synchronize()
-    device = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.is_user_annotation),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(device)
-             if "spin_kernel" in e.name or "sleep" in e.name]
-    if len(marks) < len(fns):
-        return None, (f"the profile shows {len(marks)} call markers for "
+    index = {name: i for i, name in enumerate(names)}
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {}
+    for e in device:
+        if e.is_user_annotation and e.name in index:
+            lo, hi = spans.get(index[e.name], (e.time_range.start, e.time_range.end))
+            spans[index[e.name]] = (min(lo, e.time_range.start), max(hi, e.time_range.end))
+    if len(spans) < len(fns):
+        return None, (f"the profile holds device spans for {len(spans)} of "
                       f"{len(fns)} calls ({len(device)} device activities)")
-    marks = marks[len(marks) - len(fns):]
-    calls = []
-    for a, b in zip(marks, marks[1:] + [len(device)]):
-        call = {}
-        for e in device[a + 1:b]:
+    calls = [{} for _ in fns]
+    for e in device:
+        i = None if e.is_user_annotation else next(
+            (i for i, (lo, hi) in spans.items() if lo <= e.time_range.start <= hi), None)
+        if i is not None:
             ms = (e.time_range.end - e.time_range.start) / 1e3
-            call[e.name] = call.get(e.name, 0.0) + ms
-        calls.append(call)
+            calls[i][e.name] = calls[i].get(e.name, 0.0) + ms
     return calls, None
 
 
 def _calls_kernels(torch, fns) -> list:
     """For each of ``fns``, the sorted names of the device activities that
-    one call ran (``_calls_profile``); fails when a marker is missing."""
+    one call ran (``_calls_profile``); fails when a call has no device span."""
     calls, note = _calls_profile(torch, fns)
-    check(calls is not None, f"call markers: {note}")
+    check(calls is not None, f"profiled calls: {note}")
     return [sorted(c) for c in calls]
 
 
@@ -1612,7 +1618,10 @@ def phase_kernel_domain(torch, FK, FR, DK, DR) -> dict:
     call, each copied or not as ``view_copies`` says (the attention kernels
     read all but the offset one through their strides); an fp32
     adjacency with bf16 features; query rows that see no key (S 12, T 6,
-    window 2, causal and not, forward and backward). Then one call of each
+    window 2, causal and not, forward and backward). The 2-byte backward's
+    wide body also on no-key rows at D 320, at GQA group 4 and D 512 (with
+    and without a window) and on the four views at D 512, bit for bit the
+    dense call. Then one call of each
     wrapper at D 320 per dtype on dense, aligned inputs and one on
     head-transposed views of them, all under one profiler session, must run
     only its body's own kernels: no copy."""
@@ -1677,23 +1686,38 @@ def phase_kernel_domain(torch, FK, FR, DK, DR) -> dict:
                     f"{'backward' if backward else 'forward'}", "no_key", dt,
                     lambda: KD.nokey_case(dt, causal, backward),
                     bwd if backward else flash)
+    # the 2-byte backward's wide body: no-key rows at D 320, GQA group 4 at
+    # D 512 (gemma3-1b's H 4, KV 1) with and without a window
+    for dt in KD.DTYPES[1:]:
+        for causal in (True, False):
+            run(f"no-key rows causal={causal} backward D {KD.NOKEY_WIDE_D}", "no_key",
+                dt, lambda: KD.nokey_case(dt, causal, True, d=KD.NOKEY_WIDE_D), bwd)
+    for case in KD.WIDE_SHAPES:
+        if case[3:5] == (4, 1):   # group 4
+            run(f"backward G 4 D {case[5]} window={case[7]}", "backward", case[8],
+                lambda: KD.wide_backward_case(case), bwd)
+    # every kernel on each view, and the wide backward on each view at D 512
+    # in the types of its body
     views = {}
-    for kernel in KD.VIEW_KERNELS:
-        for kind in KD.VIEWS:
-            before = KD.launch_counts()
-            got, want, odd, copied = KD.view_case(kernel, kind)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-            n = {k: c - before[k] for k, c in KD.launch_counts().items()}
-            views[f"{kernel} {kind}"] = {"bit_equal": equal, "launches": n[kernel],
-                                         "copied": copied}
-            check(odd and equal and n[kernel] > 0
-                  and copied == KD.view_copies(kernel, kind),
-                  f"kernel_domain: {kernel} on a {kind} view: {odd=} {equal=} "
-                  f"{copied=} launches {n}")
-            add(n)
+    for kernel, kind, dt, d in (
+            [(kernel, kind, "bfloat16", None)
+             for kernel in KD.VIEW_KERNELS for kind in KD.VIEWS]
+            + [("flash_attention_bwd", kind, dt, KD.WIDE_VIEW_D)
+               for dt in KD.DTYPES[1:] for kind in KD.VIEWS]):
+        before = KD.launch_counts()
+        got, want, odd, copied = KD.view_case(kernel, kind, dt, d=d)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        n = {k: c - before[k] for k, c in KD.launch_counts().items()}
+        label = f"{kernel} {kind}" + ("" if d is None else f" D {d} {dt}")
+        views[label] = {"bit_equal": equal, "launches": n[kernel], "copied": copied}
+        check(odd and equal and n[kernel] > 0
+              and copied == KD.view_copies(kernel, kind),
+              f"kernel_domain: {kernel} on a {kind} view ({label}): {odd=} {equal=} "
+              f"{copied=} launches {n}")
+        add(n)
     # one call of each wrapper per dtype at D 320 on dense, aligned inputs
     # and on head-transposed views of them (read through their strides)
     calls = []
@@ -2761,7 +2785,7 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     return cases
 
 
-NEW_TIME_ROWS = ("d512", "fp16")   # rows that also name SDPA's backend
+NEW_TIME_ROWS = ("d512", "fp16", "d512-fp16")   # rows that also name SDPA's backend
 
 
 def _sdpa_backend(torch, q, k, v, attn_mask=None, is_causal=False) -> dict:
@@ -2885,7 +2909,8 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
     S 1024, H 32, KV 32, D 96 run at width 128, causal): kernel (one call:
     prep, dK/dV, dQ and, when H > KV, the sum of the heads' partials), the
     same call's device time by kernel (``split_ms``: one call of every row
-    under one shared profiler session with call markers; null, with
+    under one shared profiler session, each in a range of its own
+    (``_calls_profile``); null, with
     ``split_note``, when the profile does not hold the row's kernels or its
     total is far from the timed ms), its
     plain version (``attention_bwd_ref``: the same function from the same o
@@ -2895,10 +2920,10 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
     dO and the log-sum-exp read, dq, dk, dv written) / 3.35 TB/s against
     the backward's five products over the visible pairs (S, dP, dV, dK, dQ:
     10 D flops a pair and head, at the true D) / 989 TFLOP/s. Also gemma3-1b's
-    training shape at head_dim 512 (bf16: the fp32-math bodies in two column
-    passes of 256, each recomputing S and dP over all of D) and in fp16 at
-    its own head_dim 256 (the wgmma body's f16 instructions), each naming
-    the backend SDPA ran."""
+    training shape at head_dim 512 in bf16 and fp16 (the wgmma body's wide
+    instantiation: two column passes of 256, each recomputing S and dP over
+    all of D) and in fp16 at its own head_dim 256 (the wgmma body's f16
+    instructions), each naming the backend SDPA ran."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     spec = get_config(TRAIN["arch"]).segments[0].layers[0].attn
@@ -2913,8 +2938,9 @@ def phase_flash_bwd_times(torch, FK, FR, card) -> dict:
                                           ("local", spec.window, gemma),
                                           ("phi3-mini", None, phi),
                                           ("d512", None, d512),
-                                          ("fp16", None, gemma)):
-        dt = torch.float16 if label == "fp16" else torch.bfloat16
+                                          ("fp16", None, gemma),
+                                          ("d512-fp16", None, d512)):
+        dt = torch.float16 if "fp16" in label else torch.bfloat16
         rn = lambda *shape, dt=dt: torch.randn(*shape, device="cuda",
                                                generator=gen).to(dt)
         q, k, v, do = rn(b, s, h, d), rn(b, s, kvh, d), rn(b, s, kvh, d), rn(b, s, h, d)

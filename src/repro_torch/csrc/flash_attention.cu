@@ -970,12 +970,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // device memory (2 x 16.8 MB at the training shape); dQ recomputes S and
 // dP; head dims below 128 run at width 128.
 //
-// Head dims above 256, in every type, run the fp32-math bodies below in
-// column passes of 256 (kWide, as the forward's): the wgmma body's 64 x D
-// tiles of four tensors no longer fit shared memory, and its TMA pipeline
-// streams whole-D tiles. A pass recomputes S and dP over all of D in
-// k-steps of 256 columns and accumulates its own 256 columns of dQ (or of
-// dK and dV); it reads and writes the caller's type.
+// Head dims above 256 in bf16 and fp16 run the same three launches, the
+// middle one the wgmma body's wide instantiation (kWide) in column passes
+// of 256: a 64 x D tile of four tensors no longer fits shared memory, and
+// a 64 x D fp32 accumulator no longer fits a group's registers. The design
+// note of that body is at bwd_wide below. fp32 runs the FMA bodies at
+// every D (column passes of 256 past it, kWide, as the forward's).
 //
 // fp32 (dkv_f32_kernel, dq_f32_kernel, after delta_kernel): fp32 FMAs
 // outside the tensor cores, which keeps the fp32 tolerance, laid out as
@@ -1949,13 +1949,451 @@ __device__ __forceinline__ void dq_consume(const BwdSmem<D>& m, const BwdItem& i
   }
 }
 
-// 2. dK/dV and dQ items in one persistent launch, one block per SM
-template <typename E, int D, bool kNoKey>
+// ---- the wide body: bf16 / fp16 head dims above 256, in column passes ------
+//
+// The D <= 256 body keeps a dK/dV item's K and V (or a dQ item's Q and dO)
+// whole in shared memory and streams its partner tiles whole: at D 512 two
+// such 64 x D tiles are 128 KB, and a stage of two more another 128 KB, of
+// the 227 KB a block has. Its consumer groups each hold a 64 x D fp32
+// accumulator, 128 registers a thread at D 256. So past 256:
+//   * Work items gain a pass c: (batch, query head, 64-row tile, pass), in
+//     the same heaviest-first list (each unit's passes side by side, so the
+//     snake deals them to neighbouring blocks) dealt the same way. Pass c
+//     owns output columns [256 c, 256 c + 256): the groups' accumulators
+//     stay 64 x 256 (dV, dK) and 64 x 128 (each half of dQ), as at D 256.
+//   * Everything streams. For each partner tile, a pass walks the head dim
+//     in k-steps of 128 columns; a stage holds one k-step's 64 x 128
+//     pieces of Q, K, dO and V (the item's and the partner's rows), 16 KB
+//     each, cut from the same tensor maps at a column offset (TMA fills
+//     zeros past dh). Group 0 accumulates S (S^T) over the k-steps from the
+//     Q and K pieces, group 1 dP (dP^T) from dO and V, as in the D <= 256
+//     body, each freeing a stage as soon as its product is done.
+//   * The pass's own k-steps come last (the walk starts after them and
+//     wraps), so when P and dS are ready, the pieces the output product
+//     reads are the ones still in the ring: dV_c += P^T dO_c (group 0) and
+//     dK_c += dS^T Q_c (group 1), or each half of dQ_c += dS K_c. Those one
+//     or two stages are freed after the output product; nothing is loaded
+//     twice within a partner tile. The sums of S over the k-steps run in an
+//     order that depends on the pass, so two passes' P may differ in the
+//     last bit of fp32 (each column's gradient uses its own pass's P).
+//   * Recompute, not store: each pass recomputes S and dP over all of dh.
+//     At D 512 that is 12 products of 64 x 64 x 256 per dK/dV tile pair and
+//     10 per dQ tile pair, against 4 and 3 at D 256. Storing P and dS
+//     would move 4 bytes a visible pair and head through device memory.
+// Shared memory (BwdWideLayout): 3 stages of 4 pieces (196,608 bytes), the
+// fp32 P exchange (16,384), dS fragments (8,192), each stage's 64 rows of
+// lse2 and delta (3 x 512), 6 barriers and the 1024-byte alignment slack:
+// 223,792 bytes of 232,448. A fourth stage does not fit. The item's own
+// pieces are streamed again for every partner tile (from L2: the same 32
+// KB a k-step); at D 512 a tile pair's pass moves 256 KB through TMA.
+constexpr int kStepCols = 128;              // columns of one wide k-step
+constexpr int kPiece = 2 * kPanelBytes;     // 64 rows x 128 columns of one tensor
+constexpr int kSlotQ = 0, kSlotK = 1, kSlotDo = 2, kSlotV = 3;  // a stage's pieces
+
+struct BwdWideLayout {
+  static constexpr int kStages = 3;
+  static constexpr int kStage = 4 * kPiece;              // Q, K, dO, V pieces
+  static constexpr int kStat = 2 * kBwdRows * 4;         // lse2, then delta, of 64 rows
+  static constexpr int kPbuf = kBwdRows * kBwdRows * 4;  // fp32 P, [register][thread]
+  static constexpr int kP = kStages * kStage;
+  static constexpr int kDs = kP + kPbuf;                 // dS as A fragments, 8 KB
+  static constexpr int kStageStat = kDs + kPanelBytes;
+  static constexpr int kBar = kStageStat + kStages * kStat;
+  static constexpr int kBytes = kBar + 8 * 2 * kStages + 1024;
+  static_assert(kBytes <= 232448, "shared memory");
+};
+
+struct WideSmem {
+  using L = BwdWideLayout;
+  unsigned char* sm;
+  __device__ __forceinline__ explicit WideSmem(unsigned char* base) : sm(base) {}
+  __device__ __forceinline__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(sm + L::kBar) + 2 * s;
+  }
+  __device__ __forceinline__ uint64_t* empty(int s) const {
+    return reinterpret_cast<uint64_t*>(sm + L::kBar) + 2 * s + 1;
+  }
+  __device__ __forceinline__ unsigned char* piece(int s, int slot) const {
+    return sm + s * L::kStage + slot * kPiece;
+  }
+  __device__ __forceinline__ float* stat(int s) const {
+    return reinterpret_cast<float*>(sm + L::kStageStat + s * L::kStat);
+  }
+  __device__ __forceinline__ float* pbuf() const { return reinterpret_cast<float*>(sm + L::kP); }
+  __device__ __forceinline__ uint32_t* dsf() const {
+    return reinterpret_cast<uint32_t*>(sm + L::kDs);
+  }
+};
+
+// the k-steps of one pass: n over dh, of which the pass's own (columns
+// [256 c, 256 c + 256) that lie below dh: 1 or 2) are walked last
+struct WidePlan {
+  int n, held, end;  // end: one past the pass's last k-step
+};
+__device__ __forceinline__ WidePlan wide_plan(int dh, int pass) {
+  WidePlan w;
+  w.n = (dh + kStepCols - 1) / kStepCols;
+  w.end = min(2 * pass + 2, w.n);
+  w.held = w.end - 2 * pass;
+  return w;
+}
+
+// a 64-row x 128-column piece at column col0 of one head, two TMA boxes
+__device__ __forceinline__ void tma_piece(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int col0, int head, int row0, int b) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst + p * kPanelBytes)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col0 + p * 64), "r"(head),
+        "r"(row0), "r"(b)
+        : "memory");
+}
+
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The producer thread: for each item and partner tile, the pass's k-steps
+// in walking order, each stage with the query rows' stats
+__device__ __forceinline__ void bwd_produce_wide(const WideSmem& m, const CUtensorMap* tm_q,
+                                                 const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                                 const CUtensorMap* tm_do, const BwdArgs& a,
+                                                 int n_kv, int n_q, int passes) {
+  constexpr int NS = BwdWideLayout::kStages;
+  const int G = a.H / a.KV;
+  const size_t n_stat = (size_t)a.B * a.H * a.S_pad;
+  int sc = 0;  // stage uses so far
+  for (int r = 0;; ++r) {
+    const int c = snake_item(r);
+    if (c >= (n_kv + n_q) * passes) break;
+    const BwdItem it = bwd_item(c / passes, n_kv, n_q, a);
+    const WidePlan w = wide_plan(a.dh, c % passes);
+    const int kvh = it.h / G;
+    for (int t = 0; t < it.n_tiles; ++t) {
+      const int r0 = it.begin + t * kBwdRows;
+      const int q0 = it.dq ? it.row0 : r0, k0 = it.dq ? r0 : it.row0;
+      const float* st = a.stats + ((size_t)it.b * a.H + it.h) * a.S_pad + q0;
+      for (int j = 0; j < w.n; ++j, ++sc) {
+        const int s = sc % NS, col = ((w.end + j) % w.n) * kStepCols;
+        mbar_wait(m.empty(s), ((sc / NS) & 1) ^ 1);
+        mbar_expect_tx(m.full(s), BwdWideLayout::kStage + BwdWideLayout::kStat);
+        tma_piece(m.piece(s, kSlotQ), tm_q, m.full(s), col, it.h, q0, it.b);
+        tma_piece(m.piece(s, kSlotK), tm_k, m.full(s), col, kvh, k0, it.b);
+        tma_piece(m.piece(s, kSlotDo), tm_do, m.full(s), col, it.h, q0, it.b);
+        tma_piece(m.piece(s, kSlotV), tm_v, m.full(s), col, kvh, k0, it.b);
+        bulk_copy(m.stat(s), st, 4 * kBwdRows, m.full(s));
+        bulk_copy(m.stat(s) + kBwdRows, st + n_stat, 4 * kBwdRows, m.full(s));
+      }
+    }
+  }
+}
+
+// x (64 x 64 fp32) = A B^T over every k-step of one partner tile, A and B
+// the pieces in slots sa and sb of each stage; frees each stage but the
+// pass's own as soon as its product is done. Returns the last stage.
+template <typename E>
+__device__ __forceinline__ int wide_scores(float (&x)[32], const WideSmem& m, const WidePlan& w,
+                                           int sa, int sb, int sc) {
+  constexpr int NS = BwdWideLayout::kStages;
+  const int free_below = w.n - w.held;  // k-steps walked before the pass's own
+  for (int j = 0; j < w.n; ++j) {
+    const int s = (sc + j) % NS;
+    mbar_wait(m.full(s), ((sc + j) / NS) & 1);
+    const uint32_t pa = smem_addr(m.piece(s, sa)), pb = smem_addr(m.piece(s, sb));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStepCols / 16; ++kk)
+      wgmma_ss<E>(x, desc_k(pa, kk), desc_k(pb, kk), j > 0 || kk > 0);
+    wg_commit();
+    if (j > 0 && j <= free_below) {  // the last k-step's product is done
+      wg_wait1();
+      mbar_arrive(m.empty((sc + j - 1) % NS));
+    }
+  }
+  wg_wait0();
+  fence_acc(x);
+  return (sc + w.n - 1) % NS;
+}
+
+// free the pass's own stages once the output product has read them
+__device__ __forceinline__ void wide_release(const WideSmem& m, const WidePlan& w, int sc) {
+  for (int i = 0; i < w.held; ++i)
+    mbar_arrive(m.empty((sc + w.n - w.held + i) % BwdWideLayout::kStages));
+}
+
+// 2a'. dK, dV columns [256 c, 256 c + 256) of a 64-key item: the roles of
+// dkv_consume, with S^T and dP^T summed over the k-steps. The pointwise
+// step repeats dkv_consume's (and 2b' dq_consume's), so that the D <= 256
+// instantiations keep their code as it was: a helper shared with them
+// changed it (their D 256 time rose 4.5% in one H100 run).
+template <typename E, bool kNoKey>
+__device__ __forceinline__ void dkv_consume_wide(const WideSmem& m, const BwdItem& it, int pass,
+                                                 const BwdArgs& a, int role, int tid, int& sc) {
+  constexpr int NS = BwdWideLayout::kStages;
+  const int warp = tid / 32, lane = tid % 32;
+  const WidePlan w = wide_plan(a.dh, pass);
+  float* pbuf = m.pbuf();
+  float acc[4][32];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  for (int t = 0; t < it.n_tiles; ++t) {
+    float st[32];
+    // S^T = K Q^T (group 0), dP^T = V dO^T (group 1)
+    const int last = wide_scores<E>(st, m, w, 2 * role + 1, 2 * role, sc);
+    const int q0 = it.begin + t * kBwdRows;
+    const float* sv = m.stat(last) + role * kBwdRows;  // lse2 (group 0) or delta (group 1)
+    if (role == 0) {  // P^T, shared with group 1 in fp32
+      const bool need = tile_needs_mask(q0, it.row0, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(sv + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int key = it.row0 + 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = st[4 * j + 2 * i + e];
+            const float p = exp2f(x * a.scale_log2 - (e ? l2.y : l2.x));
+            const int qpos = q0 + col + e;
+            // a row that sees no key: 1 / T on every key
+            const float off =
+                kNoKey && qpos >= a.nokey && qpos < a.S && key < a.T ? a.inv_t : 0.0f;
+            x = need && !visible(qpos, key, a.T, a.causal, a.window) ? off : p;
+          }
+        }
+      }
+      if (t > 0) named_sync(2);  // group 1 has read the last P^T
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pbuf[i * 128 + tid] = st[i];
+      named_arrive(1);
+    } else {  // dS^T = P^T o (dP^T - delta)
+      named_sync(1);
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pbuf[i * 128 + tid];
+      named_arrive(2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(sv + 8 * j + 2 * (lane % 4));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          st[4 * j + 2 * i] = p[4 * j + 2 * i] * (st[4 * j + 2 * i] - dl.x);
+          st[4 * j + 2 * i + 1] = p[4 * j + 2 * i + 1] * (st[4 * j + 2 * i + 1] - dl.y);
+        }
+        if (kNoKey) {  // rows that see no key give dK nothing
+          const int qpos = q0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (qpos + e >= a.nokey) st[4 * j + 2 * i + e] = 0.0f;
+        }
+      }
+    }
+    uint32_t af[4][4];
+    to_a_frags<E>(st, af);
+    // dV_c += P^T dO_c (group 0), dK_c += dS^T Q_c (group 1): the pass's
+    // k-steps, still in the ring; a second one past dh is not there
+    const int slot = role ? kSlotQ : kSlotDo;
+    const uint32_t y0 = smem_addr(m.piece((sc + w.n - w.held) % NS, slot));
+    const uint32_t y1 = smem_addr(m.piece((sc + w.n - 1) % NS, slot));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (p < 2 || w.held == 2)
+          wgmma_rs<E>(acc[p], af[kk], desc_mn((p < 2 ? y0 : y1) + (p & 1) * kPanelBytes, kk), 1);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) fence_acc(acc[p]);
+    wide_release(m, w, sc);
+    sc += w.n;
+  }
+  if (it.n_tiles > 0 && role == 0) named_sync(2);  // group 1's last read of P^T: P is free
+  // group 0 writes dV, group 1 dK (rows past T and columns past dh are not
+  // written)
+  const int kvh = it.h / (a.H / a.KV);
+  const float mul = role == 1 && a.part == nullptr ? a.scale : 1.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = it.row0 + 16 * warp + lane / 4 + 8 * i;
+    if (key >= a.T) continue;
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = pass * kPassWidth + p * 64 + 8 * j + 2 * (lane % 4);
+        if (col >= a.dh) continue;
+        const float x0 = acc[p][4 * j + 2 * i], x1 = acc[p][4 * j + 2 * i + 1];
+        if (a.part != nullptr)
+          *reinterpret_cast<float2*>(
+              a.part + ((((size_t)(1 - role) * a.B + it.b) * a.H + it.h) * a.T + key) * a.dh +
+              col) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<E*>(role ? a.dk : a.dv) +
+                                       (((size_t)it.b * a.T + key) * a.KV + kvh) * a.dh + col) =
+              pack2<E>(x0 * mul, x1 * mul);
+      }
+  }
+}
+
+// 2b'. dQ columns [256 c, 256 c + 256) of a 64-row item: the roles of
+// dq_consume, with S and dP summed over the k-steps; group r accumulates
+// the pass's k-step r (128 columns)
+template <typename E>
+__device__ __forceinline__ void dq_consume_wide(const WideSmem& m, const BwdItem& it, int pass,
+                                                const BwdArgs& a, int role, int tid, int& sc) {
+  constexpr int NS = BwdWideLayout::kStages;
+  const int warp = tid / 32, lane = tid % 32;
+  const WidePlan w = wide_plan(a.dh, pass);
+  float* pbuf = m.pbuf();
+  uint32_t* dsf = m.dsf();
+  uint32_t af[4][4];
+  float acc[2][32];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  for (int t = 0; t < it.n_tiles; ++t) {
+    float sc_[32];
+    // S = Q K^T (group 0), dP = dO V^T (group 1)
+    const int last = wide_scores<E>(sc_, m, w, 2 * role, 2 * role + 1, sc);
+    // this thread's rows' lse2 (group 0) or delta (group 1)
+    const float* sv = m.stat(last) + role * kBwdRows + 16 * warp + lane / 4;
+    const float rs[2] = {sv[0], sv[8]};
+    const int t0 = it.begin + t * kBwdRows;
+    if (role == 0) {  // P, shared with group 1 in fp32
+      const bool need = tile_needs_mask(it.row0, t0, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qpos = it.row0 + 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc_[4 * j + 2 * i + e];
+            const float p = exp2f(x * a.scale_log2 - rs[i]);
+            const int key = t0 + 8 * j + 2 * (lane % 4) + e;
+            x = need && !visible(qpos, key, a.T, a.causal, a.window) ? 0.0f : p;
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pbuf[i * 128 + tid] = sc_[i];
+      named_arrive(1);
+    } else {  // dS = P o (dP - delta), once, as the A operand of dS K
+      named_sync(1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i;
+          sc_[x] = pbuf[x * 128 + tid] * (sc_[x] - rs[i]);
+          sc_[x + 1] = pbuf[(x + 1) * 128 + tid] * (sc_[x + 1] - rs[i]);
+        }
+      to_a_frags<E>(sc_, af);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsf[(kk * 4 + e) * 128 + tid] = af[kk][e];
+    }
+    named_sync(3);  // group 1 has read P and written dS
+    if (role == 0) {  // group 1's fragments: the same rows as this thread's
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[kk][e] = dsf[(kk * 4 + e) * 128 + tid];
+    }
+    // dQ_c += dS K_c: group r the pass's k-step r, when it lies below dh
+    wg_fence();
+    if (role < w.held) {
+      const uint32_t k_s = smem_addr(m.piece((sc + w.n - w.held + role) % NS, kSlotK));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          wgmma_rs<E>(acc[p], af[kk], desc_mn(k_s + p * kPanelBytes, kk), 1);
+    }
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < 2; ++p) fence_acc(acc[p]);
+    wide_release(m, w, sc);
+    sc += w.n;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = it.row0 + 16 * warp + lane / 4 + 8 * i;
+    if (qpos >= a.S) continue;
+    E* row = static_cast<E*>(a.dq) + (((size_t)it.b * a.S + qpos) * a.H + it.h) * a.dh;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = pass * kPassWidth + role * kStepCols + p * 64 + 8 * j + 2 * (lane % 4);
+        if (col < a.dh)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack2<E>(acc[p][4 * j + 2 * i] * a.scale, acc[p][4 * j + 2 * i + 1] * a.scale);
+      }
+  }
+}
+
+// 2'. the wide body of bwd_wgmma_kernel: dK/dV and dQ items of every pass
+// in one persistent launch, one block per SM
+template <typename E, bool kNoKey>
+__device__ __forceinline__ void bwd_wide(unsigned char* base, const CUtensorMap* tm_q,
+                                         const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                         const CUtensorMap* tm_do, const BwdArgs& a) {
+  const WideSmem m(base);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BwdWideLayout::kStages; ++s) {
+      mbar_init(m.full(s), 1);
+      mbar_init(m.empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int passes = (a.dh + kPassWidth - 1) / kPassWidth;
+  const int n_kv = a.B * a.H * ((a.T + kBwdRows - 1) / kBwdRows);
+  const int n_q = a.B * a.H * ((a.S + kBwdRows - 1) / kBwdRows);
+  if (threadIdx.x >= 256) {  // producer group: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) bwd_produce_wide(m, tm_q, tm_k, tm_v, tm_do, a, n_kv, n_q, passes);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int role = threadIdx.x / 128, tid = threadIdx.x % 128;
+    int sc = 0;  // stage uses so far, as the producer counts them
+    for (int r = 0;; ++r) {
+      const int c = snake_item(r);
+      if (c >= (n_kv + n_q) * passes) break;
+      const BwdItem it = bwd_item(c / passes, n_kv, n_q, a);
+      if (it.dq)
+        dq_consume_wide<E>(m, it, c % passes, a, role, tid, sc);
+      else
+        dkv_consume_wide<E, kNoKey>(m, it, c % passes, a, role, tid, sc);
+    }
+  }
+}
+
+// 2. dK/dV and dQ items in one persistent launch, one block per SM. kWide:
+// head dims above 256 in column passes (bwd_wide; D = 256)
+template <typename E, int D, bool kNoKey, bool kWide>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                  const BwdArgs a) {
   extern __shared__ unsigned char bwd_smem[];
+  if constexpr (kWide) {
+    static_assert(D == kPassWidth, "the wide body runs passes of 256 columns");
+    bwd_wide<E, kNoKey>(align1024(bwd_smem), &tm_q, &tm_k, &tm_v, &tm_do, a);
+    return;
+  }
   const BwdSmem<D> m(align1024(bwd_smem));
   if (threadIdx.x == 0) {
     for (int i = 0; i < 1 + BwdLayout<D>::kStages; ++i) {
@@ -2074,17 +2512,19 @@ bool make_tile_map(CUtensorMap* map, const void* base, const Axes& ax, int B, in
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename E, int D>
+// kWide: D = 256, dh > 256 in `passes` column passes (bwd_wide)
+template <typename E, int D, bool kWide>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const float* lse, float* stats, float* part, void* dq, void* dk, void* dv,
                   const InputAxes& ax, int B, int S, int T_len, int H, int KV, int dh, int causal,
-                  int window, float scale, cudaStream_t stream) {
-  using L = BwdLayout<D>;
+                  int window, int passes, float scale, cudaStream_t stream) {
+  constexpr int kBytes = kWide ? BwdWideLayout::kBytes : BwdLayout<D>::kBytes;
   // rows that see no key take their own instantiation (dkv_consume)
   const int nokey = first_nokey_row(S, T_len, window);
-  const auto kernel = nokey < S ? bwd_wgmma_kernel<E, D, true> : bwd_wgmma_kernel<E, D, false>;
+  const auto kernel = nokey < S ? bwd_wgmma_kernel<E, D, true, kWide>
+                                : bwd_wgmma_kernel<E, D, false, kWide>;
   static bool configured[2] = {false, false};  // one attribute call per instantiation
-  cudaError_t err = set_smem(kernel, L::kBytes, configured[nokey < S]);
+  cudaError_t err = set_smem(kernel, kBytes, configured[nokey < S]);
   if (err != cudaSuccess) return static_cast<int>(err);
   const CUtensorMapDataType type = std::is_same<E, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -2110,8 +2550,9 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, co
   const int G = H / KV;
   const BwdArgs args{stats, dq, dk, dv, G > 1 ? part : nullptr, B, S, T_len, H, KV, S_pad,
                      causal, window, dh, scale * kLog2e, scale, nokey, 1.0f / (float)T_len};
-  const int units = B * H * ((T_len + kBwdRows - 1) / kBwdRows + (S + kBwdRows - 1) / kBwdRows);
-  kernel<<<std::min(units, n_sm), kBwdThreads, L::kBytes, stream>>>(mq, mk, mv, mdo, args);
+  const int units =
+      B * H * ((T_len + kBwdRows - 1) / kBwdRows + (S + kBwdRows - 1) / kBwdRows) * passes;
+  kernel<<<std::min(units, n_sm), kBwdThreads, kBytes, stream>>>(mq, mk, mv, mdo, args);
   err = cudaGetLastError();
   if (err != cudaSuccess || G == 1) return static_cast<int>(err);
   const long long n4 = (long long)B * T_len * KV * dh / 4;
@@ -2146,16 +2587,15 @@ int launch_bwd_fma(const void* q, const void* k, const void* v, const void* dout
   return static_cast<int>(cudaGetLastError());
 }
 
-// delta, then the FMA bodies at the wrapper's width and passes: fp32 at
-// any D (the forward's widths, passes past 256), the 2-byte types in passes
-template <typename E>
-int launch_bwd_fma_all(const void* q, const void* k, const void* v, const void* o,
+// fp32: delta, then the FMA bodies at the wrapper's width and passes (the
+// forward's widths, passes past 256)
+int launch_bwd_fma_f32(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, const InputAxes& ax, int B, int S, int T_len, int H, int KV,
                        int D, int causal, int window, int width, int passes, float scale,
                        cudaStream_t stream) {
-  if (!plan_fits(D, width, passes) || (sizeof(E) == 2 && passes == 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  using E = float;
+  if (!plan_fits(D, width, passes)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_rows = (long long)B * S * H;
   delta_kernel<E><<<(unsigned)((n_rows + kDeltaWarps - 1) / kDeltaWarps), 32 * kDeltaWarps, 0,
                     stream>>>(static_cast<const E*>(o), static_cast<const E*>(dout), delta, ax.o,
@@ -2166,29 +2606,27 @@ int launch_bwd_fma_all(const void* q, const void* k, const void* v, const void* 
     return launch_bwd_fma<E, kPassWidth, true>(q, k, v, dout, lse, delta, dq, dk, dv, ax, B,
                                                S, T_len, H, KV, D, causal, window, passes,
                                                scale, stream);
-  if constexpr (sizeof(E) == 4) {
 #define FA_BWD_CASE(DIM)                                                                     \
   case DIM:                                                                                  \
     return launch_bwd_fma<E, DIM, false>(q, k, v, dout, lse, delta, dq, dk, dv, ax, B, S,    \
                                          T_len, H, KV, D, causal, window, 1, scale, stream);
-    switch (width) {
-      FA_BWD_CASE(16)
-      FA_BWD_CASE(32)
-      FA_BWD_CASE(64)
-      FA_BWD_CASE(128)
-      FA_BWD_CASE(256)
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef FA_BWD_CASE
+  switch (width) {
+    FA_BWD_CASE(16)
+    FA_BWD_CASE(32)
+    FA_BWD_CASE(64)
+    FA_BWD_CASE(128)
+    FA_BWD_CASE(256)
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);  // 2-byte types in one pass run wgmma
+#undef FA_BWD_CASE
 }
 
 // the bodies a backward entry is handed (the wrapper's _BWD_BODY)
 constexpr int kBodyWgmma = 0, kBodyFma = 1;
 
-// the 2-byte backward: wgmma at width 128 or 256 in one pass (D % 8 == 0:
-// TMA rows on the 16-byte grid), or the FMA bodies in passes
+// the 2-byte backward: wgmma at width 128 or 256 in one pass, or at 256 in
+// column passes past it (D % 8 == 0: TMA rows on the 16-byte grid). The FMA
+// body is refused: the 2-byte types run on the tensor cores at every D.
 template <typename E>
 int launch_bwd_2byte(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const void* lse, void* stats, void* part, void* dq,
@@ -2200,22 +2638,21 @@ int launch_bwd_2byte(const void* q, const void* k, const void* v, const void* o,
   const float* l = static_cast<const float*>(lse);
   float* st = static_cast<float*>(stats);
   float* pt = static_cast<float*>(part);
-  if (body == kBodyFma)  // stats: an fp32 (B, H, S) scratch for delta
-    return launch_bwd_fma_all<E>(q, k, v, o, dout, l, st, dq, dk, dv, ax, B, S, T, H, KV, D,
-                                 causal, window, width, passes, scale, s);
-  if (body != kBodyWgmma || passes != 1 || !plan_fits(D, width, 1) ||
-      (width != 128 && width != 256))
+  if (body != kBodyWgmma || !plan_fits(D, width, passes) || (width != 128 && width != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
        (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)stats | (uintptr_t)part) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (H > KV && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (D % 8 != 0 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (passes > 1)
+    return launch_bwd_tc<E, kPassWidth, true>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S,
+                                              T, H, KV, D, causal, window, passes, scale, s);
   if (width == 128)  // the tiles' columns past D are zero-filled by the copies
-    return launch_bwd_tc<E, 128>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H, KV, D,
-                                 causal, window, scale, s);
-  return launch_bwd_tc<E, 256>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H, KV, D,
-                               causal, window, scale, s);
+    return launch_bwd_tc<E, 128, false>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H,
+                                        KV, D, causal, window, 1, scale, s);
+  return launch_bwd_tc<E, 256, false>(q, k, v, o, dout, l, st, pt, dq, dk, dv, ax, B, S, T, H, KV,
+                                      D, causal, window, 1, scale, s);
 }
 
 }  // namespace
@@ -2272,13 +2709,14 @@ extern "C" int flash_attention_fwd_f16(const void* q, const void* k, const void*
 // as in the forward; `body`, `width` and `passes` are the wrapper's plan
 // (one that does not fit D is refused). Each launches its kernels on
 // `stream` and returns the CUDA error code (0 on success).
-//   body 1 (the FMA bodies): fp32 at any D >= 1 at the forward's widths and
-//   passes, the 2-byte types in passes of 256; stats is an fp32 (B, H, S)
-//   scratch buffer the call fills with delta; part is unused.
-//   body 0 (wgmma, the 2-byte types in one pass): D a multiple of 8 at
-//   width 128 or 256; every pointer 16-byte aligned; stats is an fp32
-//   scratch of 2 B H S_pad (S_pad: S rounded up to 64); part, when H > KV,
-//   an fp32 scratch of 2 B H T D for the per-head partial dK and dV.
+//   body 1 (the FMA bodies, fp32 only): any D >= 1 at the forward's widths
+//   and passes; stats is an fp32 (B, H, S) scratch buffer the call fills
+//   with delta; part is unused.
+//   body 0 (wgmma, the 2-byte types only): D a multiple of 8 at width 128
+//   or 256 in one pass, or at width 256 in ceil(D / 256) passes; every
+//   pointer 16-byte aligned; stats is an fp32 scratch of 2 B H S_pad
+//   (S_pad: S rounded up to 64); part, when H > KV, an fp32 scratch of
+//   2 B H T D for the per-head partial dK and dV.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* stats, void* part, void* dq, void* dk, void* dv,
@@ -2287,10 +2725,10 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
                                        int width, int passes, float scale, void* stream) {
   (void)part;
   if (body != kBodyFma) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd_fma_all<float>(q, k, v, o, dout, static_cast<const float*>(lse),
-                                   static_cast<float*>(stats), dq, dk, dv,
-                                   read_axes(strides, 5), B, S, T, H, KV, D, causal, window,
-                                   width, passes, scale, static_cast<cudaStream_t>(stream));
+  return launch_bwd_fma_f32(q, k, v, o, dout, static_cast<const float*>(lse),
+                            static_cast<float*>(stats), dq, dk, dv, read_axes(strides, 5), B, S,
+                            T, H, KV, D, causal, window, width, passes, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,

@@ -11,9 +11,9 @@ place (``_layout.in_place``). The source holds two
 bodies: the 2-byte types run on the tensor cores, fp32 on the FMA pipe
 (which keeps the fp32 tolerance); the C entry point picks one by type. The
 forward can also return the per-row log-sum-exp (fp32, (B, H, S)) that
-``flash_attention_bwd`` reads; each backward call (2-byte up to D 256: a
-prep pass, dK/dV, dQ and, when H > KV, the sum of the heads' partials;
-otherwise delta, dK/dV, dQ) adds one to
+``flash_attention_bwd`` reads; each backward call (2-byte: a prep pass,
+dK/dV and dQ in one launch and, when H > KV, the sum of the heads'
+partials; fp32: delta, dK/dV, dQ) adds one to
 ``LAUNCHES["flash_attention_bwd"]``. A call made while the current stream
 captures a CUDA graph runs nothing: it adds to ``CAPTURED`` instead, and
 whoever replays the graph adds the launches it holds with ``count_replays``
@@ -28,13 +28,13 @@ their strides), fill the columns past D with zeros on the card and scale
 by the true D^-0.5. Past 256 every body runs in column passes of 256 (one launch):
 a pass writes 256 columns of its output and recomputes the scores over all
 of D, so the q . k work is done ceil(D / 256) times; the 2-byte backward
-then runs the fp32-math bodies, whose tiles take any width. One rule pads:
-the 2-byte backward up to 256 moves its tiles by TMA, whose rows must lie
+runs its tensor-core body there too, streaming 128-column pieces. One
+rule pads: the 2-byte backward moves its tiles by TMA, whose rows must lie
 on a 16-byte grid, so at D % 8 != 0 its inputs are padded with zero
 columns to the next multiple of 8 and its gradients sliced back
-(``_bwd_width``). ``dispatch`` is the whole rule, a pure function: which
-body runs, at which width, in how many passes, with which padding, and
-which inputs are copied first (``_layout.in_place``: a view whose last
+(``_bwd_width``; D 257 runs at 264, in 2 passes). ``dispatch`` is the
+whole rule, a pure function: which body runs, at which width, in how many
+passes, with which padding, and which inputs are copied first (``_layout.in_place``: a view whose last
 axis is not unit-stride, or a 2-byte tensor whose address or strides lie
 off the 16-byte grid; the model's own calls copy nothing). The C entry
 points run the body, width and passes they are handed and choose none of
@@ -116,30 +116,30 @@ def head_width(d: int) -> int:
 
 def _bwd_width(d: int, dtype: torch.dtype) -> int:
     """The head dim the backward's tensors are handed over at: ``d``, but
-    the 2-byte wgmma body (``d <= 256``) moves TMA rows that need
-    ``d % 8 == 0``, so another ``d`` pads to the next multiple of 8."""
-    return -(-d // 8) * 8 if dtype != torch.float32 and d <= PASS_WIDTH else d
+    the 2-byte wgmma body moves TMA rows that need ``d % 8 == 0``, so
+    another ``d`` pads to the next multiple of 8."""
+    return -(-d // 8) * 8 if dtype != torch.float32 else d
 
 
 def dispatch(d: int, dtype: torch.dtype, tensors, backward: bool = False) -> dict:
     """The wrapper's choices for one call, from the head dim, the dtype and
     the input tensors (their layout and address only): ``body`` ("fma":
     fp32 math on the FMA pipe; "mma": the forward's 2-byte tensor-core
-    body; "wgmma": the 2-byte backward), its ``width``, the output column
-    ``passes`` (all three handed to the C entry point, which runs them),
-    the head dim ``pad_to`` the inputs are padded to (the 2-byte backward's
-    TMA rows), and ``copy``: per tensor, whether it is copied dense
-    first."""
-    passes = -(-d // PASS_WIDTH)
-    if dtype == torch.float32 or (backward and d > PASS_WIDTH):
+    body; "wgmma": the 2-byte backward, at every D), its ``width``, the
+    output column ``passes`` (all three handed to the C entry point, which
+    runs them), the head dim ``pad_to`` the inputs are padded to (the
+    2-byte backward's TMA rows), and ``copy``: per tensor, whether it is
+    copied dense first."""
+    pad_to = _bwd_width(d, dtype) if backward else d
+    passes = -(-pad_to // PASS_WIDTH)
+    if dtype == torch.float32:
         body, width = "fma", head_width(d)
     elif backward:
-        body, width, passes = "wgmma", (128 if d <= 128 else 256), 1
+        body, width = "wgmma", (128 if d <= 128 else 256)
     else:
         body, width = "mma", head_width(d)
     align = ALIGN[dtype]
-    return {"body": body, "width": width, "passes": passes,
-            "pad_to": _bwd_width(d, dtype) if backward else d,
+    return {"body": body, "width": width, "passes": passes, "pad_to": pad_to,
             "copy": [not _layout.in_place(x, align, strided=True) for x in tensors]}
 
 

@@ -321,13 +321,39 @@ def test_flash_forward_dispatch(d, dtype, body, width, passes):
 @pytest.mark.parametrize("d, dtype, body, width, passes, pad_to", [
     (36, torch.float32, "fma", 64, 1, 36), (36, torch.bfloat16, "wgmma", 128, 1, 40),
     (96, torch.float16, "wgmma", 128, 1, 96), (200, torch.bfloat16, "wgmma", 256, 1, 200),
-    (257, torch.bfloat16, "fma", 256, 2, 257), (320, torch.float16, "fma", 256, 2, 320),
+    (257, torch.bfloat16, "wgmma", 256, 2, 264), (320, torch.float16, "wgmma", 256, 2, 320),
+    (512, torch.bfloat16, "wgmma", 256, 2, 512), (512, torch.float16, "wgmma", 256, 2, 512),
+    (576, torch.bfloat16, "wgmma", 256, 3, 576), (576, torch.float16, "wgmma", 256, 3, 576),
+    (1024, torch.bfloat16, "wgmma", 256, 4, 1024), (1024, torch.float16, "wgmma", 256, 4, 1024),
     (1024, torch.float32, "fma", 256, 4, 1024)])
 def test_flash_backward_dispatch(d, dtype, body, width, passes, pad_to):
     x = torch.zeros(1, 2, 2, d, dtype=dtype)
     plan = tflash_kernel.dispatch(d, dtype, [x], backward=True)
     assert (plan["body"], plan["width"], plan["passes"], plan["pad_to"]) == \
         (body, width, passes, pad_to)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_two_byte_backward_runs_wgmma_at_every_head_dim(dtype):
+    """No 2-byte backward plan runs the FMA bodies: every D from 1 to 1024
+    plans the tensor-core body, padded to the 16-byte grid, at a width and
+    pass count that hold the padded D."""
+    for d in range(1, 1025):
+        plan = tflash_kernel.dispatch(d, dtype, [], backward=True)
+        pad_to = -(-d // 8) * 8
+        assert plan["body"] == "wgmma" and plan["pad_to"] == pad_to, (d, plan)
+        if d <= 256:
+            assert (plan["width"], plan["passes"]) == (128 if d <= 128 else 256, 1), d
+        else:
+            assert (plan["width"], plan["passes"]) == (256, -(-pad_to // 256)), d
+
+
+def test_fp32_backward_keeps_fma_at_every_head_dim():
+    """fp32 keeps the FMA bodies (IEEE math for its 2e-5 tolerance) at
+    every D, unpadded: one pass up to 256, passes of 256 past it."""
+    for d in range(1, 1025):
+        plan = tflash_kernel.dispatch(d, torch.float32, [], backward=True)
+        assert (plan["body"], plan["pad_to"], plan["passes"]) == ("fma", d, -(-d // 256)), d
 
 
 @pytest.mark.parametrize("d, width, passes", [

@@ -16,9 +16,12 @@ installed:
   16-byte grid) on every kernel, each bit for bit the contiguous call;
 * ``spmm`` / ``scaled_spmm`` with an fp32 adjacency and bf16 features;
 * query rows that see no key (S 12, T 6, window 2, causal and not),
-  forward and backward, in all three dtypes;
-* past 256, ragged S and T (with no-key rows), GQA groups 1 and 7
-  (``WIDE_SHAPES``).
+  forward and backward, in all three dtypes, at D 64 and at D 320
+  (``NOKEY_WIDE_D``: the 2-byte backward's wide body);
+* the backward at D 512 on views (``WIDE_VIEW_D``), in bf16 and fp16, bit
+  for bit the contiguous call;
+* past 256, ragged S and T (with no-key rows), GQA groups 1, 4 and 7
+  (``WIDE_SHAPES``; group 4 at D 512 is gemma3-1b's H 4, KV 1).
 
 Tolerances: 2e-5 fp32 and 2e-2 bf16 (``tests/test_kernels.py``), 1e-2
 fp16 (3 more mantissa bits than bf16). Every case must launch its kernel.
@@ -48,6 +51,8 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 1e-2}
 SPMM_BUCKETS = (64, 1024)
 SPMM_D = 213                   # the planner's GNN hidden width
 NOKEY = dict(s=12, t=6, window=2, d=64)   # rows 7.. see no key under the window
+NOKEY_WIDE_D = 320   # the same rows past 256: the 2-byte backward's wide body
+WIDE_VIEW_D = 512    # the wide backward on views
 # (head dim, dtype): the wide dims in every dtype, fp16 at the others
 DIM_DTYPES = [(d, dt) for d in WIDE_DIMS for dt in DTYPES] \
     + [(d, "float16") for d in F16_DIMS]
@@ -140,13 +145,13 @@ def spmm_case(n, dtype, scaled, adj_dtype=None):
     return tspmm_ops.spmm(adj, feats), tspmm_ref.spmm_ref(adj, feats)
 
 
-def nokey_case(dtype, causal, backward):
+def nokey_case(dtype, causal, backward, d=None):
     """S 12, T 6, window 2: the rows from T + window - 1 = 7 on see no key
     and are the uniform average over the 6 keys (backward: dO / 6 to every
-    key's dV, nothing to dQ and dK)."""
+    key's dV, nothing to dQ and dK); at head dim ``d`` (default 64)."""
     c = NOKEY
     fn = backward_case if backward else forward_case
-    return fn(c["d"], dtype, c["window"], causal=causal, s=c["s"], t=c["t"])
+    return fn(d or c["d"], dtype, c["window"], causal=causal, s=c["s"], t=c["t"])
 
 
 # -- views: each kernel call on views against the same call on dense copies --
@@ -344,15 +349,43 @@ def test_rows_that_see_no_key(dtype, causal, backward):
          ["flash_attention"] + (["flash_attention_bwd"] if backward else []))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("dtype", DTYPES[1:])
+def test_rows_that_see_no_key_in_the_wide_backward(dtype, causal):
+    """The no-key rows at D 320: the 2-byte backward's wide body adds
+    dO / T to every key's dV in each pass's columns."""
+    _need_cuda()
+    _run(lambda: nokey_case(dtype, causal, True, d=NOKEY_WIDE_D), dtype,
+         ["flash_attention", "flash_attention_bwd"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", VIEWS)
+@pytest.mark.parametrize("dtype", DTYPES[1:])
+def test_wide_backward_views_equal_the_dense_call(dtype, kind):
+    """The wide body's tensor maps read each view through its strides at
+    every column offset: bit for bit the call on dense copies."""
+    _need_cuda()
+    got, want, odd, copied = view_case("flash_attention_bwd", kind, dtype, d=WIDE_VIEW_D)
+    torch.cuda.synchronize()
+    assert odd and copied == view_copies("flash_attention_bwd", kind)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # past 256 at other shapes: (B, S, T, H, KV, D, causal, window, dtype) --
 # ragged S and T (a causal window with S > T: rows from T + window - 1 on
-# see no key), GQA group 1 and group 7
+# see no key), GQA group 1, group 4 (gemma3-1b's H 4, KV 1) at D 512 and
+# group 7
 WIDE_SHAPES = [
     (1, 70, 45, 4, 2, 300, False, None, "bfloat16"),
     (1, 70, 45, 4, 2, 300, True, 16, "bfloat16"),
     (1, 70, 45, 4, 2, 300, True, 16, "float32"),
     (2, 64, 64, 4, 4, 320, True, None, "float16"),
-    (1, 96, 96, 7, 1, 320, True, None, "bfloat16")]
+    (1, 96, 96, 7, 1, 320, True, None, "bfloat16"),
+    (2, 192, 192, 4, 1, 512, True, None, "bfloat16"),
+    (2, 192, 192, 4, 1, 512, True, 64, "float16")]
 
 
 def wide_shape_inputs(case, seed=8):
@@ -360,6 +393,19 @@ def wide_shape_inputs(case, seed=8):
     rng = np.random.default_rng(seed)
     return [_normal(rng, shape, dtype)
             for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
+
+
+def wide_backward_case(case):
+    """dO through ``ops.flash_attention`` at a ``WIDE_SHAPES`` case against
+    the plain version's autograd."""
+    *_, causal, window, _ = case
+    q, k, v, do = wide_shape_inputs(case)
+    grads = []
+    for fn in (tflash_ops.flash_attention, tflash_ref.attention_ref):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves, causal=causal, window=window)
+        grads.append(torch.autograd.grad(o, leaves, do))
+    return tuple(grads)
 
 
 @pytest.mark.gpu
@@ -373,19 +419,11 @@ def test_wide_head_dims_at_other_shapes(case):
         return (tflash.flash_attention(q, k, v, causal=causal, window=window),
                 tflash_ref.attention_ref(q, k, v, causal=causal, window=window))
 
-    def backward():
-        grads = []
-        for fn in (tflash_ops.flash_attention, tflash_ref.attention_ref):
-            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-            o = fn(*leaves, causal=causal, window=window)
-            grads.append(torch.autograd.grad(o, leaves, do))
-        return tuple(grads)
-
     def decode():
         q1, valid = q[:, :1].contiguous(), ring_valid(k.shape[1])
         return (tdec.decode_attention(q1, k, v, valid),
                 tdec_ref.decode_attention_ref(q1, k, v, valid))
 
     _run(forward, dtype, ["flash_attention"])
-    _run(backward, dtype, ["flash_attention", "flash_attention_bwd"])
+    _run(lambda: wide_backward_case(case), dtype, ["flash_attention", "flash_attention_bwd"])
     _run(decode, dtype, ["decode_attention"])
