@@ -30,6 +30,7 @@ from repro_torch.data.synthetic import SyntheticConfig, make_batch
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
+from repro_torch.obs.device import count, span
 from repro_torch.training.train_step import (device_batch, make_decode_step,
                                              make_prefill)
 
@@ -37,10 +38,10 @@ from repro_torch.training.train_step import (device_batch, make_decode_step,
 def _clock(device: torch.device) -> float:
     """Host clock after the device has finished the work queued so far (the
     reference's ``block_until_ready``): without it a CUDA run would time
-    only the launches."""
+    only the launches. ``perf_counter``: a clock that nothing steps."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.time()
+    return time.perf_counter()
 
 
 def _warmup_caches(caches):
@@ -86,27 +87,29 @@ class DecodeGraph:
         self.col = torch.zeros((1,), dtype=torch.long, device=dev)
         self.tokens = torch.zeros((token.shape[0], steps), dtype=torch.int32,
                                   device=dev)
-        scratch = _warmup_caches(caches)
-        side = _device.side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(dec_kernel.CAPTURED)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            decode_fn(params, self.token, self.pos, scratch)  # the warm-up
-            # capture_begin, not torch.cuda.graph(): that one empties the
-            # allocator's cache first, and the next prefill would pay to
-            # allocate its memory again
-            self.graph.capture_begin()
-            try:
-                nxt, _ = decode_fn(params, self.token, self.pos, caches)
-                self.tokens.index_copy_(1, self.col, nxt)
-                self.token.copy_(nxt)
-                self.pos.add_(1)
-                self.col.add_(1)
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        del scratch   # after the wait: its last use was on the side stream
+        with span("serve.capture"):
+            scratch = _warmup_caches(caches)
+            side = _device.side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            before = dict(dec_kernel.CAPTURED)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                with span("serve.capture.warmup"):
+                    decode_fn(params, self.token, self.pos, scratch)
+                # capture_begin, not torch.cuda.graph(): that one empties the
+                # allocator's cache first, and the next prefill would pay to
+                # allocate its memory again
+                self.graph.capture_begin()
+                try:
+                    nxt, _ = decode_fn(params, self.token, self.pos, caches)
+                    self.tokens.index_copy_(1, self.col, nxt)
+                    self.token.copy_(nxt)
+                    self.pos.add_(1)
+                    self.col.add_(1)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del scratch   # after the wait: its last use was on the side stream
         self.held = {k: dec_kernel.CAPTURED[k] - n for k, n in before.items()}
 
     def replay(self) -> None:
@@ -142,7 +145,19 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     ``patches`` (vlm), which go to the device in the config's activation
     dtype (``device_batch``). A VLM's patches take the first ``n_patches``
     positions, so the cache holds ``n_patches + S + gen_tokens`` and the
-    first decode step sits at ``n_patches + S``, as in the reference."""
+    first decode step sits at ``n_patches + S``, as in the reference.
+
+    With a recorder installed (``obs.recording``) the call is the span
+    ``serve.batch``, holding ``serve.prefill`` (the call to the first token
+    on the device), ``serve.capture`` (``DecodeGraph``), ``serve.decode``
+    (the steps, to the device's end), ``serve.release`` and ``serve.fetch``,
+    and it adds its decode steps to the counter ``serve.decode.steps``
+    (``obs/device.py``)."""
+    with span("serve.batch"):
+        return _serve_batch(cfg, params, batch, gen_tokens, log)
+
+
+def _serve_batch(cfg, params, batch: dict, gen_tokens: int, log):
     device = _device.of(params)
     if device.type == "cuda":
         cc.RUNTIME["use_flash"] = True
@@ -157,9 +172,10 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     max_len = extra + s + gen_tokens
 
     t0 = _clock(device)
-    last_logits, caches = prefill_fn(params, inputs, max_len)
-    token = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    t_prefill = _clock(device) - t0
+    with span("serve.prefill"):
+        last_logits, caches = prefill_fn(params, inputs, max_len)
+        token = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        t_prefill = _clock(device) - t0
 
     decode_steps = gen_tokens - 1
     t_capture = 0.0
@@ -169,19 +185,23 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
                             decode_steps)
         t_capture = _clock(device) - t0
         t0 = _clock(device)
-        for _ in range(decode_steps):
-            graph.replay()
-        t_decode = _clock(device) - t0
+        with span("serve.decode"):
+            for _ in range(decode_steps):
+                graph.replay()
+            t_decode = _clock(device) - t0
         gen = torch.cat([token, graph.tokens], dim=1)
-        graph.release()
+        with span("serve.release"):
+            graph.release()
     else:
         out = [token]
         t0 = _clock(device)
-        for i in range(decode_steps):
-            token, caches = decode_fn(params, token, extra + s + i, caches)
-            out.append(token)
-        t_decode = _clock(device) - t0
+        with span("serve.decode"):
+            for i in range(decode_steps):
+                token, caches = decode_fn(params, token, extra + s + i, caches)
+                out.append(token)
+            t_decode = _clock(device) - t0
         gen = torch.cat(out, dim=1)
+    count("serve.decode.steps", decode_steps)
     stats = {
         "batch": b,
         "prompt_tokens": s,
@@ -200,7 +220,8 @@ def serve_batch(cfg, params, batch: dict, gen_tokens: int, log=print):
     log(f"prefill {s} toks x{b}: {t_prefill:.2f}s; "
         f"capture {t_capture:.2f}s; decode {decode_steps} steps: {t_decode:.2f}s "
         f"({stats['tokens_per_s']:.1f} tok/s)")
-    return gen.cpu().numpy(), stats
+    with span("serve.fetch"):
+        return gen.cpu().numpy(), stats
 
 
 def main(argv=None):

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
+from repro_torch.obs.device import count, span
 from repro_torch.parallel.sharding import ShardingRules, activation_resolver
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (device_batch, init_train_state,
@@ -70,7 +71,13 @@ class TrainGraph:
 
     Launch counting: the warm-up's flash launches count as they run; the
     capture records ``held`` (wrapper -> launches in the graph, from
-    ``flash_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+    ``flash_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``.
+
+    With a recorder installed (``obs.recording``) a call is the span
+    ``train.step``, holding ``train.feed`` (the copies into the static
+    buffers) and ``train.replay``, or on the first call the eager step and
+    ``train.capture``; each replay adds one to the counter
+    ``train.graph.replays`` (``obs/device.py``)."""
 
     def __init__(self, step_fn, state):
         self.step_fn = step_fn
@@ -81,14 +88,23 @@ class TrainGraph:
         self.held: dict = {}
 
     def __call__(self, batch: dict) -> dict:
-        if self.graph is not None:
-            for k, v in batch.items():
-                self.batch[k].copy_(v)
-            self.graph.replay()
-            flash_kernel.count_replays(self.held)
-            return self.metrics
+        with span("train.step"):
+            if self.graph is None:
+                return self._first(batch)
+            with span("train.feed"):
+                for k, v in batch.items():
+                    self.batch[k].copy_(v)
+            with span("train.replay"):
+                self.graph.replay()
+            count("train.graph.replays")
+        flash_kernel.count_replays(self.held)
+        return self.metrics
+
+    def _first(self, batch: dict) -> dict:
+        """The eager step on the side stream, then the capture."""
         dev = next(iter(batch.values())).device
-        self.batch = {k: v.clone() for k, v in batch.items()}
+        with span("train.feed"):
+            self.batch = {k: v.clone() for k, v in batch.items()}
         side = _device.side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = dict(flash_kernel.CAPTURED)
@@ -97,11 +113,12 @@ class TrainGraph:
             _, metrics = self.step_fn(self.state, self.batch)   # this step
             # capture_begin, not torch.cuda.graph(): that one empties the
             # allocator's cache first (see launch/serve.py::DecodeGraph)
-            graph.capture_begin()
-            try:
-                _, self.metrics = self.step_fn(self.state, self.batch)
-            finally:
-                graph.capture_end()
+            with span("train.capture"):
+                graph.capture_begin()
+                try:
+                    _, self.metrics = self.step_fn(self.state, self.batch)
+                finally:
+                    graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = graph
         self.held = {k: flash_kernel.CAPTURED[k] - n for k, n in before.items()}
@@ -150,7 +167,9 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
     On the card the steps run through a ``TrainGraph`` built from the state
     the loop starts from (fresh or restored): the first step runs eagerly
     and the rest replay the graph, which is freed when the loop returns.
-    The returned state is the graph's static state.
+    The returned state is the graph's static state. With a recorder
+    installed (``obs.recording``) each batch's copy to the device is the
+    span ``train.feed`` (``obs/device.py``).
 
     ``mesh``: a ``DeviceMesh`` over ``("data", "model")``
     (``launch.mesh.device_mesh``). With one, or in a process group of
@@ -211,7 +230,8 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             if step >= steps:
                 break
             t_step = time.perf_counter()
-            tb = device_batch(cfg, batch, dev)
+            with span("train.feed"):
+                tb = device_batch(cfg, batch, dev)
             if graph is not None:
                 metrics = graph(tb)
             else:

@@ -25,6 +25,13 @@ under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
 scan body, see ``_remat_policy``), and a long sequence's cross-entropy is
 taken one ``ce_chunk`` at a time under its own checkpoint
 (``_chunked_ce``), so the (B, S, vocab) fp32 logits never exist whole.
+
+With a recorder installed (``obs.recording``) the model's parts are spans
+(``obs/device.py``): ``model.embed``; per layer ``model.attn`` (norm1 and
+an attention or MLA mixer: projections, RoPE, the cache write, the kernel,
+the out projection; the recurrent mixers have none) and ``model.mlp`` or
+``model.moe`` (norm2 and the MLP); ``model.head`` (the final norm, the
+logits, the cross-entropy).
 """
 from __future__ import annotations
 
@@ -46,8 +53,11 @@ from repro_torch.models.common import (DTYPES, RUNTIME, apply_norm,
                                        cross_entropy, generator,
                                        layernorm_params, logical_constraint,
                                        rmsnorm_params, truncnorm_init)
+from repro_torch.obs.device import span
 
 PyTree = Any
+# the span of a layer's sequence mixer, by layer kind
+_MIXER_SPAN = {"attn": "model.attn", "mla": "model.attn"}
 
 def _norm_params(cfg: ModelConfig, d: int, device):
     return layernorm_params(d, device) if cfg.norm == "layernorm" \
@@ -212,17 +222,22 @@ def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
     mixer and MLP branches each under their own checkpoint (remat policy
     "outputs")."""
     cache = None
-    if want_cache:
-        h = _normed(p["norm1"], cfg, x)
-        y, cache = _mixer_prefill(p, layer, h, positions, max_len)
-    else:
-        y = _branch(_mixer_branch, remat_branches, p, layer, cfg, x, positions)
+    with span(_MIXER_SPAN.get(layer.kind)):
+        if want_cache:
+            h = _normed(p["norm1"], cfg, x)
+            y, cache = _mixer_prefill(p, layer, h, positions, max_len)
+        else:
+            y = _branch(_mixer_branch, remat_branches, p, layer, cfg, x,
+                        positions)
     x = x + y
     aux = torch.zeros((), device=x.device)
     if layer.mlp == "dense":
-        x = x + _branch(_mlp_branch, remat_branches, p, cfg, x)
+        with span("model.mlp"):
+            y2 = _branch(_mlp_branch, remat_branches, p, cfg, x)
+        x = x + y2
     elif layer.mlp == "moe":
-        y2, aux = _branch(_moe_branch, remat_branches, p, layer, cfg, x)
+        with span("model.moe"):
+            y2, aux = _branch(_moe_branch, remat_branches, p, layer, cfg, x)
         x = x + y2
     x = logical_constraint(x, cc.BATCH, cc.SEQ, cc.EMBED)
     return x, aux, cache
@@ -231,30 +246,38 @@ def layer_full(p, layer: LayerSpec, cfg: ModelConfig, x, positions,
 def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
     """Single-token layer step at ``pos`` (an int or a 0-d int32 tensor);
     updates ``cache`` in place. Returns (x, cache)."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if layer.kind == "attn":
-        y, cache = attn_mod.attn_decode(p["attn"], layer.attn, h, pos, cache)
-    elif layer.kind == "mla":
-        y, cache = attn_mod.mla_decode(p["mla"], layer.mla, h, pos, cache,
-                                       absorb=cfg.mla_absorb)
-    elif layer.kind == "mamba":
-        y, cache = ssm_mod.mamba_decode(p["mamba"], layer.mamba, h, cache)
-    elif layer.kind == "mlstm":
-        y, cache = xlstm_mod.mlstm_decode(p["mlstm"], layer.xlstm, h, cache)
-    elif layer.kind == "slstm":
-        y, cache = xlstm_mod.slstm_decode(p["slstm"], layer.xlstm, h, cache)
-    else:
-        raise ValueError(layer.kind)
+    with span(_MIXER_SPAN.get(layer.kind)):
+        y, cache = _mixer_decode(p, layer, cfg, x, pos, cache)
     x = x + y
     if layer.mlp == "dense":
-        x = x + mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
-                            cfg.act)
+        with span("model.mlp"):
+            y2 = mlp_mod.mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm),
+                             cfg.act)
+        x = x + y2
     elif layer.mlp == "moe":
-        y2, _ = mlp_mod.moe(p["moe"], layer.moe,
-                            apply_norm(p["norm2"], x, cfg.norm), cfg.act,
-                            decode=True)
+        with span("model.moe"):
+            y2, _ = mlp_mod.moe(p["moe"], layer.moe,
+                                apply_norm(p["norm2"], x, cfg.norm), cfg.act,
+                                decode=True)
         x = x + y2
     return x, cache
+
+
+def _mixer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
+    """norm1 and the mixer's step at ``pos``: (y, cache)."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if layer.kind == "attn":
+        return attn_mod.attn_decode(p["attn"], layer.attn, h, pos, cache)
+    if layer.kind == "mla":
+        return attn_mod.mla_decode(p["mla"], layer.mla, h, pos, cache,
+                                   absorb=cfg.mla_absorb)
+    if layer.kind == "mamba":
+        return ssm_mod.mamba_decode(p["mamba"], layer.mamba, h, cache)
+    if layer.kind == "mlstm":
+        return xlstm_mod.mlstm_decode(p["mlstm"], layer.xlstm, h, cache)
+    if layer.kind == "slstm":
+        return xlstm_mod.slstm_decode(p["slstm"], layer.xlstm, h, cache)
+    raise ValueError(layer.kind)
 
 
 def block_full(block_p, seg: Segment, cfg: ModelConfig, x, positions,
@@ -378,19 +401,22 @@ def embed_lookup(table, tokens):
     other table is indexed, as the plain loop does, so its gradient sums a
     repeated token's rows in the plain loop's order (``F.embedding``'s
     backward sums them in another)."""
-    if cc.is_dtensor(table) and any(
-            p.is_shard(0) and n > 1
-            for p, n in zip(table.placements, table.device_mesh.mesh.shape)):
-        return torch.nn.functional.embedding(tokens, table)
-    return table[tokens]
+    with span("model.embed"):
+        if cc.is_dtensor(table) and any(
+                p.is_shard(0) and n > 1
+                for p, n in zip(table.placements,
+                                table.device_mesh.mesh.shape)):
+            return torch.nn.functional.embedding(tokens, table)
+        return table[tokens]
 
 
 def _logits(params, cfg: ModelConfig, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
-    if cfg.logits_fp32:
-        logits = logits.float()
-    return logical_constraint(logits, cc.BATCH, None, cc.VOCAB)
+    with span("model.head"):
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = x @ head.to(x.dtype)
+        if cfg.logits_fp32:
+            logits = logits.float()
+        return logical_constraint(logits, cc.BATCH, None, cc.VOCAB)
 
 
 def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
@@ -404,7 +430,9 @@ def _hidden(params, cfg: ModelConfig, tokens, embeds, want_cache: bool,
                              device=embeds.device)[None].expand(b, s)
     x, aux, caches = backbone_full(params, cfg, embeds, positions, want_cache,
                                    max_len or s)
-    return apply_norm(params["final_norm"], x, cfg.norm), aux, caches
+    with span("model.head"):
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, aux, caches
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -434,15 +462,16 @@ def _chunked_ce(params, cfg: ModelConfig, x, labels):
     chunk = cfg.ce_chunk
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     nlls, counts = [], []
-    for c0 in range(0, s, chunk):
-        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head)
-        nll, count = checkpoint(_ce_chunk, *args, use_reentrant=False,
-                                preserve_rng_state=False) \
-            if torch.is_grad_enabled() else _ce_chunk(*args)
-        nlls.append(nll)
-        counts.append(count)
-    return torch.stack(nlls).sum() / torch.clamp(torch.stack(counts).sum(),
-                                                 min=1.0)
+    with span("model.head"):
+        for c0 in range(0, s, chunk):
+            args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head)
+            nll, count = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                    preserve_rng_state=False) \
+                if torch.is_grad_enabled() else _ce_chunk(*args)
+            nlls.append(nll)
+            counts.append(count)
+        return torch.stack(nlls).sum() / torch.clamp(
+            torch.stack(counts).sum(), min=1.0)
 
 
 def loss_and_metrics(params, cfg: ModelConfig, batch: dict):
@@ -457,7 +486,9 @@ def loss_and_metrics(params, cfg: ModelConfig, batch: dict):
         ce = _chunked_ce(params, cfg, x, labels)
     else:
         logits, aux, _ = forward(params, cfg, tokens=tokens)
-        ce = cross_entropy(logits, labels.clamp(min=0), (labels >= 0).float())
+        with span("model.head"):
+            ce = cross_entropy(logits, labels.clamp(min=0),
+                               (labels >= 0).float())
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -484,7 +515,8 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches):
         for i in range(seg.count):
             x, _ = block_decode(_index(seg_p, i), _index(seg_c, i), seg, cfg,
                                 x, pos)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    with span("model.head"):
+        x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), caches
 
 

@@ -22,6 +22,7 @@ from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES
 from repro_torch.models.registry import ModelApi, get_api
+from repro_torch.obs.device import span
 from repro_torch.parallel.sharding import replicate
 from repro_torch.training.optimizer import (AdamState, AdamWConfig, adamw_init,
                                             adamw_update, adamw_update_)
@@ -69,7 +70,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     once, and a CUDA graph of the step reads and writes fixed buffers.
 
     A state of ``DTensor``s (``init_train_state(..., rules=)``) steps on
-    its device mesh (``sharded_step``)."""
+    its device mesh (``sharded_step``).
+
+    With a recorder installed (``obs.recording``) the plain step's parts
+    are the spans ``train.forward`` (the loss), ``train.backward`` (its
+    gradient) and ``train.optimizer`` (norm, clip and update;
+    ``obs/device.py``)."""
     api = api or get_api(cfg)
 
     def train_step(state: TrainState, batch: dict):
@@ -77,16 +83,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             return sharded_step(state, batch)
         params = tree_map(lambda t: t.detach().requires_grad_(True),
                           state.params)
-        loss, metrics = api.loss_and_metrics(params, cfg, batch)
-        grads = iter(torch.autograd.grad(loss, leaves(params)))
+        with span("train.forward"):
+            loss, metrics = api.loss_and_metrics(params, cfg, batch)
+        with span("train.backward"):
+            grads = iter(torch.autograd.grad(loss, leaves(params)))
         grads = tree_map(lambda _: next(grads), params)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if donate:
-            metrics.update(adamw_update_(opt_cfg, grads, state.opt,
-                                         state.params))
-            return state, metrics
-        new_params, opt, om = adamw_update(opt_cfg, grads, state.opt,
-                                           state.params)
+        with span("train.optimizer"):
+            if donate:
+                metrics.update(adamw_update_(opt_cfg, grads, state.opt,
+                                             state.params))
+                return state, metrics
+            new_params, opt, om = adamw_update(opt_cfg, grads, state.opt,
+                                               state.params)
         metrics.update(om)
         return TrainState(params=new_params, opt=opt), metrics
 
