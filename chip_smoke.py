@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written Hopper kernels (``gcn_spmm``, ``flash_attention``
-with its backward ``flash_attention_bwd``, ``decode_attention``) from
+with its backward ``flash_attention_bwd``, ``decode_attention``, ``adamw``'s
+``global_norm`` and ``adamw_update``) from
 ``src/repro_torch/csrc`` with nvcc, one process per source, and checks each
 against its plain PyTorch version. Then it drives the three main paths
 through the port's entry points at full width: the planner (hidden 213, two
@@ -93,7 +94,11 @@ attention times (decode also per call inside a graph and from HBM; D 512
 and fp16 rows naming SDPA's backend) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
-of one step) -> the pricer (``price_serve``) -> the one-card dry-run
+of one step) -> the same training on a one-card NCCL mesh
+(``train_mesh_1card``) -> AdamW's two passes at the training tree
+(``times`` rows ``adamw_update`` and ``global_norm``: bit for bit the
+plain update, within 1e-6 of the plain norm, timed) -> the pricer
+(``price_serve``) -> the one-card dry-run
 (``dryrun_1chip``) -> the production dry-run (``dryrun_production``,
 started after the build) -> the one-card mesh (``mesh_1card``) -> the GNN
 trainer's captured programs against its eager steps
@@ -118,7 +123,11 @@ internvl2-1b's, 24 and 24 x 64 = 1,536; on phi3-mini's, 32 and 32 x 64 =
 the 6 straight steps and read just after: 26 x 2 x 6 = 312
 ``flash_attention`` (each layer's forward and its recompute under remat)
 and 26 x 6 = 156 ``flash_attention_bwd``: the eager first step, then 5
-replays of a graph that holds one step; the capture runs nothing. On the
+replays of a graph that holds one step; the capture runs nothing. AdamW's
+kernels count the same way: a step launches ``global_norm`` once a table
+of up to 64 non-empty leaves of one dtype and once more for its sum, and
+``adamw_update`` once a table (gemma3-1b's 57 bf16 and 33 fp32 leaves:
+3 x 6 = 18 and 2 x 6 = 12); the one-card mesh launches as many. On the
 planner's paths a bucket graph's replay counts its 3 ``scaled_spmm``
 launches, as the eager forward did. The GNN trainer and the fleet twins
 launch no kernel (the plain cfg trains and plans there); the serve_batch
@@ -146,7 +155,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-SOURCES = ("gcn_spmm", "flash_attention", "decode_attention")
+SOURCES = ("gcn_spmm", "flash_attention", "decode_attention", "adamw")
 
 CHECK_SHAPES = [(8, 22, "float32"), (46, 15, "float32"), (64, 213, "float32"),
                 (128, 213, "float32"), (200, 64, "float32"),
@@ -3029,7 +3038,20 @@ def _profile_train_step(torch, step_fn, state, batch) -> dict:
             "top_kernels": [[e.key[:100], _dev_time(e) / 1e3, e.count] for e in top]}
 
 
-def phase_train(torch, device, FK, card) -> dict:
+def _adamw_launches(AK, params, steps: int) -> dict:
+    """AdamW's kernel launches over ``steps`` steps of this params tree
+    (moments of one dtype): each pass launches once a table of up to
+    ``MAX_LEAVES`` non-empty leaves of one dtype, and the norm once more to
+    sum its partials."""
+    from collections import Counter
+
+    from repro_torch._tree import leaves
+    n = Counter(t.dtype for t in leaves(params) if t.numel())
+    tables = sum(-(-k // AK.MAX_LEAVES) for k in n.values())
+    return {"global_norm": (tables + 1) * steps, "adamw_update": tables * steps}
+
+
+def phase_train(torch, device, FK, AK, card) -> dict:
     """gemma3-1b at full width (26 layers, bf16, remat on as configured,
     ``ce_chunk`` 512), random weights from a seed, batch 4 x 1024 tokens,
     through ``train_loop``: 6 straight steps with a checkpoint every 3 into
@@ -3038,7 +3060,8 @@ def phase_train(torch, device, FK, card) -> dict:
     run's at tests/test_train_resume.py's rtol 1e-5 / atol 1e-6. On the
     card ``train_loop`` runs its first step eagerly and replays a captured
     graph of the donating step from the second on (``TrainGraph``). Launch
-    counts of the straight run, step times (each step's own wall time:
+    counts of the straight run (the flash kernels' and AdamW's, held to
+    their counts a step), step times (each step's own wall time:
     ``log_every`` 1 reads its metrics on the host; step 0 holds the warm-up
     and the capture), tokens/s, peak device memory, and a profile of one
     more step, eager (the pure step) and graphed (a replay), each with its
@@ -3062,18 +3085,20 @@ def phase_train(torch, device, FK, card) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FK.reset_launches()
+    AK.reset_launches()
     t0 = time.perf_counter()
     state, straight = launch_train.train_loop(cfg, steps, **kw)
     loop_s = time.perf_counter() - t0
-    launches = dict(FK.LAUNCHES)
+    launches = {**FK.LAUNCHES, **AK.LAUNCHES}
+    opt_want = _adamw_launches(AK, state.params, steps)
     peak = torch.cuda.max_memory_allocated()
     HELD["train " + cfg.name] = {"peak_mem_bytes": peak, "batch": b, "seq": s,
                                  "history": straight, "launches": launches}
     n_layers = cfg.n_layers
     check(launches == {"flash_attention": 2 * n_layers * steps,
-                       "flash_attention_bwd": n_layers * steps},
-          f"train launches {launches}, want {2 * n_layers * steps} forward and "
-          f"{n_layers * steps} backward")
+                       "flash_attention_bwd": n_layers * steps, **opt_want},
+          f"train launches {launches}, want {2 * n_layers * steps} forward, "
+          f"{n_layers * steps} backward and AdamW's {opt_want}")
     check(len(straight) == steps and all(
         math.isfinite(h[k]) for h in straight for k in ("loss", "grad_norm")),
         f"train metrics are not finite: {straight}")
@@ -3153,7 +3178,7 @@ def phase_train(torch, device, FK, card) -> dict:
     return launches
 
 
-def phase_train_mesh_1card(torch, device, FK, card) -> dict:
+def phase_train_mesh_1card(torch, device, FK, AK, card) -> dict:
     """``phase_train``'s run on a device mesh: gemma3-1b at full width
     (bf16, remat, ``ce_chunk`` 512, the flash kernels), B 4 x 1024, the
     same seed and data, through ``train_loop(mesh=make_mesh_for(1))``: NCCL
@@ -3164,7 +3189,8 @@ def phase_train_mesh_1card(torch, device, FK, card) -> dict:
     build/train_mesh_ckpt; then, with step 6's removed, a mesh loop that
     resumes from step 3. Checks: NCCL; the flash launches per step are
     ``phase_train``'s (2 x 26 forward with remat, 26 backward), run on the
-    ranks' local shards; every loss within rtol 1e-5 of ``phase_train``'s
+    ranks' local shards, and so are AdamW's (its update on the local
+    shards, its norm's per-leaf sums before the mesh's reduction); every loss within rtol 1e-5 of ``phase_train``'s
     plain loop (the report says whether they are equal bit for bit); the
     resumed losses within rtol 1e-5 / atol 1e-6 of the straight run's; the
     state stays ``DTensor``s. Reports the warm median step (graphed), the
@@ -3193,13 +3219,15 @@ def phase_train_mesh_1card(torch, device, FK, card) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     FK.reset_launches()
+    AK.reset_launches()
     mesh = make_mesh_for(1)
     try:
         backend = dist.get_backend()
         t0 = time.perf_counter()
         state, straight = launch_train.train_loop(cfg, steps, mesh=mesh, **kw)
         loop_s = time.perf_counter() - t0
-        launches = dict(FK.LAUNCHES)
+        launches = {**FK.LAUNCHES, **AK.LAUNCHES}
+        opt_want = _adamw_launches(AK, state.params, steps)
         peak = torch.cuda.max_memory_allocated()
         state_leaves = leaves(state)
         all_dtensor = all(isinstance(t, DTensor) for t in state_leaves)
@@ -3256,9 +3284,9 @@ def phase_train_mesh_1card(torch, device, FK, card) -> dict:
     check(backend == "nccl", f"the one-card mesh trains over {backend}, not NCCL")
     check(all_dtensor, "the mesh loop's state is not DTensors")
     check(launches == {"flash_attention": 2 * n_layers * steps,
-                       "flash_attention_bwd": n_layers * steps},
+                       "flash_attention_bwd": n_layers * steps, **opt_want},
           f"mesh train launches {launches}, want {2 * n_layers * steps} "
-          f"forward and {n_layers * steps} backward")
+          f"forward, {n_layers * steps} backward and AdamW's {opt_want}")
     check(committed == [every, steps],
           f"the mesh run committed steps {committed}, not {[every, steps]}")
     check(len(straight) == steps and max(loss_rel) <= 1e-5,
@@ -3269,6 +3297,115 @@ def phase_train_mesh_1card(torch, device, FK, card) -> dict:
     check(resume_ok, f"resumed mesh losses differ from the straight run's: "
           f"{resume_err}")
     return launches
+
+
+ADAMW_REPLACES = "src/repro/training/optimizer.py:88"  # adamw_update, plain jnp
+
+
+def phase_adamw_times(torch, device, AK, card) -> dict:
+    """AdamW's two passes at ``phase_train``'s params tree (gemma3-1b at
+    full width: its leaves' shapes, dtypes and paths, seeded values, fp32
+    moments; clip 1.0, weight decay 0.1 on the decayed leaves), each held
+    to its plain version on the same inputs: the update
+    (``AK.adamw_update_``) to ``optimizer._update_leaf_`` leaf by leaf, bit
+    for bit on params and moments; the norm (``AK.global_norm``) within
+    1e-6 of the plain fp32 sum (``optimizer._eager_norm``) and of an fp64
+    one, the same bits on two calls. Times (``_time_ms``) of each, of its
+    plain version and of a library yardstick, timed only and never used by
+    the port: ``torch.optim.AdamW(fused=True)`` over the same params (its
+    moments in the params' dtypes, no clip) and ``torch._foreach_norm``'s
+    per-leaf norms then their norm. Bound: bytes / 3.35 TB/s, the update
+    reading p, g, m and v and writing p, m and v (22 bytes a bf16
+    parameter), the norm reading g (2)."""
+    from repro_torch._tree import map_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    from repro_torch.training import optimizer as topt
+
+    cfg = get_config(TRAIN["arch"])
+    ocfg = topt.AdamWConfig(learning_rate=TRAIN["lr"], weight_decay=0.1,
+                            grad_clip_norm=1.0)
+    meta = []
+    map_with_path(lambda path, t: meta.append((path, t)),
+                  get_api(cfg).init_params(cfg, seed=0, device="meta"))
+    gen = torch.Generator(device=device).manual_seed(5)
+    rn = lambda t, s=1.0, dt=None: (torch.randn(
+        t.shape, generator=gen, device=device) * s).to(dt or t.dtype)
+    ps = [rn(t, 0.02) for _, t in meta]
+    gs = [rn(t, 0.02) for _, t in meta]
+    ms = [rn(t, 1e-3, torch.float32) for _, t in meta]
+    vs = [rn(t, 1e-3, torch.float32).square_() for _, t in meta]
+    decay = [topt._decay_mask(path) for path, _ in meta]
+    n_params = sum(p.numel() for p in ps)
+
+    # the norm: kernel against the plain fp32 sum and an fp64 one
+    norm = AK.global_norm(gs)
+    again = AK.global_norm(gs)
+    plain_norm = topt._eager_norm(gs)
+    exact = math.sqrt(sum(float(torch.sum(torch.square(g.double()))) for g in gs))
+    norm_err = abs(float(norm) - float(plain_norm))
+    check(torch.equal(norm, again), "AdamW's norm differs between two calls")
+    check(norm_err <= 1e-6 * float(plain_norm)
+          and abs(float(norm) - exact) <= 1e-6 * exact,
+          f"AdamW's norm {float(norm)}: plain fp32 {float(plain_norm)}, "
+          f"fp64 {exact}")
+
+    # the update: kernel against the plain leaf by leaf, from equal inputs
+    scale = torch.clamp(ocfg.grad_clip_norm / (norm + 1e-9), max=1.0)
+    t = torch.ones((), dtype=torch.float32, device=device)
+    lr = torch.full((), ocfg.learning_rate, dtype=torch.float32, device=device)
+    c1, c2 = 1.0 - torch.pow(ocfg.b1, t), 1.0 - torch.pow(ocfg.b2, t)
+    plain = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+    kw = dict(b1=ocfg.b1, b2=ocfg.b2, eps=ocfg.eps,
+              weight_decay=ocfg.weight_decay)
+    kernel = lambda: AK.adamw_update_(list(zip(ps, gs, ms, vs)), decay, scale,
+                                      lr, c1, c2, **kw)
+
+    def plain_update():
+        for d, p, g, m, v in zip(decay, plain[0], gs, plain[1], plain[2]):
+            topt._update_leaf_(ocfg, d, p, g, m, v, scale, lr, c1, c2)
+
+    kernel()
+    plain_update()
+    torch.cuda.synchronize()
+    update_equal = all(torch.equal(a, b) for xs, ys in zip((ps, ms, vs), plain)
+                       for a, b in zip(xs, ys))
+    check(update_equal, "AdamW's kernel update differs from the plain update")
+
+    lib_params = [p.detach().clone().requires_grad_() for p in ps]
+    for p, g in zip(lib_params, gs):
+        p.grad = g
+    lib_opt = torch.optim.AdamW(lib_params, lr=ocfg.learning_rate,
+                                betas=(ocfg.b1, ocfg.b2), eps=ocfg.eps,
+                                weight_decay=ocfg.weight_decay, fused=True)
+    update_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                    + 2 * m.element_size() + 2 * v.element_size())
+                       for p, g, m, v in zip(ps, gs, ms, vs))
+    norm_bytes = sum(g.numel() * g.element_size() for g in gs)
+    base = {"arch": TRAIN["arch"], "leaves": len(ps), "params": n_params,
+            "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                    for p in ps}),
+            "moment_dtype": "float32", "bound_by": "bytes"}
+    rows = {
+        "adamw_update": {**base, "ms": _time_ms(torch, kernel),
+                         "plain_ms": _time_ms(torch, plain_update),
+                         "library_ms": _time_ms(torch, lib_opt.step),
+                         "bound_ms": update_bytes / PEAK_BYTES_PER_S * 1e3,
+                         "bytes": update_bytes, "bit_equal_to_plain": update_equal,
+                         "max_abs_err": 0.0 if update_equal else None},
+        "global_norm": {**base, "ms": _time_ms(torch, lambda: AK.global_norm(gs)),
+                        "plain_ms": _time_ms(torch, lambda: topt._eager_norm(gs)),
+                        "library_ms": _time_ms(torch, lambda: torch.linalg.vector_norm(
+                            torch.stack(torch._foreach_norm(gs)))),
+                        "bound_ms": norm_bytes / PEAK_BYTES_PER_S * 1e3,
+                        "bytes": norm_bytes, "norm": float(norm),
+                        "plain_norm": float(plain_norm), "fp64_norm": exact,
+                        "max_abs_err": norm_err}}
+    for name, row in rows.items():
+        emit("times", kernel=name, card=card, **_shares(row))
+    del lib_opt, lib_params, plain, ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return rows
 
 
 # -- the cost and layout tools: the pricer, the dry-run, the mesh -------------
@@ -3833,7 +3970,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_gnn_train_graphs_gpu.py",
              "tests/test_torch_train_mesh_gpu.py",
              "tests/test_torch_head_dims_gpu.py",
-             "tests/test_torch_kernel_domain_gpu.py"]
+             "tests/test_torch_kernel_domain_gpu.py",
+             "tests/test_torch_adamw_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cards = torch.cuda.device_count()
     left_out = [t for t, n in MULTI_CARD_TESTS.items() if cards < n]
@@ -3864,6 +4002,7 @@ def main() -> None:
     torch.cuda.set_device(device)
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention import ref as DR
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -3957,18 +4096,21 @@ def main() -> None:
     # 8. attention times at the serve shapes
     attn_times = phase_attention_times(torch, FK, FR, DK, DR, card)
     # 10. the training main path, counts zeroed before and read after
-    train_launches = phase_train(torch, device, FK, card)
+    train_launches = phase_train(torch, device, FK, AK, card)
     # 10a. the same training on a one-card NCCL device mesh, counts zeroed
     # before and read after
-    mesh_launches = phase_train_mesh_1card(torch, device, FK, card)
-    # 10b. the cost and layout tools: the pricer and the one-card dry-run
+    mesh_launches = phase_train_mesh_1card(torch, device, FK, AK, card)
+    # 10b. AdamW's two passes at the training tree against their plain
+    # versions, and their times
+    adamw_times = phase_adamw_times(torch, device, AK, card)
+    # 10c. the cost and layout tools: the pricer and the one-card dry-run
     # held to what the serve and train phases held on the card, the
     # production dry-run (host only), the one-card NCCL mesh
     phase_price_serve(card)
     phase_dryrun_1chip(card)
     phase_dryrun_production(dry, card)
     phase_mesh_1card(torch, device)
-    # 10c. the GNN trainer's captured programs against its eager steps, and
+    # 10d. the GNN trainer's captured programs against its eager steps, and
     # the seven example twins as a user runs them, launches zeroed before
     # and read after each twin
     phase_gnn_train_graphs(torch, device, card)
@@ -4045,6 +4187,19 @@ def main() -> None:
         "max_abs_err_head_dims": hd_errs["backward"],
         "max_abs_err_kernel_domain": domain["errs"]["backward"],
         **{k: bwd_times["global"][k] for k in keys}, "by_case": bwd_times})
+    for name in ("adamw_update", "global_norm"):
+        row = adamw_times[name]
+        by_path = {"train": train_launches[name],
+                   "train_mesh_1card": mesh_launches[name]}
+        kernels.append({
+            "name": f"adamw.{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu",
+            "replaces": ADAMW_REPLACES, "replaces_note": "no Pallas kernel: "
+            "the reference's optimizer is plain jnp, which XLA fuses",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "on_main_path": True, "max_abs_err": row["max_abs_err"],
+            **{k: row[k] for k in keys}, "bytes": row["bytes"],
+            "params": row["params"], "leaves": row["leaves"]})
     # 13. import check
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]

@@ -42,6 +42,7 @@ from repro_torch import _device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import common as cc
@@ -51,6 +52,10 @@ from repro_torch.parallel.sharding import ShardingRules, activation_resolver
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (device_batch, init_train_state,
                                              make_train_step)
+
+
+# the kernel modules whose launches a train graph holds
+_COUNTED = (flash_kernel, adamw_kernel)
 
 
 class TrainGraph:
@@ -69,9 +74,10 @@ class TrainGraph:
     eager step. The graph holds the memory of the step's intermediates until
     ``release``.
 
-    Launch counting: the warm-up's flash launches count as they run; the
-    capture records ``held`` (wrapper -> launches in the graph, from
-    ``flash_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``.
+    Launch counting: the warm-up's flash and AdamW launches count as they
+    run; the capture records ``held`` (wrapper -> launches in the graph,
+    from each kernel module's ``CAPTURED``) and every replay adds them to
+    its ``LAUNCHES``.
 
     With a recorder installed (``obs.recording``) a call is the span
     ``train.step``, holding ``train.feed`` (the copies into the static
@@ -97,7 +103,8 @@ class TrainGraph:
             with span("train.replay"):
                 self.graph.replay()
             count("train.graph.replays")
-        flash_kernel.count_replays(self.held)
+        for kernel in _COUNTED:
+            kernel.count_replays({k: self.held[k] for k in kernel.CAPTURED})
         return self.metrics
 
     def _first(self, batch: dict) -> dict:
@@ -107,7 +114,7 @@ class TrainGraph:
             self.batch = {k: v.clone() for k, v in batch.items()}
         side = _device.side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(flash_kernel.CAPTURED)
+        before = {k: n for kernel in _COUNTED for k, n in kernel.CAPTURED.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             _, metrics = self.step_fn(self.state, self.batch)   # this step
@@ -121,7 +128,8 @@ class TrainGraph:
                     graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = graph
-        self.held = {k: flash_kernel.CAPTURED[k] - n for k, n in before.items()}
+        self.held = {k: n - before[k] for kernel in _COUNTED
+                     for k, n in kernel.CAPTURED.items()}
         return metrics
 
     def release(self) -> None:

@@ -46,7 +46,11 @@ The spans (each ``repro_torch.`` + the name):
 
 The counters are ``serve.decode.steps`` (``serve_batch``, once a call, on
 the graph and the eager path alike) and ``train.graph.replays`` (one per
-replay): the denominators of per-step numbers.
+replay): the denominators of per-step numbers; and
+``train.optimizer.fused_leaves`` and ``train.optimizer.eager_leaves``
+(``training/optimizer.py::adamw_update_``, once a call: the leaves its
+multi-tensor kernel updated and those the eager code did; in a train graph
+they count the capture).
 
 To see the ranges over the kernels, install a recorder, run under the
 profiler and open the Chrome trace (in Perfetto or ``chrome://tracing``)::

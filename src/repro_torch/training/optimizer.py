@@ -9,6 +9,11 @@ params and state, the counterpart of the reference's donated buffers
 (``launch/train.py`` donates the train state to its jitted step). The math
 is fp32 whatever the moment dtype. Nothing here reads a tensor's value on
 the host, so a step can be captured in a CUDA graph.
+
+On the card the global norm and ``adamw_update_``'s update run in
+``kernels/adamw``'s multi-tensor passes, which refuse a leaf they cannot
+take (``takes_leaf``, ``takes_grads``); on the CPU they run the eager code
+here (``_eager_norm``, ``_update_leaf_``), their plain versions.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import torch
 from repro_torch._tree import is_dtensor
 from repro_torch._tree import leaves as _leaves
 from repro_torch._tree import map_with_path as _map
+from repro_torch.kernels.adamw import kernel as adamw_kernel
+from repro_torch.obs.device import count
 
 Params = Any
 
@@ -75,13 +82,34 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if is_dtensor(t) else t
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _eager_norm(ls: list) -> torch.Tensor:
+    """The plain norm: each leaf's squares summed in fp32, the sums added
+    in leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in ls))
+
+
+def _squared_sums(ts: list) -> list:
+    """Each tensor's sum of squares, 0-d: on the card in fp64 by the kernel
+    (``adamw_kernel.squared_sums``, the sums its ``global_norm`` adds), on
+    the CPU in fp32."""
+    if ts and _on_card(ts[0]):
+        return adamw_kernel.squared_sums(ts)
+    return [torch.sum(torch.square(t.float())) for t in ts]
+
+
 def _summed_over_shards(ls: list) -> list:
     """The squared sum of each leaf, reduced over the mesh dims that split
     it and over nothing else (a replicated leaf is whole on every rank):
     each leaf's pending sum is reduced exactly once, with one collective
-    per set of splitting mesh dims. Plain tensors, the same on every rank."""
+    per set of splitting mesh dims. Plain tensors, the same on every rank.
+    The local sums are ``_squared_sums``', so that on one card the norm
+    has the plain leaves' bits."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    local = [torch.sum(torch.square(_local(l).float())) for l in ls]
+    local = _squared_sums([_local(l) for l in ls])
     groups: dict = {}
     for i, l in enumerate(ls):
         if is_dtensor(l):
@@ -102,11 +130,15 @@ def _summed_over_shards(ls: list) -> list:
 def global_norm(tree: Params) -> torch.Tensor:
     """The norm of every leaf taken together. Over ``DTensor`` leaves (a
     state placed on a device mesh) it is a plain tensor, the same on every
-    rank, summed in leaf order as for plain leaves."""
+    rank, summed in leaf order as for plain leaves. On the card the kernel
+    sums the leaves, or the ``DTensor`` leaves' local shards, in fp64 (the
+    same bits on every call); on the CPU it is ``_eager_norm``."""
     ls = _leaves(tree)
     if ls and is_dtensor(ls[0]):
-        return torch.sqrt(sum(_summed_over_shards(ls)))
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in ls))
+        return torch.sqrt(sum(_summed_over_shards(ls))).float()
+    if ls and _on_card(ls[0]):
+        return adamw_kernel.global_norm(ls)
+    return _eager_norm(ls)
 
 
 def clip_by_global_norm(tree: Params, max_norm: float) -> tuple[Params, torch.Tensor]:
@@ -128,6 +160,22 @@ def _decay_mask(path) -> bool:
     carry no name, as in the reference's key paths)."""
     joined = "/".join(k if isinstance(k, str) else "" for k in path)
     return not any(t in joined for t in ("bias", "scale", "norm", "ln_"))
+
+
+def _update_leaf_(cfg: AdamWConfig, decay: bool, p, g, m, v, scale, lr, c1,
+                  c2) -> None:
+    """``adamw_update``'s step of one leaf in place, in eager kernels: the
+    plain version of the kernel's update. ``decay``: weight decay on this
+    leaf; ``scale`` the clip's 0-d scale or None."""
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    g = g.float()
+    m.copy_(cfg.b1 * m.float() + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v.float() + (1 - cfg.b2) * g * g)
+    update = (m.float() / c1) / (torch.sqrt(v.float() / c2) + cfg.eps)
+    if decay:
+        update = update + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * update)
 
 
 @torch.no_grad()
@@ -183,7 +231,14 @@ def adamw_update_(cfg: AdamWConfig, grads: Params, state: AdamState,
     placed as their params) every update is elementwise, so each rank
     writes its own shards of ``p``, ``m`` and ``v`` and the placements
     stay; only the global norm sums across ranks (``global_norm``). The
-    metrics are then plain tensors, the same on every rank."""
+    metrics are then plain tensors, the same on every rank.
+
+    Leaves on the card are updated together by the kernel's multi-tensor
+    pass, which refuses (``ValueError``, before it writes anything) a leaf
+    it cannot take (``adamw_kernel.takes_leaf``); leaves on the CPU run
+    ``_update_leaf_``. The counters ``train.optimizer.fused_leaves`` and
+    ``train.optimizer.eager_leaves`` (``obs/device.py``) count them, once a
+    call."""
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip_norm > 0 else None)
@@ -192,20 +247,22 @@ def adamw_update_(cfg: AdamWConfig, grads: Params, state: AdamState,
     t = (step + 1).to(torch.float32)
     c1 = 1.0 - torch.pow(cfg.b1, t)
     c2 = 1.0 - torch.pow(cfg.b2, t)
+    fused, eager = [], []
 
-    def upd(path, p, g, m, v):
-        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        g = g.float()
-        m.copy_(cfg.b1 * m.float() + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v.float() + (1 - cfg.b2) * g * g)
-        update = (m.float() / c1) / (torch.sqrt(v.float() / c2) + cfg.eps)
-        if cfg.weight_decay > 0 and _decay_mask(path):
-            update = update + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * update)
+    def sort(path, p, g, m, v):
+        leaf = (_local(p), _local(g), _local(m), _local(v))
+        decay = cfg.weight_decay > 0 and _decay_mask(path)
+        (fused if _on_card(leaf[0]) else eager).append((decay, leaf))
 
-    _map(upd, params, grads, state.mu, state.nu)
+    _map(sort, params, grads, state.mu, state.nu)
+    adamw_kernel.adamw_update_(
+        [leaf for _, leaf in fused], [decay for decay, _ in fused],
+        scale, lr, c1, c2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay)
+    for decay, leaf in eager:
+        _update_leaf_(cfg, decay, *leaf, scale, lr, c1, c2)
+    count("train.optimizer.fused_leaves", len(fused))
+    count("train.optimizer.eager_leaves", len(eager))
     step.add_(1)
     return {"lr": lr, "grad_norm": gnorm}
 
