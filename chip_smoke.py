@@ -25,7 +25,8 @@ d_model 1152, bf16, random weights from a seed) on 4 prompts of 1024 tokens
 with 64 generated, whose decode loop replays one captured CUDA graph of the
 decode step; serving olmoe-1b-7b at full width (16 layers, 64 experts top-8,
 bf16) the same way, deepseek-v2 at full width cut to 2 layers (MLA in the
-plain and the absorbed order, 160 experts top-6), and jamba-1.5-large and
+plain and the absorbed order, 160 experts top-6), deepseek-v2-lite whole
+(27 layers, 64 experts top-6, YaRN, prompts of 8,064), and jamba-1.5-large and
 xlstm-125m reduced and xlstm-125m at full size; serving whisper-small (12
 encoder and 12 decoder layers, 1,500 frames, prompts of 384) and
 internvl2-1b (24 layers, GQA group 7, 256 patches ahead of prompts of 1024)
@@ -70,7 +71,8 @@ serving at 1024 nodes (launches at the placement, the failure and after;
 fused against plain hosts) -> gcn_spmm times and a bit-for-bit repeat at
 buckets 1024 and 2048 -> ``predict_logits`` per call through the bucket
 graphs against the eager paths (``gnn_graphs``) -> kernel check
-(attention) -> every head dim (``head_dims``: D 8, 36, 40, 80, 96, 112,
+(attention; also deepseek-v2-lite's MLA prefill at 1 x 8,064, 16 heads, D
+192 with v widened, at YaRN's softmax scale) -> every head dim (``head_dims``: D 8, 36, 40, 80, 96, 112,
 192, 200, 256 in fp32 and bf16, forward, backward and decode against the
 plain versions, one profiled call each holding only the kernel's own
 launches, ``force_ref=True`` launching nothing) -> every input the
@@ -85,13 +87,16 @@ olmoe-1b-7b serve (launch counts, a repeat call, graphed vs eager,
 profiles, fp32 kernels vs plain: the routing decisions compared layer by
 layer, then the logits on the rows no routing flip reached) -> deepseek-v2
 serve (2 layers, both MLA orders graphed, the fp32 orders' tokens, routing
-and logits) -> the small families (jamba and xlstm reduced, xlstm at full
+and logits) -> deepseek-v2-lite serve (the whole model, 2 prompts of 8,064
+past YaRN's original positions: launch counts, a repeat call, the routing
+record and the drop counter) -> the small families (jamba and xlstm reduced, xlstm at full
 size; graphed vs eager, jamba's kernel launches) -> whisper-small and
 internvl2-1b serve (launch counts, a repeat call, graphed vs eager,
 profiles, fp32 kernels vs plain on every row) -> phi3-mini serve (the
 same checks, head_dim 96 through the kernels unpadded) ->
 attention times (decode also per call inside a graph and from HBM; D 512
-and fp16 rows naming SDPA's backend) ->
+and fp16 rows naming SDPA's backend; an ``mla`` row at deepseek-v2-lite's
+prefill, counted at the model's widths) ->
 kernel check (flash backward) -> flash backward times -> gemma3-1b train
 (launch counts, the resumed losses against the straight run's, a profile
 of one step) -> the same training on a one-card NCCL mesh
@@ -116,7 +121,9 @@ capture (26), then 63 replays of a graph that holds one step (26 each);
 the capture itself runs nothing. On olmoe-1b-7b's serve path, zeroed the
 same way: 16 ``flash_attention`` and 16 x 64 = 1,024 ``decode_attention``;
 on reduced jamba's (2 attention layers, 16 generated) 2 and 32;
-deepseek-v2 and xlstm launch neither; on whisper-small's, 12 (its decoder's
+deepseek-v2's (2 layers) 2 and 0, deepseek-v2-lite's 27 and 0 (MLA's
+prefill takes the flash forward, its absorbed decode no kernel); xlstm
+launches neither; on whisper-small's, 12 (its decoder's
 layers: the encoder is non-causal and plain) and 12 x 64 = 768; on
 internvl2-1b's, 24 and 24 x 64 = 1,536; on phi3-mini's, 32 and 32 x 64 =
 2,048. On the train path, zeroed just before
@@ -1442,7 +1449,68 @@ def phase_attention_check(torch, FK, FR, DK, DR) -> dict:
         check(ok, f"{name} disagrees with its plain version at {case}: "
                   f"max abs err {err}")
         errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+    for dt in ("float32", "bfloat16"):
+        err = _check_mla_flash(torch, FK, FR, dt)
+        errs["flash_attention"][dt] = max(errs["flash_attention"][dt], err)
     return errs
+
+
+# deepseek-v2-lite's MLA prefill as the serving cell runs it (B 16 x 8,064
+# there; one row here, which the plain version's fp32 scores hold in memory)
+MLA_ATTN = dict(arch="deepseek-v2-lite", batch=1, prompt=8064)
+
+
+def _mla_attn_inputs(torch, dtype, seed=5):
+    """(q, k, v widened, v, scale, spec) as ``attention._mla_flash`` hands
+    them to the kernel at deepseek-v2-lite's widths: 16 heads, q and k at
+    nope 128 + rope 64 = 192 (k's rope part shared by the heads, a
+    broadcast view), v 128 widened with zeros to 192, YaRN's softmax scale
+    (192^-0.5 x 1.5896)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    spec = get_config(MLA_ATTN["arch"]).segments[0].layers[0].mla
+    b, s, h = MLA_ATTN["batch"], MLA_ATTN["prompt"], spec.n_heads
+    dn, dr, dv = spec.qk_nope_dim, spec.qk_rope_dim, spec.v_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    q = torch.cat([rn(b, s, h, dn), rn(b, s, h, dr)], dim=-1)
+    k = torch.cat([rn(b, s, h, dn), rn(b, s, 1, dr).expand(b, s, h, dr)], dim=-1)
+    v = rn(b, s, h, dv)
+    wide = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    return q, k, wide, v, attn.mla_softmax_scale(spec), spec
+
+
+def _check_mla_flash(torch, FK, FR, dt: str) -> float:
+    """The flash forward at deepseek-v2-lite's MLA prefill shape against
+    its plain version, both given YaRN's ``scale``: within the dtype's
+    tolerance, the widened v's columns zero, and nearer the plain version
+    at that scale than a tenth of the distance to the plain version at the
+    default D^-0.5 (what a dropped ``scale`` would give)."""
+    q, k, wide, _, scale, spec = _mla_attn_inputs(torch, getattr(torch, dt))
+    dv = spec.v_head_dim
+    got = FK.flash_attention(q, k, wide, scale=scale)
+    want = FR.attention_ref(q, k, wide, scale=scale)
+    unscaled = FR.attention_ref(q, k, wide)
+    torch.cuda.synchronize()
+    tol = TOL[dt]
+    ok, err = _close(torch, got, want, tol)
+    apart = (want.float() - unscaled.float()).abs().max().item()
+    pad_zero = bool((got[..., dv:] == 0).all())
+    case = [MLA_ATTN["batch"], MLA_ATTN["prompt"], spec.n_heads, q.shape[-1]]
+    emit("kernel_check", kernel="flash_attention", case=case, dtype=dt,
+         layer="mla", scale=scale, max_abs_err=err,
+         max_abs_ref=want.float().abs().max().item(),
+         max_abs_apart_from_default_scale=apart, widened_columns_zero=pad_zero,
+         rtol=tol, atol=tol, ok=ok)
+    check(bool(torch.isfinite(got.float()).all()),
+          f"flash_attention gave non-finite values at the MLA shape {case}")
+    check(ok and err < 0.1 * apart and pad_zero,
+          f"flash_attention disagrees with its plain version at the MLA shape "
+          f"{case} {dt}: max abs err {err}, {apart} from the default scale, "
+          f"widened columns zero: {pad_zero}")
+    del got, want, unscaled
+    torch.cuda.empty_cache()
+    return err
 
 
 # -- every head dim up to 256 ---------------------------------------------------
@@ -2387,7 +2455,9 @@ def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
     Then fp32: both orders serve under the graph and must give the same
     tokens; teacher-forced eager runs of the two orders compare routing and
     logits as the olmoe phase does, and say where the tokens part if they
-    do. MLA has no TPU kernel in the reference, so no kernel launches."""
+    do. The prefill's MLA attention runs through the flash forward (q and k
+    at 192, v widened), one launch a layer; the decode steps launch no
+    attention kernel."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticConfig, make_batch
@@ -2414,8 +2484,10 @@ def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
         c = dataclasses.replace(cfg, mla_absorb=absorb)
         run = _serve_twice(torch, serve, c, params, batch, gen_n, FK, DK)
         gen = run["gen"]
-        check(run["launches"] == {"flash_attention": 0, "decode_attention": 0},
-              f"deepseek-v2 launched attention kernels: {run['launches']}")
+        check(run["launches"] == {"flash_attention": cfg.n_layers,
+                                  "decode_attention": 0},
+              f"deepseek-v2's MLA prefill takes the flash forward once a "
+              f"layer and its decode no kernel: {run['launches']}")
         orders["absorbed" if absorb else "plain"] = {
             **_serve_fields(run), "sample": gen[0, :8].tolist()}
     c = dataclasses.replace(cfg, mla_absorb=True)
@@ -2473,6 +2545,74 @@ def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
                    or parted["plain_top2_logits"][0]
                    - parted["plain_top2_logits"][1] <= TOL32),
           f"the fp32 MLA orders part away from a near tie: {parted}")
+
+
+V2_LITE = dict(arch="deepseek-v2-lite", batch=2, prompt=8064, gen=16, seed=0)
+
+
+def phase_serve_deepseek_v2_lite(torch, device, FK, DK) -> dict:
+    """deepseek-v2-lite whole (27 layers, d_model 2048, vocab 102,400; MLA
+    with 16 heads and no q compression, YaRN over 4,096 original positions;
+    layer 0 dense, then 64 experts top-6 of width 1408 with 2 shared,
+    unnormalized gates, dropless), bf16, random weights from a seed, through
+    ``serve_batch``: 2 prompts of 8,064 (past YaRN's original positions, as
+    the serving cell's), 16 generated, the absorbed decode replayed from one
+    CUDA graph. Launch counts zeroed before the call and read after: one
+    flash forward a layer (27: the prefill's MLA at D 192 with YaRN's
+    softmax scale) and no decode kernel; a repeat call gives the same tokens
+    and holds no more memory. A third call with the routing record and a
+    recorder installed gives the same tokens, records a choice at every
+    position it served, and counts no dropped choice."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.models import mlp
+
+    torch.cuda.empty_cache()
+    cfg = get_config(V2_LITE["arch"])
+    b, s, gen_n = V2_LITE["batch"], V2_LITE["prompt"], V2_LITE["gen"]
+    params = dlm.init_params(cfg, seed=V2_LITE["seed"], device=device)
+    n_params = dlm.param_count(params)
+    batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
+                                            seed=V2_LITE["seed"]), 0)
+    run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
+    want = {"flash_attention": cfg.n_layers, "decode_attention": 0}
+    check(run["launches"] == want,
+          f"deepseek-v2-lite's prefill takes the flash forward once a layer "
+          f"and its decode no kernel: {run['launches']}, want {want}")
+    moe = [l.moe for l in cfg.layer_list() if l.mlp == "moe"]
+    record = mlp.RoutingRecord(len(moe), b, s + gen_n, moe[0].top_k,
+                               moe[0].n_experts, device)
+    record.experts.fill_(255)
+    with obs.recording(obs.Recorder()) as rec, \
+            mlp.record_routing_on_device(record):
+        gen_rec, _ = serve.serve_batch(cfg, params, batch, gen_n,
+                                       log=lambda *_: None)
+    counters = rec.metrics.snapshot()["counters"]
+    served_to = s + gen_n - 1      # the last token served is never fed back
+    unrecorded = int((record.experts[:, :, :served_to] == 255).sum())
+    emit("serve_deepseek_v2_lite", arch=V2_LITE["arch"], dtype=cfg.dtype,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         params=n_params, batch=b, prompt_tokens=s, gen_tokens=gen_n,
+         launches=run["launches"], **_serve_fields(run),
+         recorded_tokens_equal=bool((gen_rec == run["gen"]).all()),
+         unrecorded_choices=unrecorded,
+         moe_choices=counters.get("moe.choices"),
+         moe_dropped=counters.get("moe.dropped"),
+         sample=run["gen"][0, :8].tolist())
+    check((gen_rec == run["gen"]).all(),
+          "deepseek-v2-lite served other tokens with the routing record on")
+    check(unrecorded == 0, f"deepseek-v2-lite's routing record misses "
+                           f"{unrecorded} choices")
+    # (the eager calls count; a graph's replays run no Python and do not)
+    check(counters.get("moe.dropped") == 0 and counters.get("moe.choices", 0)
+          >= len(moe) * b * s * moe[0].top_k,
+          f"deepseek-v2-lite dropped choices or counted too few: {counters}")
+    del params, record
+    torch.cuda.empty_cache()
+    return run["launches"]
 
 
 SMALL_FAMILIES = (("jamba-1.5-large-398b", True), ("xlstm-125m", True),
@@ -2761,6 +2901,24 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             library_args=(qt, kt, vt, mask),
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
             flops=4 * d * pairs * b * h)
+    # deepseek-v2-lite's MLA prefill: counted at the model's widths (q and
+    # k at 192, v and o at 128; 2 x (192 + 128) operations a visible pair
+    # and head), the widened columns not; SDPA given v at 128
+    q, k, wide, v, scale, mla = _mla_attn_inputs(torch, torch.bfloat16)
+    b, s, h, dqk = q.shape
+    dv = mla.v_head_dim
+    pairs = s * (s + 1) // 2
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    cases[("flash_attention", "mla")] = dict(
+        shape=dict(B=b, S=s, H=h, KV=h, D=dqk, Dv=dv, window=None, scale=scale),
+        dtype="bfloat16",
+        kernel=lambda q=q, k=k, v=wide, c=scale: FK.flash_attention(q, k, v, scale=c),
+        plain=lambda q=q, k=k, v=wide, c=scale: FR.attention_ref(q, k, v, scale=c),
+        library=lambda qt=qt, kt=kt, vt=vt, c=scale: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=c),
+        library_args=(qt, kt, vt),
+        nbytes=b * s * h * (2 * dqk + 2 * dv) * elt,
+        flops=2 * (dqk + dv) * pairs * b * h)
     b = SERVE["batch"]
     s = SERVE["prompt"]
     ivl_t = ivl_s + INTERNVL["gen"]
@@ -3963,6 +4121,7 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_sim_eval_gpu.py",
              "tests/test_torch_serve_sim_gpu.py",
              "tests/test_torch_families_gpu.py",
+             "tests/test_torch_deepseek_v2_lite_gpu.py",
              "tests/test_torch_encdec_vlm_gpu.py",
              "tests/test_torch_train_families_gpu.py",
              "tests/test_torch_kernel_dispatch_gpu.py",
@@ -4083,6 +4242,7 @@ def main() -> None:
     # xlstm at full size; counts zeroed before and read after each serve
     l_olmoe = phase_serve_olmoe(torch, device, FK, DK)
     phase_serve_deepseek_v2(torch, device, FK, DK)
+    l_v2_lite = phase_serve_deepseek_v2_lite(torch, device, FK, DK)
     l_small = phase_serve_families_small(torch, device, FK, DK)
     # 7c. the encoder-decoder and VLM families at full width: whisper-small
     # (flash on the decoder's 12 layers, G 1) and internvl2-1b (G 7); counts
@@ -4146,6 +4306,7 @@ def main() -> None:
             "by_bucket": {str(b): times[name][b] for b in TIMED_BUCKETS}})
     for name in ("flash_attention", "decode_attention"):
         by_path = {"serve": launches[name], "serve_olmoe": l_olmoe[name],
+                   "serve_deepseek_v2_lite": l_v2_lite[name],
                    **{f"serve {k}": n[name] for k, n in l_small.items()},
                    **{k: n[name] for k, n in l_family.items()},
                    **{f"examples {k}": r["launches"][name]

@@ -27,14 +27,40 @@ class AttnSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rope scaling (arXiv:2309.00071) as DeepSeek-V2's ``rope_scaling``
+    states it: the rotary frequencies of the pairs past the correction range
+    divided by ``factor``, those before it kept, a linear ramp between
+    (``beta_fast`` / ``beta_slow`` rotations over ``original_max_position``
+    positions bound the range); cos and sin scaled by mscale(``mscale``) /
+    mscale(``mscale_all_dim``), and the softmax scale by
+    mscale(``mscale_all_dim``)^2, mscale(m) = 0.1 m ln(factor) + 1."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MLASpec:
     n_heads: int
-    q_lora_rank: int
+    q_lora_rank: Optional[int]            # None: q = x W_q, no q norm
     kv_lora_rank: int
     qk_nope_dim: int
     qk_rope_dim: int
     v_head_dim: int
     rope_theta: float = 10_000.0
+    # port-only, a field of ``YarnMLASpec`` (a class attribute here, so the
+    # reference's fields stay the spec's fields)
+    rope_scaling = None
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnMLASpec(MLASpec):
+    """MLA with YaRN rope scaling (DeepSeek-V2-Lite; port-only)."""
+    rope_scaling: Optional[YarnScaling] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +71,23 @@ class MoESpec:
     n_shared: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # port-only, fields of ``DroplessMoESpec`` (class attributes here, so
+    # the reference's fields stay the spec's fields): the chosen gates
+    # normalized to sum 1 (else scaled by ``routed_scaling_factor``), and
+    # the capacity routing of a full sequence
+    norm_topk_prob = True
+    routed_scaling_factor = 1.0
+    dropless = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DroplessMoESpec(MoESpec):
+    """MoE whose full-sequence path drops no token: the choices sorted by
+    expert and one GEMM per expert (DeepSeek-V2-Lite; port-only). Decode
+    keeps the capacity path, whose capacity of every token never drops."""
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    dropless: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +200,8 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
                                    window=(min(l.attn.window, 8)
                                            if l.attn.window else None)) \
             if l.attn else None
-        mla = dataclasses.replace(l.mla, n_heads=2, q_lora_rank=16,
+        mla = dataclasses.replace(l.mla, n_heads=2,
+                                  q_lora_rank=16 if l.mla.q_lora_rank else None,
                                   kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
                                   v_head_dim=8) if l.mla else None
         moe = dataclasses.replace(l.moe, n_experts=4,

@@ -183,12 +183,14 @@ def _check(q, k, v, causal: bool, window) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None, return_lse: bool = False):
+                    causal: bool = True, window=None, return_lse: bool = False,
+                    scale: float | None = None):
     """q (B, S, H, D); k/v (B, T, KV, D), one dtype (float32, bfloat16 or
     float16), any layout, on one CUDA device -> o (B, S, H, D) in q's dtype,
     and with ``return_lse`` also the rows' log-sum-exp of the scaled scores,
     fp32 (B, H, S). A query row that sees no key (a window that ends before
-    T) is the uniform average over the T keys, as in the plain version."""
+    T) is the uniform average over the T keys, as in the plain version.
+    ``scale``: the scores' factor, D^-0.5 when None."""
     _check(q, k, v, causal, window)
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -208,7 +210,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  None if lse is None else lse.data_ptr(), _layout.axes(q, k, v),
                  b, s, t, h, kvh, d, int(causal),
                  -1 if window is None else int(window), plan["width"],
-                 plan["passes"], d ** -0.5, stream)
+                 plan["passes"], d ** -0.5 if scale is None else float(scale),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _count("flash_attention")

@@ -120,17 +120,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_kv: int = DEFAULT_BLOCK_KV,
-                    force_ref: bool = False) -> torch.Tensor:
+                    force_ref: bool = False,
+                    scale: float | None = None) -> torch.Tensor:
     """Model layout: q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D).
     ``DTensor`` inputs (a model trained on a device mesh) run per rank on
     local shards (``_local_heads``): the kernels take plain tensors.
-    ``force_ref`` takes the plain version there too."""
+    ``force_ref`` takes the plain version there too. ``scale``: the scores'
+    factor (D^-0.5 when None; port-only, forward only: the backward kernel
+    takes the default)."""
     if is_dtensor(q):
         return _local_heads(q, k, v, lambda a, b, c: flash_attention(
             a, b, c, causal=causal, window=window, block_q=block_q,
-            block_kv=block_kv, force_ref=force_ref))
+            block_kv=block_kv, force_ref=force_ref, scale=scale))
     if force_ref:
-        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  scale=scale)
     if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors (or "
                          f"meta for pricing), got {q.device}")
@@ -139,6 +143,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
+            if scale is not None:
+                raise ValueError("flash_attention's backward takes the "
+                                 "default scale D^-0.5 only")
             return FlashAttention.apply(q, k, v, causal, window)
-        return _k.flash_attention(q, k, v, causal=causal, window=window)
-    return _ref.attention_ref(q, k, v, causal=causal, window=window)
+        return _k.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+    return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale)

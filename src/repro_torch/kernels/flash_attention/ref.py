@@ -10,13 +10,14 @@ from __future__ import annotations
 import torch
 
 
-def _scores(q, k, causal: bool, window):
-    """Scaled scores (B, KV, S, G, T) in fp32, masked to -1e30, and the
-    (S, T) mask."""
+def _scores(q, k, causal: bool, window, scale=None):
+    """Scaled scores (B, KV, S, G, T) in fp32 (by ``scale``, D^-0.5 when
+    None), masked to -1e30, and the (S, T) mask."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, s, kvh, h // kvh, d)
-    scores = torch.einsum("bskgd,btkd->bksgt", qf, k.float()) * d ** -0.5
+    scores = torch.einsum("bskgd,btkd->bksgt", qf, k.float()) \
+        * (d ** -0.5 if scale is None else scale)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -30,10 +31,12 @@ def _scores(q, k, causal: bool, window):
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window=None) -> torch.Tensor:
-    """q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D) in q's dtype."""
+                  causal: bool = True, window=None,
+                  scale: float | None = None) -> torch.Tensor:
+    """q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D) in q's dtype;
+    ``scale`` as the kernel's."""
     b, s, h, d = q.shape
-    scores, _ = _scores(q, k, causal, window)
+    scores, _ = _scores(q, k, causal, window, scale)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bksgt,btkd->bskgd", w, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)

@@ -5,9 +5,11 @@ its compressed cache. Port of ``repro/models/attention.py``.
 Two execution paths per layer:
   * full sequence (prefill): GQA through the hand-written flash-attention
     kernel when ``RUNTIME["use_flash"]`` is on (its plain version for CPU
-    tensors), else the grouped einsum or the q-chunked form; MLA as plain
-    einsums (the reference has no kernel for it), q-chunked under
-    ``q_chunk``;
+    tensors), else the grouped einsum or the q-chunked form; MLA through
+    the same flash forward when ``use_flash`` is on and no gradient is
+    wanted (the serving prefill: q and k at nope + rope, v widened to it),
+    else as plain einsums (the reference has no kernel for it), q-chunked
+    under ``q_chunk``;
   * one-token decode against a cache: GQA's full or ring (sliding window)
     cache through the decode-attention kernel when ``use_flash`` is on;
     MLA's compressed cache in the plain or the absorbed matmul order.
@@ -224,12 +226,20 @@ def attn_decode(p, spec: AttnSpec, x, pos, cache: dict):
 # MLA (DeepSeek-V2): low-rank Q and compressed KV with decoupled RoPE.
 # ---------------------------------------------------------------------------
 def init_mla(gen: torch.Generator, spec: MLASpec, d_model: int, dtype) -> dict:
+    """MLA's params: q through the LoRA pair ``wq_a`` / ``q_norm`` / ``wq_b``,
+    or without q compression (``q_lora_rank`` None, the port-only
+    DeepSeek-V2-Lite) one ``wq``."""
     h = spec.n_heads
     qd = spec.qk_nope_dim + spec.qk_rope_dim
+    if spec.q_lora_rank is None:
+        q = {"wq": dense_init(gen, d_model, h * qd, dtype)}
+    else:
+        q = {"wq_a": dense_init(gen, d_model, spec.q_lora_rank, dtype),
+             "q_norm": {"scale": torch.ones((spec.q_lora_rank,),
+                                            device=gen.device)},
+             "wq_b": dense_init(gen, spec.q_lora_rank, h * qd, dtype)}
     return {
-        "wq_a": dense_init(gen, d_model, spec.q_lora_rank, dtype),
-        "q_norm": {"scale": torch.ones((spec.q_lora_rank,), device=gen.device)},
-        "wq_b": dense_init(gen, spec.q_lora_rank, h * qd, dtype),
+        **q,
         "wkv_a": dense_init(gen, d_model,
                             spec.kv_lora_rank + spec.qk_rope_dim, dtype),
         "kv_norm": {"scale": torch.ones((spec.kv_lora_rank,),
@@ -240,12 +250,27 @@ def init_mla(gen: torch.Generator, spec: MLASpec, d_model: int, dtype) -> dict:
     }
 
 
+def mla_softmax_scale(spec: MLASpec) -> float:
+    """(nope + rope)^-0.5; under YaRN times mscale(``mscale_all_dim``)^2, as
+    DeepSeek-V2 scales it (192^-0.5 x 1.5896 at DeepSeek-V2-Lite)."""
+    scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
+    sc = spec.rope_scaling
+    if sc is not None and sc.mscale_all_dim:
+        m = cc.yarn_mscale(sc.factor, sc.mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
 def _mla_q(p, spec: MLASpec, x, positions):
     b, s, _ = x.shape
-    q = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
+    if spec.q_lora_rank is None:
+        q = x @ p["wq"]
+    else:
+        q = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
     q = q.reshape(b, s, spec.n_heads, spec.qk_nope_dim + spec.qk_rope_dim)
     q_nope, q_rope = q.split([spec.qk_nope_dim, spec.qk_rope_dim], dim=-1)
-    return q_nope, apply_rope(q_rope, positions, spec.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, spec.rope_theta,
+                              spec.rope_scaling)
 
 
 def _mla_ckv(p, spec: MLASpec, x, positions):
@@ -255,7 +280,7 @@ def _mla_ckv(p, spec: MLASpec, x, positions):
         [spec.kv_lora_rank, spec.qk_rope_dim], dim=-1)
     c_kv = apply_norm(p["kv_norm"], c_kv, "rmsnorm")
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        spec.rope_theta)[:, :, 0, :]
+                        spec.rope_theta, spec.rope_scaling)[:, :, 0, :]
     return c_kv, k_rope
 
 
@@ -284,7 +309,26 @@ def _mla_chunked(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk: int,
     return torch.cat(outs, dim=1).reshape(b, s, -1)
 
 
-def mla_full(p, spec: MLASpec, x, positions):
+def _mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """MLA attention through the flash forward kernel (its plain version on
+    CPU tensors): q and k at nope + rope (k_rope shared by the heads,
+    broadcast), v widened with zero columns to that width, the output's
+    v columns kept. No (B, H, S, S) scores exist."""
+    b, s, h, dv = v.shape
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+    v = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+    out = flash_ops.flash_attention(q, k, v, scale=scale)
+    return out[..., :dv].reshape(b, s, h * dv)
+
+
+def mla_full(p, spec: MLASpec, x, positions, return_ckv: bool = False):
+    """Full-sequence MLA in the plain order (K and V expanded from the
+    compressed cache). With ``use_flash`` on and no gradient wanted (the
+    serving prefill) the attention runs through the flash forward kernel
+    (``_mla_flash``); else q-chunked under ``q_chunk``, else one einsum.
+    ``return_ckv``: also (normalized compressed kv, rotated k_rope), what
+    the decode cache holds."""
     b, s, _ = x.shape
     h = spec.n_heads
     q_nope, q_rope = _mla_q(p, spec, x, positions)
@@ -294,21 +338,24 @@ def mla_full(p, spec: MLASpec, x, positions):
     k_nope, v = kv.split([spec.qk_nope_dim, spec.v_head_dim], dim=-1)
     k_nope = logical_constraint(k_nope, cc.BATCH, None, cc.HEADS, None)
     v = logical_constraint(v, cc.BATCH, None, cc.HEADS, None)
-    scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
+    scale = mla_softmax_scale(spec)
     q_chunk = FLAGS["q_chunk"]
-    if q_chunk and s % q_chunk == 0 and s > q_chunk:
+    if FLAGS["use_flash"] and not torch.is_grad_enabled():
+        out = _mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale)
+    elif q_chunk and s % q_chunk == 0 and s > q_chunk:
         out = _mla_chunked(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk,
                            x.dtype)
-        return out @ p["wo"]
-    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
-              + torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
-    scores = scores * scale
-    mask = causal_mask(positions, positions)
-    scores = scores.masked_fill(~(mask[:, None] if mask.dim() == 3
-                                  else mask[None, None]), NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, -1)
-    return out @ p["wo"]
+    else:
+        scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
+        scores = scores * scale
+        mask = causal_mask(positions, positions)
+        scores = scores.masked_fill(~(mask[:, None] if mask.dim() == 3
+                                      else mask[None, None]), NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, -1)
+    y = out @ p["wo"]
+    return (y, (c_kv, k_rope)) if return_ckv else y
 
 
 def init_mla_cache(spec: MLASpec, batch: int, max_len: int, dtype,
@@ -324,8 +371,7 @@ def init_mla_cache(spec: MLASpec, batch: int, max_len: int, dtype,
 
 def mla_prefill(p, spec: MLASpec, x, positions, max_len: int):
     s = x.shape[1]
-    y = mla_full(p, spec, x, positions)
-    c_kv, k_rope = _mla_ckv(p, spec, x, positions)
+    y, (c_kv, k_rope) = mla_full(p, spec, x, positions, return_ckv=True)
     cache = init_mla_cache(spec, x.shape[0], max_len, x.dtype, x.device)
     cache["ckv"][:, :s] = c_kv
     cache["k_rope"][:, :s] = k_rope
@@ -353,7 +399,7 @@ def mla_decode(p, spec: MLASpec, x, pos, cache: dict, absorb: bool = False):
 
     t = ckv.shape[1]
     valid = torch.arange(t, device=x.device) <= pos
-    scale = (spec.qk_nope_dim + spec.qk_rope_dim) ** -0.5
+    scale = mla_softmax_scale(spec)
     wkv_b = p["wkv_b"].reshape(spec.kv_lora_rank, h,
                                spec.qk_nope_dim + spec.v_head_dim)
     w_k = wkv_b[..., :spec.qk_nope_dim]    # (L,H,N)

@@ -14,6 +14,7 @@ nothing: it gives the tree's shapes and dtypes only.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -174,14 +175,80 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction: 0.1 m ln(factor) + 1 (1 unscaled)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+# (head_dim, theta, scaling, device) -> yarn_freqs' table, made once: a
+# decode step would otherwise launch its ~14 small kernels in every layer
+_YARN_FREQS: dict = {}
+
+
+def yarn_freqs(head_dim: int, theta: float, scaling, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies, as DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding`` computes them: the pairs below the
+    correction range keep ``rope_freqs``, those from its top up are divided
+    by ``scaling.factor``, with a linear ramp between. The range is where a
+    pair turns ``beta_fast`` and ``beta_slow`` times over the original
+    context (pairs 10 and 23 of 32 at DeepSeek-V2-Lite's 64, 10,000, 4096,
+    32 and 1). Kept per device after the first call made outside a CUDA
+    graph's capture (a table made inside one would live in the graph's
+    memory)."""
+    key = (head_dim, theta, scaling, torch.device(device or "cpu"))
+    table = _YARN_FREQS.get(key)
+    if table is None:
+        table = _yarn_freqs(head_dim, theta, scaling, key[3])
+        capturing = key[3].type == "cuda" \
+            and torch.cuda.is_current_stream_capturing()
+        if key[3].type != "meta" and not capturing:
+            _YARN_FREQS[key] = table
+    return table
+
+
+def _yarn_freqs(head_dim: int, theta: float, scaling, device) -> torch.Tensor:
+    half = head_dim // 2
+
+    def pair(rotations):
+        return head_dim * math.log(scaling.original_max_position
+                                   / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(pair(scaling.beta_fast)), 0)
+    high = min(math.ceil(pair(scaling.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (scaling.factor * theta ** exps)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def rope_scale(scaling) -> float:
+    """The factor on cos and sin: mscale(``mscale``) / mscale(``mscale_all_dim``)
+    (1 without scaling, and at DeepSeek-V2-Lite's equal 0.707s)."""
+    if scaling is None:
+        return 1.0
+    return yarn_mscale(scaling.factor, scaling.mscale) \
+        / yarn_mscale(scaling.factor, scaling.mscale_all_dim)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+               theta: float, scaling=None) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int. ``scaling``:
+    a ``configs.base.YarnScaling`` or None (plain RoPE)."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    freqs = rope_freqs(x.shape[-1], theta, x.device) if scaling is None \
+        else yarn_freqs(x.shape[-1], theta, scaling, x.device)   # (half,)
     angles = positions[..., None].float() * freqs              # (..., seq, half)
     cos = torch.cos(angles)[..., None, :]                      # (..., seq, 1, half)
     sin = torch.sin(angles)[..., None, :]
+    m = rope_scale(scaling)
+    if m != 1.0:
+        cos, sin = cos * m, sin * m
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)

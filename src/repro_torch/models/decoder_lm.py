@@ -30,7 +30,9 @@ With a recorder installed (``obs.recording``) the model's parts are spans
 (``obs/device.py``): ``model.embed``; per layer ``model.attn`` (norm1 and
 an attention or MLA mixer: projections, RoPE, the cache write, the kernel,
 the out projection; the recurrent mixers have none) and ``model.mlp`` or
-``model.moe`` (norm2 and the MLP); ``model.head`` (the final norm, the
+``model.moe`` (norm2 and the MLP; inside it ``model.moe.route`` and
+``model.moe.experts``, and the counters ``moe.choices`` and
+``moe.dropped``, ``models/mlp.py``); ``model.head`` (the final norm, the
 logits, the cross-entropy).
 """
 from __future__ import annotations
@@ -258,7 +260,7 @@ def layer_decode(p, layer: LayerSpec, cfg: ModelConfig, x, pos, cache):
         with span("model.moe"):
             y2, _ = mlp_mod.moe(p["moe"], layer.moe,
                                 apply_norm(p["norm2"], x, cfg.norm), cfg.act,
-                                decode=True)
+                                decode=True, pos=pos)
         x = x + y2
     return x, cache
 

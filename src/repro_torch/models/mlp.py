@@ -31,10 +31,12 @@ import contextlib
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import MoESpec
 from repro_torch.models import common as cc
 from repro_torch.models.common import (activate, dense_init, logical_constraint,
                                        truncnorm_init)
+from repro_torch.obs.device import count, span
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +89,53 @@ def record_routing():
         _ROUTING = prev
 
 
+class RoutingRecord:
+    """The experts each MoE layer chose for each (row, position), kept on the
+    device: ``experts`` (n_layers, batch, max_len, top_k), uint8 (int16 past
+    256 experts). The calls of ``moe`` fill it in turn, layer after layer,
+    as a forward or a decode step makes them: a full-sequence call writes
+    positions 0 .. S-1 of every row, a decode call writes its step's
+    position with an ``index_copy_`` at the 0-d ``pos`` tensor, so a
+    captured decode step writes each replay's position. Nothing is read
+    back to the host; a caller copies ``experts`` out when it wants them."""
+
+    def __init__(self, n_layers: int, batch: int, max_len: int, top_k: int,
+                 n_experts: int, device):
+        dtype = torch.uint8 if n_experts <= 256 else torch.int16
+        self.experts = torch.zeros((n_layers, batch, max_len, top_k),
+                                   dtype=dtype, device=device)
+        self.calls = 0
+
+    def write(self, gate_idx: torch.Tensor, pos=None) -> None:
+        """gate_idx (B, S, top_k) of the next layer in turn; ``pos``: None
+        (positions 0 .. S-1) or the one position of a decode step."""
+        layer = self.calls % self.experts.shape[0]
+        self.calls += 1
+        idx = gate_idx.to(self.experts.dtype)
+        if pos is None:
+            self.experts[layer, :, :idx.shape[1]].copy_(idx)
+            return
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), pos, dtype=torch.int32, device=idx.device)
+        self.experts[layer].index_copy_(1, pos.long().view(1), idx)
+
+
+_DEVICE_RECORD: RoutingRecord | None = None
+
+
+@contextlib.contextmanager
+def record_routing_on_device(record: RoutingRecord):
+    """Every ``moe`` call in the block writes its choices into ``record``
+    (which a CUDA graph captured in the block goes on writing at each
+    replay)."""
+    global _DEVICE_RECORD
+    prev, _DEVICE_RECORD = _DEVICE_RECORD, record
+    try:
+        yield record
+    finally:
+        _DEVICE_RECORD = prev
+
+
 def init_moe(gen: torch.Generator, spec: MoESpec, d_model: int, act: str,
              dtype) -> dict:
     e, f = spec.n_experts, spec.d_ff_expert
@@ -123,12 +172,31 @@ def _sorted(probs: torch.Tensor):
     return torch.sort(probs, dim=-1, descending=True, stable=True)
 
 
-def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
+def _gates(top_vals: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """The chosen experts' gate weights from their router probabilities:
+    normalized to sum 1 (``norm_topk_prob``, the reference's rule), else
+    the probabilities times ``routed_scaling_factor`` (DeepSeek-V2's)."""
+    if spec.norm_topk_prob:
+        return top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+    return top_vals * spec.routed_scaling_factor
+
+
+def _margin(sorted_vals: torch.Tensor, k: int) -> torch.Tensor:
+    """The least gap between neighbours among the k + 1 largest
+    probabilities (``record_routing``'s margin)."""
+    top = sorted_vals[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).amin(-1) if top.shape[-1] > 1 \
+        else torch.ones_like(top[..., 0])
+
+
+def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None,
+           chosen=None):
     """GShard grouped top-k capacity routing. x: (G, n, d): every group
     routes on its own with per-group capacity, so the dispatch tensor is
     (G, n, E, C) with C ~ n·k/E. Returns (dispatch, combine (G,n,E,C),
     aux_loss); with a list for ``decisions``, appends (gate_idx, keep,
-    margin): (G, n, k), (G, n, k) and (G, n)."""
+    margin): (G, n, k), (G, n, k) and (G, n); with a list for ``chosen``,
+    appends gate_idx alone."""
     g_, n, _ = x.shape
     e = spec.n_experts
     if cc.is_dtensor(x):
@@ -139,10 +207,8 @@ def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
     logits = torch.einsum("gnd,de->gne", x.float(), router_w)
     probs = torch.softmax(logits, dim=-1)
     sorted_vals, sorted_idx = _sorted(probs)
-    gate_vals = sorted_vals[..., :spec.top_k]                # (G, n, k)
+    gate_vals = _gates(sorted_vals[..., :spec.top_k], spec)  # (G, n, k)
     gate_idx = sorted_idx[..., :spec.top_k]
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
 
     # one-hot of every choice over the experts, (G, k, E, n): n innermost,
     # so the cumsum over tokens below scans the contiguous axis
@@ -173,51 +239,163 @@ def _route(router_w, x, spec: MoESpec, capacity: int, decisions=None):
     combine = logical_constraint(combine, cc.BATCH, None, cc.EXPERT, None)
     dispatch = combine > 0
     if decisions is not None:
-        top = sorted_vals[..., :spec.top_k + 1]
-        margin = (top[..., :-1] - top[..., 1:]).amin(-1) if top.shape[-1] > 1 \
-            else torch.ones_like(top[..., 0])
-        decisions.append((gate_idx, keep, margin))
+        decisions.append((gate_idx, keep, _margin(sorted_vals, spec.top_k)))
+    if chosen is not None:
+        chosen.append(gate_idx)
     return dispatch, combine, aux
 
 
 def _moe_grouped(p, spec: MoESpec, x_gnd, act: str, capacity: int,
-                 decisions=None):
+                 decisions=None, chosen=None):
     """x: (G, n, d) -> (y (G, n, d), aux)."""
-    dispatch, combine, aux = _route(p["router"], x_gnd, spec, capacity,
-                                    decisions)
-    dispatched = torch.einsum("gnec,gnd->gecd", dispatch.to(x_gnd.dtype), x_gnd)
-    dispatched = logical_constraint(dispatched, cc.BATCH, cc.EXPERT, None,
-                                    None)
-    del dispatch
-    out = _expert_ffn(p, dispatched, act)
-    y = torch.einsum("gnec,gecd->gnd", combine.to(x_gnd.dtype), out)
+    with span("model.moe.route"):
+        dispatch, combine, aux = _route(p["router"], x_gnd, spec, capacity,
+                                        decisions, chosen)
+    with span("model.moe.experts"):
+        dispatched = torch.einsum("gnec,gnd->gecd", dispatch.to(x_gnd.dtype),
+                                  x_gnd)
+        dispatched = logical_constraint(dispatched, cc.BATCH, cc.EXPERT, None,
+                                        None)
+        del dispatch
+        out = _expert_ffn(p, dispatched, act)
+        y = torch.einsum("gnec,gecd->gnd", combine.to(x_gnd.dtype), out)
     return y, aux
 
 
+# tokens a dropless call routes and computes at once: bounds its (tokens x
+# top_k, d) transients (~5 GB at DeepSeek-V2-Lite's widths) whatever the
+# batch
+DROPLESS_CHUNK = 32_768
+
+
+def expert_rows(p, xs, counts, act: str, grouped: bool | None = None):
+    """The experts' FFN over rows sorted by expert: xs (m, d) holds
+    ``counts[e]`` rows for expert e, in expert order -> (m, d). ``grouped``
+    (None: where it runs, a bf16 CUDA tensor and a torch that has it): one
+    ``torch._grouped_mm`` a projection over every expert, reading the row
+    offsets on the device; else a loop of one matmul a projection and
+    expert, whose sizes the host reads."""
+    if grouped is None:
+        grouped = (xs.is_cuda and xs.dtype == torch.bfloat16
+                   and hasattr(torch, "_grouped_mm"))
+    if grouped:
+        offs = counts.cumsum(0).to(torch.int32)
+
+        def mm(a, w):
+            return torch._grouped_mm(a, w, offs=offs)
+    else:
+        ends = counts.cumsum(0).tolist()
+        rows = [(e, s0, s1) for e, (s0, s1) in enumerate(zip([0] + ends, ends))
+                if s1 > s0]
+
+        def mm(a, w):
+            return torch.cat([a[s0:s1] @ w[e] for e, s0, s1 in rows])
+    h = mm(xs, p["w_up"])
+    h = activate(mm(xs, p["w_gate"]), act) * h if "w_gate" in p \
+        else activate(h, act)
+    return mm(h, p["w_down"])
+
+
+def _moe_dropless(p, spec: MoESpec, x, act: str, decisions=None):
+    """x (n, d) -> (y (n, d), the router probabilities summed over the
+    tokens (E,), the choices per expert (E,), the choices (n, k)). Every
+    choice is computed:
+    the choices sorted by expert (stable, so a token's rows keep token
+    order within an expert), the rows gathered, the experts' FFN over them
+    (``expert_rows``), the outputs put back in (token, choice) order and
+    summed with their gates in fp32."""
+    n, d = x.shape
+    k, e = spec.top_k, spec.n_experts
+    with span("model.moe.route"):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        sorted_vals, sorted_idx = _sorted(probs)
+        gate_idx = sorted_idx[:, :k]
+        gates = _gates(sorted_vals[:, :k], spec)
+        flat = gate_idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=e)
+    with span("model.moe.experts"):
+        out = expert_rows(p, x[order // k], counts, act)
+        out = torch.empty_like(out).index_copy_(0, order, out)
+        y = (out.view(n, k, d).float() * gates[..., None]).sum(1).to(x.dtype)
+    if decisions is not None:
+        decisions.append((gate_idx[None], torch.ones_like(gate_idx[None],
+                                                          dtype=torch.bool),
+                          _margin(sorted_vals, k)[None]))
+    return y, probs.sum(0), counts, gate_idx
 
 
 def moe(p, spec: MoESpec, x, act: str, seq_chunk: int = 0,
-        decode: bool = False):
+        decode: bool = False, pos=None):
     """x: (B, S, d) -> (y, aux_loss).
 
+    Dropless path (``spec.dropless``, not decoding): every choice of every
+    token computed (``_moe_dropless``), ``DROPLESS_CHUNK`` tokens at a time.
     Chunked path (``seq_chunk`` set, not decoding, S a multiple of it and
     longer): groups are the batch rows, one sequence chunk at a time, with
     per-group capacity C = chunk·k/E·cf; each chunk runs under a checkpoint
     when a backward follows. Otherwise one group of all B·S tokens, with no
-    dropping when decoding or at n <= 256 tokens."""
+    dropping when decoding or at n <= 256 tokens.
+
+    ``pos``: a decode step's position (an int or a 0-d tensor), where a
+    ``RoutingRecord`` installed by ``record_routing_on_device`` writes the
+    step's choices. With a recorder installed (``obs.recording``) the
+    routing and the experts are the spans ``model.moe.route`` and
+    ``model.moe.experts``, and the call adds its choices (B·S·k) to the
+    counter ``moe.choices`` and those past an expert's capacity to
+    ``moe.dropped`` (0 on the dropless path and wherever the capacity holds
+    every token; otherwise read with a sync, and not counted inside a CUDA
+    graph's capture)."""
     b, s, d = x.shape
     n = b * s
     # launcher/perf-iteration overrides (0 = use the config's values)
     seq_chunk = cc.RUNTIME.get("moe_chunk", 0) or seq_chunk
     cf = cc.RUNTIME.get("moe_capacity_factor", 0.0) or spec.capacity_factor
-    decisions = [] if _ROUTING is not None else None
-
-    if seq_chunk and not decode and s % seq_chunk == 0 and s > seq_chunk:
+    counting = obs.current().enabled
+    dropless = spec.dropless and not decode
+    chunked = (not dropless and seq_chunk and not decode
+               and s % seq_chunk == 0 and s > seq_chunk)
+    if dropless:
+        may_drop = False
+    elif chunked:
         n_chunks = s // seq_chunk
         cap = max(1, int(seq_chunk * spec.top_k / spec.n_experts * cf))
+        may_drop = cap < seq_chunk
+    else:
+        if decode or n <= 256:
+            capacity = n                   # no dropping on small token counts
+        else:
+            capacity = max(1, int(n * spec.top_k / spec.n_experts
+                                  * spec.capacity_factor))
+        may_drop = capacity < n
+    # (gate_idx, keep, margin) for the host recorder, and for the drop
+    # counter where a choice can be dropped; the choices alone for the
+    # device record
+    decisions = [] if (_ROUTING is not None or (counting and may_drop)) \
+        else None
+    chosen = [] if _DEVICE_RECORD is not None else None
+
+    if dropless:
+        x_flat = x.reshape(n, d)
+        parts, local = [], [] if decisions is not None else None
+        for c0 in range(0, n, DROPLESS_CHUNK):
+            parts.append(_moe_dropless(p, spec, x_flat[c0:c0 + DROPLESS_CHUNK],
+                                       act, local))
+        y = torch.cat([q[0] for q in parts]) if len(parts) > 1 else parts[0][0]
+        prob_sum = sum(q[1] for q in parts)
+        counts = sum(q[2] for q in parts)
+        aux = spec.n_experts * (prob_sum / n * counts.float() / n
+                                / spec.top_k).sum()
+        if local is not None:
+            decisions.append(tuple(torch.cat(ts, dim=1) for ts in zip(*local)))
+        if chosen is not None:
+            chosen.append(torch.cat([q[3] for q in parts])
+                          if len(parts) > 1 else parts[0][3])
+    elif chunked:
         ys, aux_sum = [], torch.zeros((), device=x.device)
         for c0 in range(0, s, seq_chunk):
-            args = (p, spec, x[:, c0:c0 + seq_chunk], act, cap, decisions)
+            args = (p, spec, x[:, c0:c0 + seq_chunk], act, cap, decisions,
+                    chosen)
             # (a recompute in the backward appends to ``decisions`` again,
             # after this call has read it)
             yi, aux_i = checkpoint(_moe_grouped, *args, use_reentrant=False,
@@ -228,19 +406,27 @@ def moe(p, spec: MoESpec, x, act: str, seq_chunk: int = 0,
         y = torch.cat(ys, dim=1).reshape(n, d)
         aux = aux_sum / n_chunks
     else:
-        if decode or n <= 256:
-            capacity = n                   # no dropping on small token counts
-        else:
-            capacity = max(1, int(n * spec.top_k / spec.n_experts
-                                  * spec.capacity_factor))
         y, aux = _moe_grouped(p, spec, x.reshape(1, n, d), act, capacity,
-                              decisions)
+                              decisions, chosen)
         y = y.reshape(n, d)
 
     if decisions is not None:
-        _ROUTING.append(tuple(torch.cat([t.reshape(b, -1, *t.shape[2:])
-                                         for t in ts], dim=1)
-                              for ts in zip(*decisions)))
+        gate_idx, keep, margin = (torch.cat([t.reshape(b, -1, *t.shape[2:])
+                                             for t in ts], dim=1)
+                                  for ts in zip(*decisions))
+        if _ROUTING is not None:
+            _ROUTING.append((gate_idx, keep, margin))
+    if chosen is not None:
+        _DEVICE_RECORD.write(
+            torch.cat([t.reshape(b, -1, spec.top_k) for t in chosen], dim=1)
+            if len(chosen) > 1 else chosen[0].reshape(b, s, spec.top_k),
+            pos if decode else None)
+    if counting:
+        count("moe.choices", n * spec.top_k)
+        if not may_drop:
+            count("moe.dropped", 0)
+        elif not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            count("moe.dropped", int((~keep).sum()))
     x_flat = x.reshape(n, d)
     if spec.n_shared:
         y = y + mlp(p["shared"], x_flat, act)

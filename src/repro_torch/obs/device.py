@@ -42,7 +42,10 @@ The spans (each ``repro_torch.`` + the name):
   norm, clip and update);
 * ``model.embed``, ``model.attn``, ``model.mlp`` or ``model.moe`` and
   ``model.head`` (``models/decoder_lm.py``; the recurrent mixers, the
-  encoder-decoder and the VLM families have none).
+  encoder-decoder and the VLM families have none); inside ``model.moe``,
+  ``model.moe.route`` (the router, top-k, the sort of the choices by
+  expert) and ``model.moe.experts`` (the experts' GEMMs and the combine;
+  ``models/mlp.py``).
 
 The counters are ``serve.decode.steps`` (``serve_batch``, once a call, on
 the graph and the eager path alike) and ``train.graph.replays`` (one per
@@ -50,7 +53,10 @@ replay): the denominators of per-step numbers; and
 ``train.optimizer.fused_leaves`` and ``train.optimizer.eager_leaves``
 (``training/optimizer.py::adamw_update_``, once a call: the leaves its
 multi-tensor kernel updated and those the eager code did; in a train graph
-they count the capture).
+they count the capture); ``moe.choices`` and ``moe.dropped``
+(``models/mlp.py::moe``, once a call: the tokens' expert choices, and
+those past an expert's capacity, 0 on the dropless path; read with a sync
+only where the capacity path can drop, and not inside a capture).
 
 To see the ranges over the kernels, install a recorder, run under the
 profiler and open the Chrome trace (in Perfetto or ``chrome://tracing``)::

@@ -110,6 +110,10 @@ def test_reduced_family_serves_on_cuda_as_on_cpu(arch, fp32_matmuls):
     gen_n = 10
     n_attn = sum(seg.count * sum(l.kind == "attn" for l in seg.layers)
                  for seg in cfg.segments)
+    # MLA's prefill runs through the flash forward too; its decode has no
+    # kernel
+    n_flash = n_attn + sum(seg.count * sum(l.kind == "mla" for l in seg.layers)
+                           for seg in cfg.segments)
     tcommon.RUNTIME["use_flash"] = False
     cpu_gen, _ = tserve.serve_batch(cfg, params, batch, gen_n,
                                     log=lambda *_: None)
@@ -119,7 +123,7 @@ def test_reduced_family_serves_on_cuda_as_on_cpu(arch, fp32_matmuls):
                                          log=lambda *_: None)
     assert stats["backend"] == "cuda" and tcommon.RUNTIME["use_flash"]
     assert (tflash.LAUNCHES["flash_attention"],
-            tdec.LAUNCHES["decode_attention"]) == (n_attn, n_attn * gen_n)
+            tdec.LAUNCHES["decode_attention"]) == (n_flash, n_attn * gen_n)
     np.testing.assert_array_equal(cuda_gen, cpu_gen)
 
     tokens = torch.as_tensor(batch["tokens"])
