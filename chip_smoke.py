@@ -2093,6 +2093,7 @@ def phase_serve(torch, device, FK, DK) -> dict:
     # graph that holds one step: n_layers decode launches per step, gen_n
     # steps' worth; the capture itself launches nothing
     check(launches == {"flash_attention": n_layers,
+                       "flash_attention.wgmma": _wgmma_launches(torch, FK, cfg, n_layers),
                        "decode_attention": n_layers * gen_n},
           f"serve launches {launches}, want {n_layers} flash and "
           f"{n_layers * gen_n} decode")
@@ -2272,6 +2273,25 @@ def _compare_routed(torch, logits_a, logits_b, flips) -> dict:
             "max_abs_err_compared_rows": err, "ok": ok, "tol": TOL32}
 
 
+def _wgmma_launches(torch, FK, cfg, n: int) -> int:
+    """Of ``n`` flash forward launches of ``cfg``'s attention layers, those
+    the dispatch rule sends to the wgmma body: all or none, since a model
+    has one head geometry (MLA: q and k at nope + rope, v at its own)."""
+    layer = next((x for x in cfg.layer_list()
+                  if getattr(x, "attn", None) is not None or getattr(x, "mla", None) is not None),
+                 None)
+    if layer is None:   # an attention-free model (xlstm) launches no forward
+        return 0
+    dtype = getattr(torch, cfg.dtype)
+    if getattr(layer, "mla", None) is not None:
+        m = layer.mla
+        plan = FK.dispatch(m.qk_nope_dim + m.qk_rope_dim, dtype, [], dv=m.v_head_dim)
+    else:
+        a = layer.attn
+        plan = FK.dispatch(a.head_dim, dtype, [], group=a.n_heads // a.n_kv_heads)
+    return n if plan["body"] == "wgmma" else 0
+
+
 def _serve_twice(torch, serve, cfg, params, batch, gen_n: int, FK, DK) -> dict:
     """A short warm-up call (``cold``), then ``serve_batch`` with the launch
     counts zeroed just before it and read just after, then a repeat call
@@ -2285,6 +2305,7 @@ def _serve_twice(torch, serve, cfg, params, batch, gen_n: int, FK, DK) -> dict:
     DK.reset_launches()
     gen, stats = serve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
     launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
+                "flash_attention.wgmma": FK.LAUNCHES["flash_attention.wgmma"],
                 "decode_attention": DK.LAUNCHES["decode_attention"]}
     torch.cuda.synchronize()
     peaks = [torch.cuda.max_memory_allocated()]
@@ -2387,6 +2408,7 @@ def phase_serve_olmoe(torch, device, FK, DK) -> dict:
     _record_served(torch, cfg, params, batch, gen_n, run)
     gen, launches = run["gen"], run["launches"]
     check(launches == {"flash_attention": n_layers,
+                       "flash_attention.wgmma": _wgmma_launches(torch, FK, cfg, n_layers),
                        "decode_attention": n_layers * gen_n},
           f"olmoe serve launches {launches}, want {n_layers} flash and "
           f"{n_layers * gen_n} decode")
@@ -2485,6 +2507,8 @@ def phase_serve_deepseek_v2(torch, device, FK, DK) -> None:
         run = _serve_twice(torch, serve, c, params, batch, gen_n, FK, DK)
         gen = run["gen"]
         check(run["launches"] == {"flash_attention": cfg.n_layers,
+                                  "flash_attention.wgmma": _wgmma_launches(
+                                      torch, FK, cfg, cfg.n_layers),
                                   "decode_attention": 0},
               f"deepseek-v2's MLA prefill takes the flash forward once a "
               f"layer and its decode no kernel: {run['launches']}")
@@ -2578,7 +2602,9 @@ def phase_serve_deepseek_v2_lite(torch, device, FK, DK) -> dict:
     batch = make_batch(cfg, SyntheticConfig(global_batch=b, seq_len=s,
                                             seed=V2_LITE["seed"]), 0)
     run = _serve_twice(torch, serve, cfg, params, batch, gen_n, FK, DK)
-    want = {"flash_attention": cfg.n_layers, "decode_attention": 0}
+    want = {"flash_attention": cfg.n_layers,
+            "flash_attention.wgmma": _wgmma_launches(torch, FK, cfg, cfg.n_layers),
+            "decode_attention": 0}
     check(run["launches"] == want,
           f"deepseek-v2-lite's prefill takes the flash forward once a layer "
           f"and its decode no kernel: {run['launches']}, want {want}")
@@ -2649,6 +2675,7 @@ def phase_serve_families_small(torch, device, FK, DK) -> dict:
         n_attn = sum(seg.count * sum(l.kind == "attn" for l in seg.layers)
                      for seg in cfg.segments)
         check(launches == {"flash_attention": n_attn,
+                           "flash_attention.wgmma": _wgmma_launches(torch, FK, cfg, n_attn),
                            "decode_attention": n_attn * gen_n},
               f"{arch} serve launches {launches}, want {n_attn} flash and "
               f"{n_attn * gen_n} decode")
@@ -2764,6 +2791,7 @@ def _phase_serve_family(torch, device, FK, DK, spec: dict, phase: str) -> dict:
     _record_served(torch, cfg, params, batch, gen_n, run)
     gen, launches = run["gen"], run["launches"]
     check(launches == {"flash_attention": n_layers,
+                       "flash_attention.wgmma": _wgmma_launches(torch, FK, cfg, n_layers),
                        "decode_attention": n_layers * gen_n},
           f"{cfg.name} serve launches {launches}, want {n_layers} flash and "
           f"{n_layers * gen_n} decode")
@@ -2834,6 +2862,17 @@ def phase_serve_phi3_mini(torch, device, FK, DK) -> dict:
     return _phase_serve_family(torch, device, FK, DK, PHI3, "serve_phi3_mini")
 
 
+def _mma_forward(FK, q, k, v, window=None, scale=None):
+    """The flash forward on the mma.sync body whatever ``dispatch`` picks
+    (v widened to q's width by the caller): where the rule sends a shape
+    to the wgmma body, the body it ran before, timed in the same run."""
+    d = max(q.shape[3], v.shape[3])
+    plan = {**FK.dispatch(d, q.dtype, (q, k, v), group=q.shape[2] // k.shape[2]),
+            "body": "mma", "width": FK.head_width(d), "passes": -(-d // FK.PASS_WIDTH),
+            "pad_to": d}
+    return FK._forward(q, k, v, plan, True, window, False, scale)
+
+
 def _attn_time_cases(torch, F, FK, FR, DK, DR):
     """The serve shapes: prefill of a global (causal) and a local (window
     512) layer, and one decode step of the global cache (T 1088, valid up
@@ -2895,6 +2934,8 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             shape=dict(B=b, S=s, H=h, KV=kvh, D=d, window=window),
             dtype=str(q.dtype).replace("torch.", ""),
             kernel=lambda q=q, k=k, v=v, w=window: FK.flash_attention(q, k, v, window=w),
+            mma=lambda q=q, k=k, v=v, w=window: _mma_forward(FK, q, k, v, window=w),
+            body=FK.dispatch(d, q.dtype, (q, k, v), group=h // kvh)["body"],
             plain=lambda q=q, k=k, v=v, w=window: FR.attention_ref(q, k, v, window=w),
             library=lambda qt=qt, kt=kt, vt=vt, m=mask: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True),
@@ -2903,7 +2944,9 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
             flops=4 * d * pairs * b * h)
     # deepseek-v2-lite's MLA prefill: counted at the model's widths (q and
     # k at 192, v and o at 128; 2 x (192 + 128) operations a visible pair
-    # and head), the widened columns not; SDPA given v at 128
+    # and head), the widened columns not; v at 128 as the model hands it
+    # over; the mma.sync body given v widened to 192, as it ran before v
+    # took a width of its own; SDPA given v at 128
     q, k, wide, v, scale, mla = _mla_attn_inputs(torch, torch.bfloat16)
     b, s, h, dqk = q.shape
     dv = mla.v_head_dim
@@ -2912,7 +2955,9 @@ def _attn_time_cases(torch, F, FK, FR, DK, DR):
     cases[("flash_attention", "mla")] = dict(
         shape=dict(B=b, S=s, H=h, KV=h, D=dqk, Dv=dv, window=None, scale=scale),
         dtype="bfloat16",
-        kernel=lambda q=q, k=k, v=wide, c=scale: FK.flash_attention(q, k, v, scale=c),
+        kernel=lambda q=q, k=k, v=v, c=scale: FK.flash_attention(q, k, v, scale=c),
+        mma=lambda q=q, k=k, v=wide, c=scale: _mma_forward(FK, q, k, v, scale=c),
+        body=FK.dispatch(dqk, q.dtype, (q, k, v), dv=dv)["body"],
         plain=lambda q=q, k=k, v=wide, c=scale: FR.attention_ref(q, k, v, scale=c),
         library=lambda qt=qt, kt=kt, vt=vt, c=scale: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=c),
@@ -2988,6 +3033,11 @@ def phase_attention_times(torch, FK, FR, DK, DR, card) -> dict:
                "bytes": c["nbytes"], "flops": c["flops"]}
         if label in NEW_TIME_ROWS:   # the backend SDPA ran
             row.update(_sdpa_backend(torch, *c["library_args"]))
+        if name == "flash_attention":   # the body the rule picks; the mma.sync
+            row["body"] = c["body"]     # body's time beside a wgmma row's
+            if c["body"] == "wgmma":
+                row["mma_ms"] = _time_ms(torch, c["mma"])
+                row["vs_mma"] = row["ms"] / row["mma_ms"]
         if name == "flash_attention" and label in ("global", "local"):
             # gemma3-1b's training shape too (B 4, S 1024): per call inside
             # a graph of 100, as the training graph runs it
@@ -3254,6 +3304,8 @@ def phase_train(torch, device, FK, AK, card) -> dict:
                                  "history": straight, "launches": launches}
     n_layers = cfg.n_layers
     check(launches == {"flash_attention": 2 * n_layers * steps,
+                       "flash_attention.wgmma": _wgmma_launches(
+                           torch, FK, cfg, 2 * n_layers * steps),
                        "flash_attention_bwd": n_layers * steps, **opt_want},
           f"train launches {launches}, want {2 * n_layers * steps} forward, "
           f"{n_layers * steps} backward and AdamW's {opt_want}")
@@ -3442,6 +3494,8 @@ def phase_train_mesh_1card(torch, device, FK, AK, card) -> dict:
     check(backend == "nccl", f"the one-card mesh trains over {backend}, not NCCL")
     check(all_dtensor, "the mesh loop's state is not DTensors")
     check(launches == {"flash_attention": 2 * n_layers * steps,
+                       "flash_attention.wgmma": _wgmma_launches(
+                           torch, FK, cfg, 2 * n_layers * steps),
                        "flash_attention_bwd": n_layers * steps, **opt_want},
           f"mesh train launches {launches}, want {2 * n_layers * steps} "
           f"forward, {n_layers * steps} backward and AdamW's {opt_want}")
@@ -4130,7 +4184,8 @@ def phase_gpu_pytest() -> None:
              "tests/test_torch_train_mesh_gpu.py",
              "tests/test_torch_head_dims_gpu.py",
              "tests/test_torch_kernel_domain_gpu.py",
-             "tests/test_torch_adamw_gpu.py"]
+             "tests/test_torch_adamw_gpu.py",
+             "tests/test_torch_flash_wgmma_gpu.py"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cards = torch.cuda.device_count()
     left_out = [t for t, n in MULTI_CARD_TESTS.items() if cards < n]

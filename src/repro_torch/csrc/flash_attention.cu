@@ -34,11 +34,12 @@
 // q/k/v/o, i.e. ~8.7 us at the 989 TFLOP/s bf16 tensor-core peak against
 // ~6.3 us at 3.35 TB/s: operations, and only on the tensor cores.
 //
-// Two bodies, chosen by the input type:
+// Three bodies, chosen by the wrapper's dispatch from the input type and
+// the head widths:
 //
-// bf16 (flash_tc_kernel): both products on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate), fed by ldmatrix from
-// shared memory that 16-byte cp.async fills.
+// bf16 and fp16 at every other width (flash_tc_kernel): both products on
+// the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32 accumulate), fed
+// by ldmatrix from shared memory that 16-byte cp.async fills.
 //   * GQA packing: the G = H / KV query heads of one kv head are packed
 //     into the rows of one block (packed row p is query position p / G,
 //     head kvh * G + p % G), so each K/V tile in shared memory serves all G
@@ -71,15 +72,75 @@
 //     two heavy tiles set the time.
 //   * The epilogue stages each warp's output rows through its own Q rows in
 //     shared memory and writes 16-byte chunks.
-// What holds it back now: per warp and kv tile, 80 ldmatrix.x4 (Q re-read
-// at every k-step, K and V) feed 128 mma.sync, and the 252 registers of D
-// 256 leave 8 warps per SM to hide their latency. Gaps left for the next
-// redesign: wgmma on 64-row warpgroup tiles, which reads K and V from
-// shared memory without ldmatrix, with a TMA producer warp and mbarriers;
-// softmax of one group overlapped with the other's products; persistent
-// blocks over the causal triangle.
+// What holds this body back: per warp and kv tile, 80 ldmatrix.x4 (Q
+// re-read at every k-step, K and V) feed 128 mma.sync, and the 252
+// registers of D 256 leave 8 warps per SM to hide their latency; it ran
+// near 13% of its roofline at the cells' shapes. It stays for the shapes
+// the wgmma body is not instantiated at (below).
 //
-// Both bodies can also write the per-row log-sum-exp of the scaled scores,
+// bf16 and fp16 at the instantiated (q/k, v) widths (flash_tc_kernel_wgmma,
+// the section after the backward's bodies; the wrapper's FWD_WGMMA_WIDTHS:
+// 64, phi3-mini's 96, 128, MLA's 192 with v at 128): the Hopper body, one
+// template over the 2-byte type and the two widths.
+//   * What bounds it: operations. At phi3-mini's training shape (B 2,
+//     S 4096, H 32, D 96, window 2047) a visible pair costs 4 D = 384
+//     flops and one exp2, so the exponentials alone take ~2/3 of the
+//     tensor cores' time (16 a cycle per SM against 2048 bf16 FMAs): the
+//     softmax has to run under the products, not between them. At MLA's
+//     (192, 128) a pair is 2 (192 + 128) flops, the products' share higher.
+//     On an H100 the body reads 54-57% of its bound at MLA's calls and
+//     28-32% at phi3-mini's D 96, where the exponentials hold it (the
+//     mma.sync body: 12.5-14%).
+//   * Both products on wgmma. S = Q K^T (m64n128k16) reads Q and K from
+//     shared memory; P stays in registers as the A operand of O += P V,
+//     whose B operand V is read MN-major through its descriptor (no
+//     ldmatrix, no transpose). Q is read from shared memory by the
+//     hardware at every k-step, in registers never.
+//   * TMA and warp specialisation. A block is three warp groups: one
+//     producer thread issues every copy (setmaxnreg gives its group's
+//     registers to the consumers: 24 against 240), two consumer groups own
+//     64 packed query rows each of one 128-row tile and share every K/V
+//     tile. Q arrives once per tile; K and V in a ring of 2-4 stages (as
+//     many as shared memory holds), full and empty mbarriers per stage.
+//   * The widths as they are: each operand is stored in panels of 128-byte
+//     rows (64 columns) when its width is a multiple of 64, else of 64-byte
+//     rows (96 = 3 x 32 columns), swizzled over the row, so no zero column
+//     is moved or multiplied: 96 is computed at 96 (not 128), and MLA's v
+//     and o at 128 beside q and k at 192 (not both at 256: 1.6x fewer
+//     operations than the mma.sync body's padded call).
+//   * Overlap. At kv tile j a group issues S_j and then O += P_{j-1}
+//     V_{j-1}, and runs tile j's softmax while the second product is in
+//     flight; the two groups take turns to issue (named barriers 1 and 2),
+//     so one's softmax runs under the other's products.
+//   * Persistent and balanced: one block per SM walks items (batch, kv
+//     head, 128-row query tile), dealt in a snake (odd rounds take the
+//     blocks in reverse). The (batch, kv head) pairs go in groups, each
+//     group query tile by query tile over its pairs, heaviest first under
+//     a causal mask. A run of many rounds (decode-4k's and serve-8k's
+//     prefill calls: ~120 rounds) takes groups of two pairs, so the items
+//     at work at once share two heads' K and V in L2: one group of all
+//     512 pairs at decode-4k's call streamed every item's window of K/V
+//     (786 KB for ~1e8 flops) from device memory and took 11% longer
+//     (serve-8k's call 35% longer). A short run (at most 16 rounds, as
+//     MLA's B 1 call and phi3-mini's training call) takes all pairs in one
+//     group, so the lightest tiles close the run: in groups of two, MLA's
+//     B 1 call ended on heavy tiles and took 50% longer. Q of the next item
+//     is loaded once the last product of this one has read Q. Tiles no row
+//     sees are skipped as in the mma.sync body, and masks are evaluated on
+//     the tiles that need them.
+//   * GQA packing as above: a group's rows are G (64 / G) packed rows,
+//     whole positions of the G heads (one TMA box over (position, head));
+//     at G 7 a group takes 63 rows, its 64th a zero row.
+//   * The same semantics: the base-2 fold, the -1e30 sentinel, rows that
+//     see no key, the log-sum-exp, the caller's strides (the tensor maps
+//     take them) and `scale`.
+// Shapes that stay on mma.sync: head dims off the 16-column k-step (36,
+// 200), widths not instantiated (80, 112, 256, ...: each instantiation
+// adds build time; at 256 two stages of 128-key K and V tiles do not fit
+// beside Q, and a 64-key variant is not built), D > 256 (column passes),
+// and G > 64 (a group's 64 rows would not hold one position).
+//
+// Every body can also write the per-row log-sum-exp of the scaled scores,
 // lse = m + log l (natural log, fp32, layout (B, H, S)), which the backward
 // (the section after the forward's launches) reads to rebuild P without a
 // second softmax. The
@@ -93,7 +154,9 @@
 // key column and reads Q rows as broadcast float4s; for P.V each lane owns
 // the output columns lane + 32 c and takes p from its neighbours by shuffle.
 //
-// Head dims: the Pallas kernel's blocks span any D. Each body here is
+// Head dims: the Pallas kernel's blocks span any D. The mma.sync and FMA
+// bodies take one head dim D for q, k and v (the wrapper widens v, or q
+// and k, with zero columns to the wider of two and slices o back); each is
 // instantiated at widths 16, 32, 64, 128 and 256, and a call with head dim
 // D <= 256 runs the smallest width W >= D (the wrapper's dispatch picks it
 // and hands it over). It reads the caller's rows at their strides, fills
@@ -1427,27 +1490,32 @@ __device__ __forceinline__ void wg_wait0() {
 }
 // keep the compiler from moving accesses of a wgmma accumulator across the
 // fence / wait that bracket the asynchronous product
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// descriptor of a 128-byte-swizzled operand: start address, leading and
-// stride byte offsets (in 16-byte units), layout type 1 (128-byte swizzle)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// descriptor of a swizzled operand: start address, leading and stride byte
+// offsets (in 16-byte units), layout type 1 for rows swizzled over 128
+// bytes (every operand of the backward), 2 and 3 over 64 and 32 (the
+// forward's widths that are not multiples of 64)
+template <int kRowBytes = 128>
+__device__ __forceinline__ uint64_t swz_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
 }
 // K-major: k-step kk (16 elements) of a 64-row tile whose rows run along the
 // contraction dimension, in panels of 64 columns: 8-row groups 1024 B apart
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 0, 1024);
+  return swz_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 0, 1024);
 }
 // MN-major: k-step kk (16 rows) of one 64-column panel whose rows are the
 // contraction dimension. One panel is exactly one swizzle atom wide, so
 // the product's N is 64 and both offsets are the 8-row stride.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t panel, int kk) {
-  return sw128_desc(panel + kk * 2048, 1024, 1024);
+  return swz_desc(panel + kk * 2048, 1024, 1024);
 }
 
 // The 32 accumulator registers of a m64n64 wgmma, as asm operands 0-31
@@ -2454,6 +2522,452 @@ dkv_reduce_kernel(const float* __restrict__ part, E* __restrict__ dk, E* __restr
   }
 }
 
+// ---- the 2-byte forward on wgmma (flash_tc_kernel_wgmma) ---------------------
+// The body the note at the top describes under "bf16 and fp16 at the
+// instantiated widths": a persistent, warp-specialised block of three warp
+// groups, TMA-fed, both products on wgmma.
+constexpr int kFwRows = 64;       // packed query rows of one consumer warp group
+constexpr int kFwKeys = 128;      // keys of one kv tile
+constexpr int kFwThreads = 384;   // consumer groups 0 and 1, then the producer group
+constexpr int kMaxDynSmem = 232448;
+
+// A D-column operand in shared memory: panels of kCols columns, each a run
+// of rows of kRowBytes bytes swizzled over that span (128 bytes when D is
+// a multiple of 64, else 64 or 32), so that no row carries zero columns
+template <int D>
+struct FwOperand {
+  static_assert(D % 16 == 0, "wgmma takes k-steps of 16 columns");
+  static constexpr int kRowBytes = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
+  static constexpr int kCols = kRowBytes / 2;
+  static constexpr int kPanels = D / kCols;
+  static constexpr int kStepsPerPanel = kCols / 16;
+};
+
+template <int DQK, int DV>
+struct FwLayout {  // byte offsets into the (1024-aligned) dynamic shared memory
+  static constexpr int kQHalf = kFwRows * DQK * 2;  // one consumer group's Q rows
+  static constexpr int kKTile = kFwKeys * DQK * 2;
+  static constexpr int kVTile = kFwKeys * DV * 2;
+  static constexpr int kFixed = 2 * kQHalf + 8 * (2 + 4 * 4) + 1024;
+  static constexpr int kStages = std::min(4, (kMaxDynSmem - kFixed) / (kKTile + kVTile));
+  static_assert(kStages >= 2, "two stages of K and V must fit");
+  // Q of both groups, the K stages, the V stages, then the barriers: Q
+  // full / empty, and per stage K full / empty and V full / empty
+  static constexpr int kK0 = 2 * kQHalf;
+  static constexpr int kV0 = kK0 + kStages * kKTile;
+  static constexpr int kBar = kV0 + kStages * kVTile;
+  static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;
+  static_assert(kBytes <= kMaxDynSmem, "shared memory");
+};
+
+struct FwArgs {
+  void* o;     // (B, S, H, DV) of the inputs' type, dense
+  float* lse;  // (B, H, S) fp32, or null
+  int B, S, T, H, KV, G;
+  int R;       // packed rows a consumer group takes: G (64 / G), whole positions
+  int n_q;     // query tiles (2 R packed rows) of one (batch, kv head)
+  int hg;      // (batch, kv head) pairs of one group of items (fw_item)
+  int causal, window;
+  float scale_log2;
+};
+
+struct FwItem {
+  int b, kvh, p0;        // batch, kv head, first packed row of the tile
+  int k_begin, n_tiles;  // the kv tiles its rows walk
+};
+
+// item u: the (batch, kv head) pairs in groups of a.hg; within a group
+// query tile by query tile, heaviest first under a causal mask (the last
+// tile sees the most keys), each over the group's pairs (the note at the
+// top says how the launch picks a.hg)
+__device__ __forceinline__ FwItem fw_item(int u, const FwArgs& a) {
+  const int n_bh = a.B * a.KV, per_group = a.hg * a.n_q;
+  const int g = u / per_group, rest = u - g * per_group;
+  const int size = min(a.hg, n_bh - g * a.hg);  // the last group may be short
+  const int bh = g * a.hg + rest % size, i = rest / size;
+  FwItem it;
+  it.b = bh / a.KV;
+  it.kvh = bh % a.KV;
+  it.p0 = (a.causal ? a.n_q - 1 - i : i) * 2 * a.R;
+  const int last = min(a.S * a.G, it.p0 + 2 * a.R) - 1;
+  int k_end;
+  kv_range(it.p0 / a.G, last / a.G, a.T, a.causal, a.window, kFwKeys, it.k_begin, k_end);
+  it.n_tiles = (k_end - it.k_begin + kFwKeys - 1) / kFwKeys;
+  return it;
+}
+
+// K-major: k-step kk (16 columns) of a tile of `rows` rows whose rows run
+// along the contraction dimension, panel after panel
+template <int D>
+__device__ __forceinline__ uint64_t fw_desc_k(uint32_t tile, int rows, int kk) {
+  using Op = FwOperand<D>;
+  return swz_desc<Op::kRowBytes>(tile + (kk / Op::kStepsPerPanel) * rows * Op::kRowBytes +
+                                     (kk % Op::kStepsPerPanel) * 32,
+                                 0, 8 * Op::kRowBytes);
+}
+// MN-major: k-step kk (16 keys) of a V tile, its D columns spanning the
+// panels (leading offset: panel to panel; stride: 8 keys)
+template <int D>
+__device__ __forceinline__ uint64_t fw_desc_mn(uint32_t tile, int kk) {
+  using Op = FwOperand<D>;
+  return swz_desc<Op::kRowBytes>(tile + kk * 16 * Op::kRowBytes, kFwKeys * Op::kRowBytes,
+                                 8 * Op::kRowBytes);
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// The accumulator registers of a m64nN wgmma, N / 2 a thread, as asm operands
+#define FW_D8(i)                                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FW_REGS32                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+#define FW_OUT32 FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24)
+#define FW_REGS48                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "       \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+#define FW_OUT48 FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40)
+#define FW_REGS64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "       \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+#define FW_OUT64 FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40), FW_D8(48), FW_D8(56)
+
+// S (64 x 128 fp32) = A . B (+ S if accumulate), A and B of type E read
+// K-major from shared memory through their descriptors
+template <typename E>
+__device__ __forceinline__ void fw_mma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                          int accumulate) {
+#define FW_SS(TY)                                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " FW_REGS64 \
+               "%64, %65, p, 1, 1, 0, 0;\n}\n"                                          \
+               : FW_OUT64                                                               \
+               : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (std::is_same<E, __half>::value)
+    FW_SS("f16");
+  else
+    FW_SS("bf16");
+#undef FW_SS
+}
+
+// O (64 x N fp32) += A . B: A (64 x 16 of E) from registers in the
+// accumulator's layout (to_a_frags), B read MN-major from shared memory
+template <typename E, int N>
+__device__ __forceinline__ void fw_mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                          uint64_t db) {
+#define FW_RS(TY, SHAPE, REGS, OUT, TAIL, ONE)                                           \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " ONE ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " " REGS TAIL \
+               ", p, 1, 1, 1;\n}\n"                                                      \
+               : OUT                                                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  constexpr bool kF16 = std::is_same<E, __half>::value;
+  if constexpr (N == 64) {
+    if constexpr (kF16)
+      FW_RS("f16", "m64n64k16", FW_REGS32, FW_OUT32, "{%32, %33, %34, %35}, %36", "%37");
+    else
+      FW_RS("bf16", "m64n64k16", FW_REGS32, FW_OUT32, "{%32, %33, %34, %35}, %36", "%37");
+  } else if constexpr (N == 96) {
+    if constexpr (kF16)
+      FW_RS("f16", "m64n96k16", FW_REGS48, FW_OUT48, "{%48, %49, %50, %51}, %52", "%53");
+    else
+      FW_RS("bf16", "m64n96k16", FW_REGS48, FW_OUT48, "{%48, %49, %50, %51}, %52", "%53");
+  } else {
+    static_assert(N == 128, "instantiated output widths: 64, 96, 128");
+    if constexpr (kF16)
+      FW_RS("f16", "m64n128k16", FW_REGS64, FW_OUT64, "{%64, %65, %66, %67}, %68", "%69");
+    else
+      FW_RS("bf16", "m64n128k16", FW_REGS64, FW_OUT64, "{%64, %65, %66, %67}, %68", "%69");
+  }
+#undef FW_RS
+}
+#undef FW_D8
+#undef FW_REGS32
+#undef FW_OUT32
+#undef FW_REGS48
+#undef FW_OUT48
+#undef FW_REGS64
+#undef FW_OUT64
+
+// The producer thread: per item its Q tile (both groups' rows, one box of
+// R rows a panel and group), then its kv tiles, K and V of a tile in one
+// stage of the ring
+template <int DQK, int DV>
+__device__ __forceinline__ void fw_produce(unsigned char* base, uint64_t* bar,
+                                           const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, const FwArgs& a,
+                                           int n_items) {
+  using L = FwLayout<DQK, DV>;
+  using QO = FwOperand<DQK>;
+  using VO = FwOperand<DV>;
+  constexpr int NS = L::kStages;
+  const uint32_t s0 = smem_addr(base);
+  int sc = 0;  // stage uses so far
+  for (int r = 0;; ++r) {
+    const int u = snake_item(r);
+    if (u >= n_items) break;
+    const FwItem it = fw_item(u, a);
+    mbar_wait(&bar[1], (r & 1) ^ 1);
+    mbar_expect_tx(&bar[0], 2 * QO::kPanels * a.R * QO::kRowBytes);
+    for (int half = 0; half < 2; ++half)
+      for (int p = 0; p < QO::kPanels; ++p)
+        tma_5d(s0 + half * L::kQHalf + p * kFwRows * QO::kRowBytes, tm_q, &bar[0], p * QO::kCols,
+               0, it.kvh, (it.p0 + half * a.R) / a.G, it.b);
+    for (int j = 0; j < it.n_tiles; ++j, ++sc) {
+      const int s = sc % NS, parity = ((sc / NS) & 1) ^ 1;
+      const int k0 = it.k_begin + j * kFwKeys;
+      uint64_t* b = &bar[2 + 4 * s];
+      mbar_wait(&b[1], parity);
+      mbar_expect_tx(&b[0], L::kKTile);
+      for (int p = 0; p < QO::kPanels; ++p)
+        tma_4d(s0 + L::kK0 + s * L::kKTile + p * kFwKeys * QO::kRowBytes, tm_k, &b[0],
+               p * QO::kCols, it.kvh, k0, it.b);
+      mbar_wait(&b[3], parity);
+      mbar_expect_tx(&b[2], L::kVTile);
+      for (int p = 0; p < VO::kPanels; ++p)
+        tma_4d(s0 + L::kV0 + s * L::kVTile + p * kFwKeys * VO::kRowBytes, tm_v, &b[2],
+               p * VO::kCols, it.kvh, k0, it.b);
+    }
+  }
+}
+
+// tile j's softmax in a consumer group's S registers: scale into base 2,
+// mask where a row of the warp can miss a key, the running max m and sum l
+// of this thread's two rows; returns the factor alpha that rescales O
+template <int N>
+__device__ __forceinline__ void fw_softmax(float (&s)[N], float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], const FwArgs& a, int k0,
+                                           int wq_lo, int wq_hi, const int (&qpos)[2],
+                                           int kcol) {
+  const bool edge = k0 + kFwKeys > a.T;
+  const bool need_mask = edge || (a.causal && k0 + kFwKeys - 1 > wq_lo) ||
+                         (a.window > 0 && k0 <= wq_hi - a.window);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = s[i] * a.scale_log2;
+    if (need_mask) {
+      const int kpos = k0 + (i / 4) * 8 + kcol + (i & 1);
+      const int qp = qpos[(i >> 1) & 1];
+      bool vis = kpos < a.T;
+      if (a.causal) vis = vis && kpos <= qp;
+      if (a.window > 0) vis = vis && kpos > qp - a.window;
+      x = vis ? x : kNegInf;
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the 4 threads of a row share its max
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = exp2f(m[h] - mx[h]);
+    m[h] = mx[h];
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float p = exp2f(s[i] - m[(i >> 1) & 1]);
+    if (edge && k0 + (i / 4) * 8 + kcol + (i & 1) >= a.T) p = 0.0f;
+    s[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+}
+
+// A consumer group: 64 packed rows of every item, over its kv tiles. At
+// tile j it issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} back to back,
+// then runs tile j's softmax while the second product is in flight; the
+// two groups take turns to issue (named barriers 1 and 2), so one's
+// softmax runs under the other's products. The first tile (S alone) and
+// the last product (P V alone) are peeled off the loop, so that every wait
+// in it retires a known product.
+template <typename E, int DQK, int DV>
+__device__ __forceinline__ void fw_consume(unsigned char* base, uint64_t* bar, const FwArgs& a,
+                                           int n_items) {
+  using L = FwLayout<DQK, DV>;
+  constexpr int NS = L::kStages;
+  constexpr int kSteps = kFwKeys / 16;  // k-steps of P . V
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const uint32_t s0 = smem_addr(base);
+  const uint32_t q_s = s0 + wg * L::kQHalf;
+  const int rows = a.S * a.G;
+  const int kcol = (lane % 4) * 2;  // this thread's key / column offset in an n-block of 8
+  E* out = static_cast<E*>(a.o);
+  if (wg == 1) named_arrive(1);  // group 0 issues first
+  int sc = 0;                     // stage uses so far, as the producer counts them
+  for (int r = 0;; ++r) {
+    const int u = snake_item(r);
+    if (u >= n_items) break;
+    const FwItem it = fw_item(u, a);
+    const int n = it.n_tiles;
+    // this warp's first packed row; this thread's rows are + lane / 4 + 8 i
+    const int pw = it.p0 + wg * a.R + warp * 16;
+    const int wq_lo = pw / a.G, wq_hi = (pw + 15) / a.G;
+    const int qpos[2] = {(pw + lane / 4) / a.G, (pw + lane / 4 + 8) / a.G};
+    float o[DV / 2], s[kFwKeys / 2];
+    uint32_t pf[kSteps][4];
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};  // this thread's partial row sums
+    float alpha[2];
+    // S_j = Q K_j^T into s, issued
+    auto issue_s = [&](int j) {
+      const int st = (sc + j) % NS;
+      mbar_wait(&bar[2 + 4 * st], ((sc + j) / NS) & 1);
+      const uint32_t k_s = s0 + L::kK0 + st * L::kKTile;
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        fw_mma_ss<E>(s, fw_desc_k<DQK>(q_s, kFwRows, kk), fw_desc_k<DQK>(k_s, kFwKeys, kk),
+                     kk > 0);
+      wg_commit();
+    };
+    // O += P_j V_j, issued
+    auto issue_pv = [&](int j) {
+      const int st = (sc + j) % NS;
+      mbar_wait(&bar[2 + 4 * st + 2], ((sc + j) / NS) & 1);
+      const uint32_t v_s = s0 + L::kV0 + st * L::kVTile;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) fw_mma_rs<E, DV>(o, pf[kk], fw_desc_mn<DV>(v_s, kk));
+      wg_commit();
+    };
+    // S_j is done: free K_j (and Q after the last tile), P_j in s
+    auto scores_done = [&](int j) {
+      fence_acc(s);
+      mbar_arrive(&bar[2 + 4 * ((sc + j) % NS) + 1]);
+      if (j == n - 1) mbar_arrive(&bar[1]);
+      fw_softmax(s, m, l, alpha, a, it.k_begin + j * kFwKeys, wq_lo, wq_hi, qpos, kcol);
+    };
+    auto to_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        pf[kk][0] = pack2<E>(s[8 * kk + 0], s[8 * kk + 1]);
+        pf[kk][1] = pack2<E>(s[8 * kk + 2], s[8 * kk + 3]);
+        pf[kk][2] = pack2<E>(s[8 * kk + 4], s[8 * kk + 5]);
+        pf[kk][3] = pack2<E>(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+    mbar_wait(&bar[0], r & 1);
+
+    named_sync(1 + wg);  // tile 0: S alone
+    wg_fence();
+    issue_s(0);
+    named_arrive(1 + (wg ^ 1));
+    wg_wait0();
+    scores_done(0);
+    to_p();
+    for (int j = 1; j < n; ++j) {
+      named_sync(1 + wg);
+      wg_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      named_arrive(1 + (wg ^ 1));
+      wg_wait1();  // S_j
+      scores_done(j);
+      wg_wait0();  // P_{j-1} V_{j-1}
+      fence_acc(o);
+      mbar_arrive(&bar[2 + 4 * ((sc + j - 1) % NS) + 3]);
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      to_p();
+    }
+    named_sync(1 + wg);  // the last P V alone
+    wg_fence();
+    issue_pv(n - 1);
+    named_arrive(1 + (wg ^ 1));
+    wg_wait0();
+    fence_acc(o);
+    mbar_arrive(&bar[2 + 4 * ((sc + n - 1) % NS) + 3]);
+    sc += n;
+
+    // epilogue: divide, write this thread's two rows' columns in pairs
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int rr = warp * 16 + lane / 4 + 8 * h;  // the row in the group's R
+      const int p = it.p0 + wg * a.R + rr;
+      if (rr >= a.R || p >= rows) continue;
+      const float denom = fmaxf(l[h], 1e-30f), inv = 1.0f / denom;
+      const int head = it.kvh * a.G + p % a.G, sq = p / a.G;
+      if (a.lse != nullptr && lane % 4 == 0)  // m is in base 2: lse = (m + log2 l) ln 2
+        a.lse[((size_t)it.b * a.H + head) * a.S + sq] =
+            (m[h] + log2f(denom)) * 0.6931471805599453f;
+      E* row = out + (((size_t)it.b * a.S + sq) * a.H + head) * DV + kcol;
+#pragma unroll
+      for (int jb = 0; jb < DV / 8; ++jb)
+        *reinterpret_cast<uint32_t*>(row + 8 * jb) =
+            pack2<E>(o[4 * jb + 2 * h] * inv, o[4 * jb + 2 * h + 1] * inv);
+    }
+  }
+}
+
+// the kernel: thread 0 sets up the barriers, zeros fill the Q rows past R
+// of each group once (the TMA never writes them), then the producer group
+// gives its registers to the two consumer groups
+template <typename E, int DQK, int DV>
+__global__ void __launch_bounds__(kFwThreads, 1)
+flash_tc_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const FwArgs a) {
+  using L = FwLayout<DQK, DV>;
+  extern __shared__ unsigned char fw_smem[];
+  unsigned char* base = align1024(fw_smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L::kBar);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 256);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&bar[2 + 4 * s], 1);
+      mbar_init(&bar[2 + 4 * s + 1], 256);
+      mbar_init(&bar[2 + 4 * s + 2], 1);
+      mbar_init(&bar[2 + 4 * s + 3], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (a.R < kFwRows && threadIdx.x < 256) {
+    using QO = FwOperand<DQK>;
+    const int n = 2 * QO::kPanels * (kFwRows - a.R) * (QO::kRowBytes / 16);
+    for (int i = threadIdx.x; i < n; i += 256) {
+      const int c = i % (QO::kRowBytes / 16), rest = i / (QO::kRowBytes / 16);
+      const int row = a.R + rest % (kFwRows - a.R), panel = rest / (kFwRows - a.R);
+      *reinterpret_cast<uint4*>(base + (panel / QO::kPanels) * L::kQHalf +
+                                (panel % QO::kPanels) * kFwRows * QO::kRowBytes +
+                                row * QO::kRowBytes + c * 16) = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_items = a.B * a.KV * a.n_q;
+  if (threadIdx.x >= 256) {  // producer group: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) fw_produce<DQK, DV>(base, bar, &tm_q, &tm_k, &tm_v, a, n_items);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    fw_consume<E, DQK, DV>(base, bar, a, n_items);
+  }
+}
+
 // ---- launches ----------------------------------------------------------------
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes, bool& configured) {
@@ -2490,6 +3004,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// a size-1 axis may carry any stride; TMA wants a 16-byte one all the same
+inline cuuint64_t map_stride(long long st, int n, long long dense) {
+  return (cuuint64_t)(n > 1 ? st : dense) * 2;
+}
+
 // a (B, rows, heads, D) 2-byte tensor at the strides `ax` (each a multiple
 // of 8 elements, as TMA needs 16-byte strides) as TMA boxes of 64 rows x
 // 64 columns of one head, 128-byte swizzled, zero-filled past the edges (so
@@ -2498,13 +3017,10 @@ bool make_tile_map(CUtensorMap* map, const void* base, const Axes& ax, int B, in
                    int heads, int D, CUtensorMapDataType type) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  // a size-1 axis may carry any stride; TMA wants a 16-byte one all the same
-  const auto stride = [](long long st, int n, long long dense) {
-    return (cuuint64_t)(n > 1 ? st : dense) * 2;
-  };
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {stride(ax.h, heads, D), stride(ax.s, rows, (long long)heads * D),
-                                 stride(ax.b, B, (long long)rows * heads * D)};
+  const cuuint64_t strides[3] = {map_stride(ax.h, heads, D),
+                                 map_stride(ax.s, rows, (long long)heads * D),
+                                 map_stride(ax.b, B, (long long)rows * heads * D)};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBwdRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
@@ -2621,8 +3137,8 @@ int launch_bwd_fma_f32(const void* q, const void* k, const void* v, const void* 
 #undef FA_BWD_CASE
 }
 
-// the bodies a backward entry is handed (the wrapper's _BWD_BODY)
-constexpr int kBodyWgmma = 0, kBodyFma = 1;
+// the bodies an entry is handed (the wrapper's _BODY)
+constexpr int kBodyWgmma = 0, kBodyFma = 1, kBodyMma = 2;
 
 // the 2-byte backward: wgmma at width 128 or 256 in one pass, or at 256 in
 // column passes past it (D % 8 == 0: TMA rows on the 16-byte grid). The FMA
@@ -2655,49 +3171,159 @@ int launch_bwd_2byte(const void* q, const void* k, const void* v, const void* o,
                                       D, causal, window, 1, scale, s);
 }
 
+// ---- the forward on wgmma: maps and launch ------------------------------------
+CUtensorMapSwizzle swizzle_of(int row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+
+// The forward's TMA maps of one tensor, boxes one panel (row_bytes) wide,
+// swizzled over it and zero-filled past the edges: k or v (B, rows, heads,
+// D) as boxes of kFwKeys rows of one head; q (B, S, H, D) seen as (B, S,
+// KV, G, D), boxes of 64 / G positions x G heads, so a box is R packed rows
+// (`group` = G; 0 for k and v)
+bool make_fw_map(CUtensorMap* map, const void* base, const Axes& ax, int B, int rows, int heads,
+                 int D, int row_bytes, int group, CUtensorMapDataType type) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t cols = row_bytes / 2;
+  const cuuint64_t hs = map_stride(ax.h, heads, D);
+  const cuuint64_t ss = map_stride(ax.s, rows, (long long)heads * D);
+  const cuuint64_t bs = map_stride(ax.b, B, (long long)rows * heads * D);
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  if (group == 0) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {hs, ss, bs};
+    const cuuint32_t box[4] = {cols, 1, (cuuint32_t)kFwKeys, 1};
+    return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row_bytes),
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)group, (cuuint64_t)(heads / group),
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {hs, hs * group, ss, bs};
+  const cuuint32_t box[5] = {cols, (cuuint32_t)group, 1, (cuuint32_t)(kFwRows / group), 1};
+  return fn(map, type, 5, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row_bytes),
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename E, int DQK, int DV>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                     const InputAxes& ax, int B, int S, int T, int H, int KV, int causal,
+                     int window, float scale, cudaStream_t stream) {
+  using L = FwLayout<DQK, DV>;
+  const auto kernel = flash_tc_kernel_wgmma<E, DQK, DV>;
+  static bool configured = false;  // one attribute call per instantiation
+  cudaError_t err = set_smem(kernel, L::kBytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = H / KV;
+  if (G > kFwRows) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = G * (kFwRows / G);
+  const CUtensorMapDataType type = std::is_same<E, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap mq, mk, mv;
+  if (!make_fw_map(&mq, q, ax.q, B, S, H, DQK, FwOperand<DQK>::kRowBytes, G, type) ||
+      !make_fw_map(&mk, k, ax.k, B, T, KV, DQK, FwOperand<DQK>::kRowBytes, 0, type) ||
+      !make_fw_map(&mv, v, ax.v, B, T, KV, DV, FwOperand<DV>::kRowBytes, 0, type))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long n_q = ((long long)S * G + 2 * R - 1) / (2 * R);
+  const long long n_items = (long long)B * KV * n_q;
+  if (n_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // items in groups of two pairs, or all pairs in one group when the run is
+  // short (the note at the top)
+  const int hg = n_items <= 16LL * n_sm ? B * KV : std::min(2, B * KV);
+  const FwArgs a{o, lse, B, S, T, H, KV, G, R, (int)n_q, hg, causal, window, scale * kLog2e};
+  kernel<<<(unsigned)std::min<long long>(n_items, n_sm), kFwThreads, L::kBytes, stream>>>(
+      mq, mk, mv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the 2-byte forward: the wgmma body at its instantiated (q/k, v) widths in
+// one pass, or the mma.sync body (one head dim D = Dv) at the wrapper's
+// width and passes
+template <typename E>
+int launch_fwd_2byte(const void* q, const void* k, const void* v, void* o, float* lse,
+                     const long long* strides, int B, int S, int T, int H, int KV, int D, int Dv,
+                     int causal, int window, int body, int width, int passes, float scale,
+                     void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (body == kBodyMma && Dv == D)
+    return launch<E>(q, k, v, o, lse, strides, B, S, T, H, KV, D, causal, window, width, passes,
+                     scale, stream);
+  if (body != kBodyWgmma || passes != 1 || width != D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const InputAxes ax = read_axes(strides, 3);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FA_FWD_WGMMA_CASE(DQK, DV)                                                           \
+  if (D == DQK && Dv == DV)                                                                  \
+    return launch_fwd_wgmma<E, DQK, DV>(q, k, v, o, lse, ax, B, S, T, H, KV, causal, window, \
+                                        scale, s);
+  FA_FWD_WGMMA_CASE(64, 64)
+  FA_FWD_WGMMA_CASE(96, 96)
+  FA_FWD_WGMMA_CASE(128, 128)
+  FA_FWD_WGMMA_CASE(192, 128)
+#undef FA_FWD_WGMMA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Plain C entry points for ctypes. q (B, S, H, D) and k/v (B, T, KV, D)
-// are read at `strides`: 9 element strides, the batch, row and head axes
-// of q, k and v in turn (the last axis unit-stride); o (B, S, H, D) is
-// contiguous; lse is null or an fp32 (B, H, S) buffer;
-// H % KV == 0; any D >= 1, at the wrapper's `width` and column `passes`:
-// one pass at a width of 16, 32, 64, 128 or 256 that holds D (rows read at
-// stride D, the columns past D zeros on the card, only D columns written),
-// or ceil(D / 256) passes at width 256 (a plan that does not fit D is
-// refused); causal is 0/1, window <= 0 means none; scores are scaled by
-// `scale` (D^-0.5). The 2-byte entries also need each pointer 16-byte
-// aligned (rows of D % 8 == 0 move by 16-byte cp.async). Each launches on
-// `stream` and returns the CUDA error code (0 on success).
+// Plain C entry points for ctypes. q (B, S, H, D) and k (B, T, KV, D), v
+// (B, T, KV, Dv) are read at `strides`: 9 element strides, the batch, row
+// and head axes of q, k and v in turn (the last axis unit-stride); o
+// (B, S, H, Dv) is contiguous; lse is null or an fp32 (B, H, S) buffer;
+// H % KV == 0; causal is 0/1, window <= 0 means none; scores are scaled by
+// `scale` (D^-0.5 from the wrapper). `body`, `width` and `passes` are the
+// wrapper's plan (one that does not fit the head dims is refused):
+//   body 2 (mma.sync, the 2-byte types) or 1 (FMA, fp32 only): Dv = D, any
+//   D >= 1, one pass at a width of 16, 32, 64, 128 or 256 that holds D
+//   (rows read at stride D, the columns past D zeros on the card, only D
+//   columns written), or ceil(D / 256) passes at width 256;
+//   body 0 (wgmma, the 2-byte types): (D, Dv) one of the instantiated
+//   pairs, width D, one pass, H / KV <= 64.
+// The 2-byte entries also need each pointer 16-byte aligned (rows move by
+// 16-byte copies). Each launches on `stream` and returns the CUDA error
+// code (0 on success).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        void* o, void* lse, const long long* strides, int B,
-                                       int S, int T, int H, int KV, int D, int causal,
-                                       int window, int width, int passes, float scale,
+                                       int S, int T, int H, int KV, int D, int Dv, int causal,
+                                       int window, int body, int width, int passes, float scale,
                                        void* stream) {
+  if (body != kBodyFma || Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV, D, causal,
                        window, width, passes, scale, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, void* lse, const long long* strides, int B,
-                                        int S, int T, int H, int KV, int D, int causal,
-                                        int window, int width, int passes, float scale,
+                                        int S, int T, int H, int KV, int D, int Dv, int causal,
+                                        int window, int body, int width, int passes, float scale,
                                         void* stream) {
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV,
-                               D, causal, window, width, passes, scale, stream);
+  return launch_fwd_2byte<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T,
+                                         H, KV, D, Dv, causal, window, body, width, passes, scale,
+                                         stream);
 }
 
 extern "C" int flash_attention_fwd_f16(const void* q, const void* k, const void* v,
                                        void* o, void* lse, const long long* strides, int B,
-                                       int S, int T, int H, int KV, int D, int causal,
-                                       int window, int width, int passes, float scale,
+                                       int S, int T, int H, int KV, int D, int Dv, int causal,
+                                       int window, int body, int width, int passes, float scale,
                                        void* stream) {
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  return launch<__half>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV, D, causal,
-                        window, width, passes, scale, stream);
+  return launch_fwd_2byte<__half>(q, k, v, o, static_cast<float*>(lse), strides, B, S, T, H, KV,
+                                  D, Dv, causal, window, body, width, passes, scale, stream);
 }
 
 // Plain C entry points for ctypes. q, o, dout (B, S, H, D) and k, v

@@ -7,9 +7,18 @@ layout and masks its own ragged edges, so nothing is transposed or padded
 here. Every argument is checked before a pointer is handed over, and each
 launch adds one to ``LAUNCHES["flash_attention"]``. Each input is read
 through its strides, so a view whose last axis is unit-stride is read in
-place (``_layout.in_place``). The source holds two
-bodies: the 2-byte types run on the tensor cores, fp32 on the FMA pipe
-(which keeps the fp32 tolerance); the C entry point picks one by type. The
+place (``_layout.in_place``). The forward has three
+bodies: the 2-byte types run on the tensor cores, on ``wgmma`` at the
+instantiated (q/k, v) head widths (``FWD_WGMMA_WIDTHS``: 64, 96, 128, and
+MLA's 192 with v at 128) and on ``mma.sync`` at every other, and fp32 on
+the FMA pipe (which keeps the fp32 tolerance); ``dispatch`` picks one and
+the C entry runs it. Each forward launch on the ``wgmma`` body also adds
+one to ``LAUNCHES["flash_attention.wgmma"]``, and every forward adds one to
+the obs counter ``kernels.flash_fwd.<body>`` (``obs.device.count``: nothing
+when recording is off). v may have a head width Dv of its own: o has
+Dv columns; the ``mma.sync`` and FMA bodies take one width, so there v
+(or q and k) is padded with zero columns to the wider of the two and o
+sliced back. The
 forward can also return the per-row log-sum-exp (fp32, (B, H, S)) that
 ``flash_attention_bwd`` reads; each backward call (2-byte: a prep pass,
 dK/dV and dQ in one launch and, when H > KV, the sum of the heads'
@@ -51,11 +60,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _layout
+from repro_torch.obs.device import count as obs_count
 
 # wrapper name -> number of kernel launches that ran on the card
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention.wgmma": 0, "flash_attention_bwd": 0}
 # wrapper name -> number of launches recorded into CUDA graphs being captured
-CAPTURED = {"flash_attention": 0, "flash_attention_bwd": 0}
+CAPTURED = {"flash_attention": 0, "flash_attention.wgmma": 0, "flash_attention_bwd": 0}
 
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16",
@@ -63,8 +73,11 @@ _ENTRY = {torch.float32: "flash_attention_fwd_f32",
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16",
               torch.float16: "flash_attention_bwd_f16"}
-_BWD_BODY = {"wgmma": 0, "fma": 1}   # the backward entries' body argument
+_BODY = {"wgmma": 0, "fma": 1, "mma": 2}   # the entries' body argument
 WIDTHS = (16, 32, 64, 128, 256)   # the instantiated widths
+# (q/k, v) head widths the 2-byte forward's wgmma body is instantiated at
+FWD_WGMMA_WIDTHS = ((64, 64), (96, 96), (128, 128), (192, 128))
+WGMMA_MAX_GROUP = 64   # query heads a kv head serves: one group's 64 rows hold a position
 PASS_WIDTH = 256   # output columns of one pass past the widest width
 # bytes each input's address must be a multiple of: the 2-byte bodies move
 # 16-byte pieces, the fp32 bodies single elements
@@ -94,10 +107,11 @@ def _count(name: str) -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    # forward: q, k, v, o, lse, the strides, 8 ints, width and passes;
-    # backward: q, k, v, o, do, lse, stats, part, dq, dk, dv, the strides,
-    # 8 ints, body, width and passes; then the scale and the stream
-    for entries, n_ptr, n_int in ((_ENTRY, 5, 10), (_BWD_ENTRY, 11, 11)):
+    # forward: q, k, v, o, lse, the strides, 9 ints (Dv the ninth), body,
+    # width and passes; backward: q, k, v, o, do, lse, stats, part, dq, dk,
+    # dv, the strides, 8 ints, body, width and passes; then the scale and
+    # the stream
+    for entries, n_ptr, n_int in ((_ENTRY, 5, 12), (_BWD_ENTRY, 11, 11)):
         for name in entries.values():
             fn = getattr(lib, name)
             if fn.argtypes is None:
@@ -121,23 +135,35 @@ def _bwd_width(d: int, dtype: torch.dtype) -> int:
     return -(-d // 8) * 8 if dtype != torch.float32 else d
 
 
-def dispatch(d: int, dtype: torch.dtype, tensors, backward: bool = False) -> dict:
-    """The wrapper's choices for one call, from the head dim, the dtype and
-    the input tensors (their layout and address only): ``body`` ("fma":
-    fp32 math on the FMA pipe; "mma": the forward's 2-byte tensor-core
-    body; "wgmma": the 2-byte backward, at every D), its ``width``, the
-    output column ``passes`` (all three handed to the C entry point, which
-    runs them), the head dim ``pad_to`` the inputs are padded to (the
-    2-byte backward's TMA rows), and ``copy``: per tensor, whether it is
-    copied dense first."""
-    pad_to = _bwd_width(d, dtype) if backward else d
+def dispatch(d: int, dtype: torch.dtype, tensors, backward: bool = False,
+             dv: int | None = None, group: int = 1) -> dict:
+    """The wrapper's choices for one call, from the head dims (``d`` of q
+    and k, ``dv`` of v, ``d`` when None), the query heads a kv head serves
+    (``group``), the dtype and the input tensors (their layout and address
+    only): ``body`` ("fma": fp32 math on the FMA pipe; "wgmma": the 2-byte
+    forward at its instantiated widths, and the 2-byte backward at every
+    D; "mma": the forward's other 2-byte body), its ``width``, the output
+    column ``passes`` (all three handed to the C entry point, which runs
+    them), the head dim ``pad_to`` the inputs are padded to (the 2-byte
+    backward's TMA rows; the forward's one width when ``dv`` differs from
+    ``d`` on a body that takes one), and ``copy``: per tensor, whether it
+    is copied dense first."""
+    dv = d if dv is None else dv
+    wgmma_fwd = not backward and dtype != torch.float32 \
+        and (d, dv) in FWD_WGMMA_WIDTHS and group <= WGMMA_MAX_GROUP
+    if backward:
+        pad_to = _bwd_width(d, dtype)
+    else:
+        pad_to = d if wgmma_fwd else max(d, dv)
     passes = -(-pad_to // PASS_WIDTH)
     if dtype == torch.float32:
-        body, width = "fma", head_width(d)
+        body, width = "fma", head_width(pad_to)
     elif backward:
         body, width = "wgmma", (128 if d <= 128 else 256)
+    elif wgmma_fwd:
+        body, width = "wgmma", d
     else:
-        body, width = "mma", head_width(d)
+        body, width = "mma", head_width(pad_to)
     align = ALIGN[dtype]
     return {"body": body, "width": width, "passes": passes, "pad_to": pad_to,
             "copy": [not _layout.in_place(x, align, strided=True) for x in tensors]}
@@ -150,13 +176,18 @@ def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, width - x.shape[-1])).contiguous()
 
 
-def _check(q, k, v, causal: bool, window) -> None:
+def _check(q, k, v, causal: bool, window, own_dv: bool = False) -> None:
+    """Refuse what the kernels do not take; ``own_dv``: v may have a head
+    width of its own (the forward)."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention kernel takes float32, bfloat16 or "
                         f"float16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+    same = k.shape[:3] == v.shape[:3] and v.dim() == 4 and v.shape[3] >= 1 \
+        if own_dv else k.shape == v.shape
+    if q.dim() != 4 or k.dim() != 4 or not same \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"need q (B, S, H, D) and k/v (B, T, KV, D); got "
+        want = "k (B, T, KV, D), v (B, T, KV, Dv)" if own_dv else "k/v (B, T, KV, D)"
+        raise ValueError(f"need q (B, S, H, D) and {want}; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -185,36 +216,52 @@ def _check(q, k, v, causal: bool, window) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, return_lse: bool = False,
                     scale: float | None = None):
-    """q (B, S, H, D); k/v (B, T, KV, D), one dtype (float32, bfloat16 or
-    float16), any layout, on one CUDA device -> o (B, S, H, D) in q's dtype,
-    and with ``return_lse`` also the rows' log-sum-exp of the scaled scores,
-    fp32 (B, H, S). A query row that sees no key (a window that ends before
-    T) is the uniform average over the T keys, as in the plain version.
-    ``scale``: the scores' factor, D^-0.5 when None."""
-    _check(q, k, v, causal, window)
+    """q (B, S, H, D); k (B, T, KV, D), v (B, T, KV, Dv), one dtype
+    (float32, bfloat16 or float16), any layout, on one CUDA device -> o (B,
+    S, H, Dv) in q's dtype, and with ``return_lse`` also the rows'
+    log-sum-exp of the scaled scores, fp32 (B, H, S). A query row that sees
+    no key (a window that ends before T) is the uniform average over the T
+    keys, as in the plain version. ``scale``: the scores' factor, D^-0.5
+    when None."""
+    _check(q, k, v, causal, window, own_dv=True)
+    plan = dispatch(q.shape[3], q.dtype, (q, k, v), dv=v.shape[3],
+                    group=q.shape[2] // k.shape[2])
+    return _forward(q, k, v, plan, causal, window, return_lse, scale)
+
+
+def _forward(q, k, v, plan: dict, causal: bool, window, return_lse: bool, scale):
+    """``flash_attention`` of checked inputs under ``plan`` (``dispatch``'s;
+    ``chip_smoke.py`` also hands it the mma.sync body's plan at the wgmma
+    body's shapes, to time the two in one run)."""
     b, s, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    plan = dispatch(d, q.dtype, (q, k, v))
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = (x.clone(memory_format=torch.contiguous_format) if c else x
                for x, c in zip((q, k, v), plan["copy"]))
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    if out.numel() == 0 or t == 0:
-        out.zero_()
+    if q.numel() == 0 or t == 0:
+        out = torch.zeros((b, s, h, dv), dtype=q.dtype, device=q.device)
         return (out, lse.fill_(-1e30)) if return_lse else out
+    if plan["body"] != "wgmma" and dv != d:   # a body of one head dim
+        q, k, v = (_pad(x, plan["pad_to"]) for x in (q, k, v))
+    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     fn = getattr(_lib(), _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), _layout.axes(q, k, v),
-                 b, s, t, h, kvh, d, int(causal),
-                 -1 if window is None else int(window), plan["width"],
-                 plan["passes"], d ** -0.5 if scale is None else float(scale),
-                 stream)
+                 b, s, t, h, kvh, q.shape[3], v.shape[3], int(causal),
+                 -1 if window is None else int(window), _BODY[plan["body"]],
+                 plan["width"], plan["passes"],
+                 d ** -0.5 if scale is None else float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _count("flash_attention")
+    if plan["body"] == "wgmma":
+        _count("flash_attention.wgmma")
+    obs_count(f"kernels.flash_fwd.{plan['body']}")
+    if out.shape[3] != dv:
+        out = out[..., :dv].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -267,7 +314,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  None if part is None else part.data_ptr(),
                  *(x.data_ptr() for x in (dq, dk, dv)), _layout.axes(q, k, v, o, do),
                  b, s, t, h, kvh, dp, int(causal),
-                 -1 if window is None else int(window), _BWD_BODY[plan["body"]],
+                 -1 if window is None else int(window), _BODY[plan["body"]],
                  plan["width"], plan["passes"], d ** -0.5, stream)
     if err != 0:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "

@@ -41,10 +41,14 @@ class FlashAttention(torch.autograd.Function):
     see detached tensors (their wrappers refuse inputs that require grad).
     q, k, v, o and the log-sum-exp go through ``save_for_backward``, so
     under ``torch.utils.checkpoint`` the recomputed forward's tensors, its
-    log-sum-exp among them, are the ones the backward reads."""
+    log-sum-exp among them, are the ones the backward reads. The backward
+    takes one head dim, so v of another width than q and k is refused."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window):
+        if v.shape[-1] != q.shape[-1]:
+            raise ValueError("flash_attention's backward takes v at q and k's "
+                             f"head dim only: got {q.shape[-1]} and {v.shape[-1]}")
         o, lse = _k.flash_attention(q.detach(), k.detach(), v.detach(),
                                     causal=causal, window=window,
                                     return_lse=True)
@@ -122,7 +126,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_kv: int = DEFAULT_BLOCK_KV,
                     force_ref: bool = False,
                     scale: float | None = None) -> torch.Tensor:
-    """Model layout: q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D).
+    """Model layout: q (B, S, H, D); k (B, T, KV, D), v (B, T, KV, Dv) ->
+    (B, S, H, Dv) (Dv = D on the autograd path, whose backward takes one
+    head dim).
     ``DTensor`` inputs (a model trained on a device mesh) run per rank on
     local shards (``_local_heads``): the kernels take plain tensors.
     ``force_ref`` takes the plain version there too. ``scale``: the scores'

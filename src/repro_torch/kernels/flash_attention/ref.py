@@ -33,21 +33,22 @@ def _scores(q, k, causal: bool, window, scale=None):
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window=None,
                   scale: float | None = None) -> torch.Tensor:
-    """q (B, S, H, D); k/v (B, T, KV, D) -> (B, S, H, D) in q's dtype;
-    ``scale`` as the kernel's."""
-    b, s, h, d = q.shape
+    """q (B, S, H, D); k (B, T, KV, D), v (B, T, KV, Dv) -> (B, S, H, Dv) in
+    q's dtype; ``scale`` as the kernel's."""
+    b, s, h, _ = q.shape
     scores, _ = _scores(q, k, causal, window, scale)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bksgt,btkd->bskgd", w, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
-                      window=None) -> torch.Tensor:
+                      window=None, scale: float | None = None) -> torch.Tensor:
     """The rows' log-sum-exp of the scaled, masked scores: fp32 (B, H, S),
-    head kvh * G + g, as the forward kernel returns it."""
+    head kvh * G + g, as the forward kernel returns it; ``scale`` as the
+    kernel's."""
     b, s, h, _ = q.shape
-    scores, _ = _scores(q, k, causal, window)
+    scores, _ = _scores(q, k, causal, window, scale)
     lse = torch.logsumexp(scores, dim=-1)               # (B, KV, S, G)
     return lse.permute(0, 1, 3, 2).reshape(b, h, s)
 

@@ -312,14 +312,13 @@ def _mla_chunked(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk: int,
 def _mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale):
     """MLA attention through the flash forward kernel (its plain version on
     CPU tensors): q and k at nope + rope (k_rope shared by the heads,
-    broadcast), v widened with zero columns to that width, the output's
-    v columns kept. No (B, H, S, S) scores exist."""
+    broadcast), v at its own width, read in place (a column slice of the
+    up-projection). No (B, H, S, S) scores exist."""
     b, s, h, dv = v.shape
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
-    v = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
     out = flash_ops.flash_attention(q, k, v, scale=scale)
-    return out[..., :dv].reshape(b, s, h * dv)
+    return out.reshape(b, s, h * dv)
 
 
 def mla_full(p, spec: MLASpec, x, positions, return_ckv: bool = False):

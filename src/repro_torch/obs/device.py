@@ -56,7 +56,10 @@ multi-tensor kernel updated and those the eager code did; in a train graph
 they count the capture); ``moe.choices`` and ``moe.dropped``
 (``models/mlp.py::moe``, once a call: the tokens' expert choices, and
 those past an expert's capacity, 0 on the dropless path; read with a sync
-only where the capacity path can drop, and not inside a capture).
+only where the capacity path can drop, and not inside a capture);
+``kernels.flash_fwd.<body>`` (``kernels/flash_attention/kernel.py``, once
+a forward call: ``wgmma``, ``mma`` or ``fma``, the body the dispatch rule
+picked, so a run shows the share of its forward calls on each).
 
 To see the ranges over the kernels, install a recorder, run under the
 profiler and open the Chrome trace (in Perfetto or ``chrome://tracing``)::

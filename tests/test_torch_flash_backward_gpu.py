@@ -192,7 +192,9 @@ def test_function_under_checkpoint_matches_plain_autograd(dtype):
         *leaves, use_reentrant=False)
     got = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert tflash.LAUNCHES == {"flash_attention": 2, "flash_attention_bwd": 1}
+    wgmma = 2 if dtype != "float32" else 0   # D 64: the forward's wgmma body in bf16
+    assert tflash.LAUNCHES == {"flash_attention": 2, "flash_attention.wgmma": wgmma,
+                               "flash_attention_bwd": 1}
     for name, g, w in zip("qkv", got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
                                    atol=TOL[dtype], msg=f"d{name}")
@@ -232,9 +234,12 @@ def test_train_step_with_kernels_matches_plain_path():
             torch.cuda.synchronize()
             metrics[flash] = {k: float(x) for k, x in m.items()}
             launches = dict(tflash.LAUNCHES)
-            # per layer: forward, remat recompute, backward
-            want = {"flash_attention": 4, "flash_attention_bwd": 2} if flash \
-                else {"flash_attention": 0, "flash_attention_bwd": 0}
+            # per layer: forward, remat recompute, backward; D 256 keeps the
+            # forward's mma.sync body
+            want = {"flash_attention": 4, "flash_attention.wgmma": 0,
+                    "flash_attention_bwd": 2} if flash \
+                else {"flash_attention": 0, "flash_attention.wgmma": 0,
+                      "flash_attention_bwd": 0}
             assert launches == want
             del state, new_state
     finally:

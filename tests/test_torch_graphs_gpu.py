@@ -43,6 +43,8 @@ from repro_torch.models.registry import get_api
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_step as ttrain_step
 
+from _torch_flash_launches import wgmma_share
+
 TOL = 1e-5                            # tests/test_torch_train_step.py
 PARAM_ATOL, PARAM_RTOL = 5e-5, 1e-4   # tests/test_torch_train_step.py
 # bucket -> nodes of the graph that lands in it
@@ -155,9 +157,12 @@ def test_graphed_train_loop_equals_eager_loop(no_tf32, arch):
     # per causal layer and step: the forward, its recompute, the backward
     assert launches == eager_launches == {
         "flash_attention": 2 * causal * STEPS,
+        "flash_attention.wgmma": wgmma_share(cfg, 2 * causal * STEPS),
         "flash_attention_bwd": causal * STEPS}
     assert {k: tflash.CAPTURED[k] - n for k, n in captured.items()} == {
-        "flash_attention": 2 * causal, "flash_attention_bwd": causal}
+        "flash_attention": 2 * causal,
+        "flash_attention.wgmma": wgmma_share(cfg, 2 * causal),
+        "flash_attention_bwd": causal}
     # the warm-up step is this loop's first step, not an extra one
     assert int(state.opt.step) == int(want_state.opt.step) == STEPS
     assert [h["step"] for h in got] == list(range(STEPS))

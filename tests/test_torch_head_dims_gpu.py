@@ -121,7 +121,11 @@ def test_backward_kernel_at_head_dim(d, dtype, window):
     before = dict(tflash.LAUNCHES)
     got, want = backward_case(d, dtype, window)
     torch.cuda.synchronize()
+    # the forward's body by the dispatch rule: wgmma at its widths
+    wgmma = tflash.dispatch(d, getattr(torch, dtype), [], group=H // KV)["body"] == "wgmma"
     assert tflash.LAUNCHES == {"flash_attention": before["flash_attention"] + 1,
+                               "flash_attention.wgmma":
+                                   before["flash_attention.wgmma"] + wgmma,
                                "flash_attention_bwd":
                                    before["flash_attention_bwd"] + 1}
     for g, w in zip(got, want):

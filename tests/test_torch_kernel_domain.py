@@ -305,17 +305,65 @@ def test_rows_that_see_no_key_gradient_matches_reference(causal, dtype):
 
 # -- the dispatch rules ---------------------------------------------------------
 
-@pytest.mark.parametrize("d, dtype, body, width, passes", [
-    (8, torch.float32, "fma", 16, 1), (96, torch.float32, "fma", 128, 1),
-    (256, torch.float32, "fma", 256, 1), (257, torch.float32, "fma", 256, 2),
-    (1024, torch.float32, "fma", 256, 4), (36, torch.bfloat16, "mma", 64, 1),
-    (320, torch.bfloat16, "mma", 256, 2), (512, torch.float16, "mma", 256, 2),
-    (576, torch.float16, "mma", 256, 3)])
-def test_flash_forward_dispatch(d, dtype, body, width, passes):
+@pytest.mark.parametrize("d, dv, dtype, group, body, width, passes, pad_to", [
+    (8, None, torch.float32, 1, "fma", 16, 1, 8), (96, None, torch.float32, 1, "fma", 128, 1, 96),
+    (256, None, torch.float32, 1, "fma", 256, 1, 256),
+    (257, None, torch.float32, 1, "fma", 256, 2, 257),
+    (1024, None, torch.float32, 1, "fma", 256, 4, 1024),
+    (36, None, torch.bfloat16, 1, "mma", 64, 1, 36),
+    (320, None, torch.bfloat16, 1, "mma", 256, 2, 320),
+    (512, None, torch.float16, 1, "mma", 256, 2, 512),
+    (576, None, torch.float16, 1, "mma", 256, 3, 576),
+    # the wgmma body at its widths: phi3-mini's 96, MLA's 192 with v at 128
+    (96, 96, torch.bfloat16, 1, "wgmma", 96, 1, 96),
+    (96, 96, torch.float16, 1, "wgmma", 96, 1, 96),
+    (96, 96, torch.bfloat16, 7, "wgmma", 96, 1, 96),
+    (192, 128, torch.bfloat16, 1, "wgmma", 192, 1, 192),
+    (192, 128, torch.float16, 4, "wgmma", 192, 1, 192),
+    (64, 64, torch.bfloat16, 7, "wgmma", 64, 1, 64),
+    (128, 128, torch.bfloat16, 1, "wgmma", 128, 1, 128),
+    (256, 256, torch.bfloat16, 4, "mma", 256, 1, 256),
+    # the old bodies elsewhere: D 80 and 512, fp32, widths not instantiated,
+    # a group past one warp group's 64 rows
+    (80, 80, torch.bfloat16, 1, "mma", 128, 1, 80),
+    (512, 512, torch.bfloat16, 1, "mma", 256, 2, 512),
+    (96, 96, torch.float32, 1, "fma", 128, 1, 96),
+    (192, 128, torch.float32, 1, "fma", 256, 1, 192),
+    (192, 192, torch.bfloat16, 1, "mma", 256, 1, 192),
+    (128, 64, torch.bfloat16, 1, "mma", 128, 1, 128),
+    (64, 96, torch.float16, 1, "mma", 128, 1, 96),
+    (96, 96, torch.bfloat16, 65, "mma", 128, 1, 96)])
+def test_flash_forward_dispatch(d, dv, dtype, group, body, width, passes, pad_to):
     x = torch.zeros(1, 2, 2, d, dtype=dtype)
-    plan = tflash_kernel.dispatch(d, dtype, [x])
+    plan = tflash_kernel.dispatch(d, dtype, [x], dv=dv, group=group)
     assert (plan["body"], plan["width"], plan["passes"], plan["pad_to"],
-            plan["copy"]) == (body, width, passes, d, [False])
+            plan["copy"]) == (body, width, passes, pad_to, [False])
+
+
+@pytest.mark.parametrize("window", (None, 5))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("d, dv", [(192, 128), (96, 64)])
+def test_forward_takes_v_of_its_own_width(d, dv, dtype, window):
+    """v at Dv < D: o at Dv, equal to the reference's function with v
+    widened by zero columns to D and the output's first Dv columns kept."""
+    q, k, v = _qkv(d, seed=70)
+    v = v[..., :dv].copy()
+    wide = np.concatenate([v, np.zeros(v.shape[:3] + (d - dv,), np.float32)], -1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jflash_ref.attention_ref(*(jnp.asarray(x, jdt) for x in (q, k, wide)),
+                                    causal=True, window=window)
+    got = tflash.flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                 window=window)
+    assert got.shape == (B, S, H, dv)
+    _close(got, np.asarray(want, np.float32)[..., :dv], dtype)
+
+
+def test_autograd_path_refuses_v_of_another_width():
+    """The backward takes one head dim: the autograd Function refuses v of
+    another width than q and k, as the CUDA path's ``scale``."""
+    q, k, v = (torch.zeros(1, 4, 2, dd, requires_grad=True) for dd in (96, 96, 64))
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.FlashAttention.apply(q, k, v, True, None)
 
 
 @pytest.mark.parametrize("d, dtype, body, width, passes, pad_to", [

@@ -44,6 +44,8 @@ from repro_torch.models.registry import get_api
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_step as ttrain_step
 
+from _torch_flash_launches import wgmma_share
+
 FAMILIES = ["olmoe-1b-7b", "deepseek-v2-236b", "jamba-1.5-large-398b",
             "xlstm-125m", "whisper-small", "internvl2-1b"]
 TOL = 1e-5                            # tests/test_torch_train_step.py
@@ -107,6 +109,7 @@ def test_reduced_family_trains_on_cuda_as_on_cpu(arch):
     # per causal attention layer, step and backward pass (the gradient's and
     # the train step's): the forward, its recompute under remat, the backward
     assert launches == {"flash_attention": 4 * causal * STEPS,
+                        "flash_attention.wgmma": wgmma_share(cfg, 4 * causal * STEPS),
                         "flash_attention_bwd": 2 * causal * STEPS}
     # elements whose CPU gradient never fell in (0, NEAR_EPS]: an exact zero
     # (an unused embedding row, an expert no token reached) is held too
