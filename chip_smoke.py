@@ -188,6 +188,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def reset_launches() -> None:
+    """Zero every kernel's launch count (``repro_torch._graph``'s ledger)."""
+    from repro_torch import _graph
+    _graph.reset()
+
+
 @contextlib.contextmanager
 def jit_counts(phase: str):
     """Emit, after the block, the per-bucket GNN forwards it ran through
@@ -306,7 +312,7 @@ def phase_fleet46(torch, device):
     # end-to-end agreement of the two aggregation paths on the trained model
     logits_diff = _logits_agree(gnn_train, params, kcfg, fleet, device)
 
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     rows = bl.compare_all(fleet, tasks, params, kcfg)
     t_plan = time.perf_counter() - t0
@@ -343,7 +349,7 @@ def phase_1024(torch, device):
     fleet = random_fleet(1024, seed=7)
     t_build = time.perf_counter() - t0
     kcfg = dataclasses.replace(cfg, use_pallas=True)
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     a = assign_mod.task_assignments(fleet, tasks, params, kcfg)
     t_assign = time.perf_counter() - t0
@@ -381,7 +387,7 @@ def phase_recover_1024(torch, device, params, kcfg, fleet):
 
     def event(name, fn):
         rec = obs.Recorder()
-        K.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         with obs.recording(rec):
             out = fn()
@@ -598,7 +604,7 @@ def phase_sim_scenarios(device) -> int:
 
     per, first, launches = {}, {}, 0
     for name in names:
-        K.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         first.update(ev.evaluate_all(seed=0, names=[name]))
         wall = time.perf_counter() - t0
@@ -619,7 +625,7 @@ def phase_sim_scenarios(device) -> int:
             logits_max_abs_diff_fused_vs_plain=_logits_agree(
                 gnn_train, params, kcfg, sc.get_scenario(name).fleet(0),
                 device))
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     second = ev.evaluate_all(seed=0)
     all_s = time.perf_counter() - t0
@@ -680,7 +686,7 @@ def phase_drift_controller() -> int:
         for name in sorted(sc.DRIFT_SCENARIOS):
             for mode in ("static", "guarded", "unguarded"):
                 marks.clear()
-                K.reset_launches()
+                reset_launches()
                 t0 = time.perf_counter()
                 res, ctl = ev.run_drift_scenario(sc.get_drift_scenario(name),
                                                  mode)
@@ -756,7 +762,7 @@ def phase_sim_1024(params, kcfg) -> int:
         return out
 
     placer.on_failure = failure
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     res = ev.FleetSimulation(
         fleet, tasks, placer, steps=2, seed=0, concurrent=True,
@@ -944,7 +950,7 @@ def phase_serve_scenarios(device) -> int:
     per, first, launches = {}, {}, 0
     for name in names:
         scn = sc.get_serve_scenario(name)
-        K.reset_launches()
+        reset_launches()
         with _placement_marks(K) as marks:
             t0 = time.perf_counter()
             first[name] = se.evaluate_serve_scenario(scn, seed=0)
@@ -966,7 +972,7 @@ def phase_serve_scenarios(device) -> int:
             policies={p: _serve_summary(row[p]) for p in SERVE_POLICIES},
             hulk_vs_nearest=row["hulk_vs_nearest"],
             **_score_gap(scn.model, params, kcfg, scn.fleet(0)))
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     second = se.evaluate_all_serve(seed=0)
     all_s = time.perf_counter() - t0
@@ -1018,7 +1024,7 @@ def phase_colocated(device) -> int:
         _seed_fused(ev, (names, 0, "sim", scn.jitter, None, scn.comm_model)
                     if scn.label_mode == "sim" else (names, 0, "analytic"))
         for policy in SERVE_POLICIES:
-            K.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             res = co.run_colocated(scn, policy, seed=0, train_placer="hulk")
             wall = time.perf_counter() - t0
@@ -1066,7 +1072,7 @@ def phase_chaos() -> int:
                if scn.label_mode == "sim" else (names, 0, "analytic"))
         check(key in ev._GNN_CACHE and ev._GNN_CACHE[key][1].use_pallas,
               f"{name}'s GNN is not cached with use_pallas")
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     ctl = chaos.fuzz_controller(seed=0, log=lambda line: None)
     controller_s = time.perf_counter() - t0
@@ -1132,7 +1138,7 @@ def phase_serve_1024(device) -> int:
     params, cfg, kcfg, train_s = _serve_gnn_fused(device, scn.model,
                                                   scn.n_replicas)
 
-    K.reset_launches()
+    reset_launches()
     with _placement_marks(K) as marks:
         t0 = time.perf_counter()
         res, _ = se.run_serve(scn, "hulk", seed=c["seed"])
@@ -1607,8 +1613,7 @@ def phase_head_dims(torch, FK, FR, DK, DR) -> dict:
                      for w in HD.WINDOWS]
             runs += [("decode", lambda: HD.decode_case(d, dt))]
             for label, run in runs:
-                FK.reset_launches()
-                DK.reset_launches()
+                reset_launches()
                 got, want = run()
                 torch.cuda.synchronize()
                 n = {**FK.LAUNCHES, **DK.LAUNCHES}
@@ -1713,9 +1718,7 @@ def phase_kernel_domain(torch, FK, FR, DK, DR) -> dict:
 
     def run(label, kind, dt, fn, want_names):
         nonlocal n_cases
-        FK.reset_launches()
-        DK.reset_launches()
-        K.reset_launches()
+        reset_launches()
         got, want = fn()
         torch.cuda.synchronize()
         n = {**FK.LAUNCHES, **DK.LAUNCHES, **K.LAUNCHES}
@@ -2301,8 +2304,7 @@ def _serve_twice(torch, serve, cfg, params, batch, gen_n: int, FK, DK) -> dict:
     torch.cuda.synchronize()
     allocated = [torch.cuda.memory_allocated()]
     torch.cuda.reset_peak_memory_stats()
-    FK.reset_launches()
-    DK.reset_launches()
+    reset_launches()
     gen, stats = serve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
     launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
                 "flash_attention.wgmma": FK.LAUNCHES["flash_attention.wgmma"],
@@ -3292,8 +3294,7 @@ def phase_train(torch, device, FK, AK, card) -> dict:
               log=lambda *_: None, schedule_steps=steps, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FK.reset_launches()
-    AK.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     state, straight = launch_train.train_loop(cfg, steps, **kw)
     loop_s = time.perf_counter() - t0
@@ -3428,8 +3429,7 @@ def phase_train_mesh_1card(torch, device, FK, AK, card) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    FK.reset_launches()
-    AK.reset_launches()
+    reset_launches()
     mesh = make_mesh_for(1)
     try:
         backend = dist.get_backend()
@@ -4088,8 +4088,7 @@ def phase_examples(torch, device, K, FK, DK) -> dict:
                 return dataclasses.replace(api, init_params=init)
             twin.get_api = watched_api
         saved = dict(cc.RUNTIME)
-        for k in (K, FK, DK):
-            k.reset_launches()
+        reset_launches()
         buf = io.StringIO()
         t0 = time.perf_counter()
         try:

@@ -43,14 +43,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, _graph
 from repro_torch import obs as obs_mod
 from repro_torch._tree import leaves, map_with_path, tree_map
 from repro_torch.core import cost_model as cm
 from repro_torch.core import gnn
 from repro_torch.core import labels as labels_mod
 from repro_torch.core.graph import ClusterGraph, random_fleet, version_for_dim
-from repro_torch.kernels.gcn_spmm import kernel as spmm_kernel
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update_
 
 # Benchmark switch (the reference's benchmarks/plan_bench.py flips it):
@@ -207,11 +206,8 @@ class BucketGraph:
     Every bucket graph of a device is captured into one shared memory pool
     (``_shared_pool``): they replay one at a time on one stream, and what
     outlives a replay (the static buffers and logits) stays referenced
-    here, so no later capture reuses it.
-
-    Launch counting: the warm-up's kernels count as they run; the capture
-    records ``held`` (wrapper -> launches in the graph, from
-    ``spmm_kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+    here, so no later capture reuses it (``_graph.capture``, which also
+    counts the replays' launches)."""
 
     def __init__(self, cfg: gnn.GNNConfig, params, bucket: int, d_in: int):
         dev = _device.of(params)
@@ -223,7 +219,6 @@ class BucketGraph:
         self.node_mask = torch.zeros((bucket,), device=dev)
         self.graph = None
         self.logits = None
-        self.held: dict = {}
 
     def _load(self, params, feats: np.ndarray, lat: np.ndarray) -> None:
         torch._foreach_copy_(self._leaves, _keyed_leaves(params))
@@ -244,26 +239,14 @@ class BucketGraph:
         self._load(params, feats, lat)
         if self.graph is not None:
             self.graph.replay()
-            spmm_kernel.count_replays(self.held)
             return self.logits
+
+        def forward():
+            self.logits = self._forward()
+
         dev = self.feats.device
-        pool = _shared_pool(dev)
-        side = _device.side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = dict(spmm_kernel.CAPTURED)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            logits = self._forward()   # the warm-up, and this call's answer
-            # capture_begin, not torch.cuda.graph(): that one empties the
-            # allocator's cache first (see launch/serve.py::DecodeGraph)
-            graph.capture_begin(pool=pool)
-            try:
-                self.logits = self._forward()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
-        self.held = {k: spmm_kernel.CAPTURED[k] - n for k, n in before.items()}
+        self.graph, logits = _graph.capture(   # the warm-up is this answer
+            forward, dev, warmup=self._forward, pool=_shared_pool(dev))
         return logits
 
 
@@ -443,20 +426,7 @@ class _Program:
         if self.graph is not None:
             self.graph.replay()
             return
-        side = _device.side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            self.fn()
-            # capture_begin, not torch.cuda.graph(): that one empties the
-            # allocator's cache first (see launch/serve.py::DecodeGraph)
-            graph.capture_begin(pool=pool)
-            try:
-                self.fn()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
+        self.graph, _ = _graph.capture(self.fn, dev, pool=pool)
 
 
 def _resolve_mode(dataset: Sequence[GraphExample], mode: str):

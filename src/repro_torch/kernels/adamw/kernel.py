@@ -17,10 +17,8 @@ CPU run still takes.
   the numbers of ``optimizer.adamw_update``'s eager update.
 
 Every argument is checked before a pointer is handed over, and each
-launch adds one to ``LAUNCHES[<wrapper>]``. A call made while the current
-stream captures a CUDA graph runs nothing: it adds to ``CAPTURED``
-instead, and whoever replays the graph adds the launches it holds with
-``count_replays`` (``launch/train.py::TrainGraph``). The kernel writes the
+launch adds one to ``LAUNCHES[<wrapper>]``, graph replays included
+(``_graph``'s launch ledger). The kernel writes the
 params and moments through their pointers, so the wrapper bumps their
 autograd version counters itself.
 """
@@ -30,12 +28,11 @@ import ctypes
 
 import torch
 
+from repro_torch import _graph
 from repro_torch.kernels import _build
 
 # wrapper name -> number of kernel launches that ran on the card
-LAUNCHES = {"global_norm": 0, "adamw_update": 0}
-# wrapper name -> number of launches recorded into CUDA graphs being captured
-CAPTURED = {"global_norm": 0, "adamw_update": 0}
+LAUNCHES = _graph.register("global_norm", "adamw_update")
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PARAM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -45,18 +42,6 @@ MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 # (the update: of one param and moment dtype pair), and the norm once more
 # to sum the tables' partials
 MAX_LEAVES = 64
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def count_replays(held: dict) -> None:
-    """Add the launches that one replay of a captured graph ran (``held``:
-    name -> launches, the growth of ``CAPTURED`` over its capture)."""
-    for name, n in held.items():
-        LAUNCHES[name] += n
 
 
 def _lib() -> ctypes.CDLL:
@@ -103,13 +88,6 @@ def takes_grads(grads) -> bool:
         and g.is_contiguous() for g in grads)
 
 
-def _launched(wrapper: str, n: int) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[wrapper] += n
-    else:
-        LAUNCHES[wrapper] += n
-
-
 def _scalar(name: str, t, device) -> None:
     if t.dtype != torch.float32 or t.dim() != 0 or t.device != device:
         raise ValueError(f"{name} must be a 0-d float32 tensor on {device}, "
@@ -139,7 +117,7 @@ def _norm_passes(grads):
                                     out.data_ptr(), stream, ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f"global_norm kernel launch failed: cudaError {err}")
-    _launched("global_norm", launches.value)
+    _graph.count("global_norm", launches.value)
     leaves = sum(1 for g in grads if g.numel())
     tiles = scratch.numel() - 2 * leaves
     return out, scratch[tiles:tiles + leaves]
@@ -208,6 +186,6 @@ def adamw_update_(leaves, decay, scale, lr, c1, c2, *, b1: float, b2: float,
             if err != 0:
                 raise RuntimeError(f"adamw_update kernel launch failed: "
                                    f"cudaError {err}")
-            _launched("adamw_update", launches.value)
+            _graph.count("adamw_update", launches.value)
     torch.autograd.graph.increment_version(
         [t for lf in leaves for t in (lf[0], lf[2], lf[3])])

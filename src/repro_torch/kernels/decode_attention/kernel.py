@@ -22,9 +22,7 @@ off the 16-byte grid the kernel's loads need is copied (the model's own
 calls copy nothing), and so is a mask that is not dense.
 
 Launch counting: ``LAUNCHES["decode_attention"]`` counts launches that ran
-on the card. A call made while the current stream is capturing a CUDA graph
-runs nothing: it adds to ``CAPTURED`` instead, and whoever replays the graph
-adds the launches it holds with ``count_replays``.
+on the card, graph replays included (``_graph``'s launch ledger).
 
 Forward only, like the reference: an input that requires grad is refused.
 """
@@ -34,12 +32,11 @@ import ctypes
 
 import torch
 
+from repro_torch import _graph
 from repro_torch.kernels import _build, _layout
 
 # wrapper name -> number of kernel launches that ran on the card
-LAUNCHES = {"decode_attention": 0}
-# wrapper name -> number of launches recorded into CUDA graphs being captured
-CAPTURED = {"decode_attention": 0}
+LAUNCHES = _graph.register("decode_attention")
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16",
@@ -50,18 +47,6 @@ ALIGN = 16   # q, k and v rows are read 16 bytes at a time
 _INT_MAX = 2 ** 31 - 1
 _UNITS_MAX = 65535   # gridDim.y: B * KV * ceil(G / 8) * passes
 _READY: set = set()  # CUDA device indices whose kernel attributes are set
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def count_replays(held: dict) -> None:
-    """Add the launches that one replay of a captured graph ran (``held``:
-    name -> launches, the growth of ``CAPTURED`` over its capture)."""
-    for name, n in held.items():
-        LAUNCHES[name] += n
 
 
 def _lib(device: torch.device) -> ctypes.CDLL:
@@ -157,8 +142,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  plan["width"], plan["passes"], d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED["decode_attention"] += 1
-    else:
-        LAUNCHES["decode_attention"] += 1
+    _graph.count("decode_attention")
     return out

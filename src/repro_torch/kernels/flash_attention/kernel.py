@@ -23,10 +23,9 @@ forward can also return the per-row log-sum-exp (fp32, (B, H, S)) that
 ``flash_attention_bwd`` reads; each backward call (2-byte: a prep pass,
 dK/dV and dQ in one launch and, when H > KV, the sum of the heads'
 partials; fp32: delta, dK/dV, dQ) adds one to
-``LAUNCHES["flash_attention_bwd"]``. A call made while the current stream
-captures a CUDA graph runs nothing: it adds to ``CAPTURED`` instead, and
-whoever replays the graph adds the launches it holds with ``count_replays``
-(``launch/train.py::TrainGraph``).
+``LAUNCHES["flash_attention_bwd"]``. The counts are kept by
+``_graph``'s launch ledger, which also counts the launches of a captured
+CUDA graph's replays.
 
 Inputs: float32, bfloat16 or float16 (the 2-byte types on the tensor
 cores, with fp32 accumulation; fp32 on the FMA pipe). Head dims: any
@@ -59,13 +58,13 @@ import ctypes
 
 import torch
 
+from repro_torch import _graph
 from repro_torch.kernels import _build, _layout
 from repro_torch.obs.device import count as obs_count
 
 # wrapper name -> number of kernel launches that ran on the card
-LAUNCHES = {"flash_attention": 0, "flash_attention.wgmma": 0, "flash_attention_bwd": 0}
-# wrapper name -> number of launches recorded into CUDA graphs being captured
-CAPTURED = {"flash_attention": 0, "flash_attention.wgmma": 0, "flash_attention_bwd": 0}
+LAUNCHES = _graph.register("flash_attention", "flash_attention.wgmma",
+                           "flash_attention_bwd")
 
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16",
@@ -84,25 +83,6 @@ PASS_WIDTH = 256   # output columns of one pass past the widest width
 ALIGN = {torch.float32: 4, torch.bfloat16: 16, torch.float16: 16}
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def count_replays(held: dict) -> None:
-    """Add the launches that one replay of a captured graph ran (``held``:
-    name -> launches, the growth of ``CAPTURED`` over its capture)."""
-    for name, n in held.items():
-        LAUNCHES[name] += n
-
-
-def _count(name: str) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[name] += 1
-    else:
-        LAUNCHES[name] += 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -256,9 +236,9 @@ def _forward(q, k, v, plan: dict, causal: bool, window, return_lse: bool, scale)
                  d ** -0.5 if scale is None else float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    _count("flash_attention")
+    _graph.count("flash_attention")
     if plan["body"] == "wgmma":
-        _count("flash_attention.wgmma")
+        _graph.count("flash_attention.wgmma")
     obs_count(f"kernels.flash_fwd.{plan['body']}")
     if out.shape[3] != dv:
         out = out[..., :dv].contiguous()
@@ -319,7 +299,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "
                            f"cudaError {err}")
-    _count("flash_attention_bwd")
+    _graph.count("flash_attention_bwd")
     if dp != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

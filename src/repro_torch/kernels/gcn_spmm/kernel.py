@@ -4,10 +4,8 @@ Port of the Pallas TPU kernels ``scaled_spmm_blocked`` / ``spmm_blocked``
 (``repro/kernels/gcn_spmm/kernel.py``). One CUDA body serves both: null scale
 pointers give the plain ``A @ H``. The kernel masks its own ragged edges, so
 nothing is padded here. Every argument is checked before a pointer is
-handed over, and each launch adds one to ``LAUNCHES[<wrapper>]``. A call
-made while the current stream captures a CUDA graph runs nothing: it adds
-to ``CAPTURED`` instead, and whoever replays the graph adds the launches it
-holds with ``count_replays`` (``core/train.py``'s bucket graphs). Where the
+handed over, and each launch adds one to ``LAUNCHES[<wrapper>]``, graph
+replays included (``_graph``'s launch ledger). Where the
 output tiles alone leave SMs idle the kernel splits K over a thread-block
 cluster and sums the partial tiles in a fixed order, so repeated calls give
 the same bits and no scratch buffer is needed.
@@ -31,29 +29,16 @@ import ctypes
 
 import torch
 
+from repro_torch import _graph
 from repro_torch.kernels import _build, _layout
 
 # wrapper name -> number of kernel launches that ran on the card
-LAUNCHES = {"scaled_spmm": 0, "spmm": 0}
-# wrapper name -> number of launches recorded into CUDA graphs being captured
-CAPTURED = {"scaled_spmm": 0, "spmm": 0}
+LAUNCHES = _graph.register("scaled_spmm", "spmm")
 
 _ENTRY = {torch.float32: "gcn_scaled_spmm_f32",
           torch.bfloat16: "gcn_scaled_spmm_bf16",
           torch.float16: "gcn_scaled_spmm_f16"}
 _INT_MAX = 2 ** 31 - 1
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def count_replays(held: dict) -> None:
-    """Add the launches that one replay of a captured graph ran (``held``:
-    name -> launches, the growth of ``CAPTURED`` over its capture)."""
-    for name, n in held.items():
-        LAUNCHES[name] += n
 
 
 def _lib() -> ctypes.CDLL:
@@ -132,10 +117,7 @@ def _launch(wrapper: str, adj, feats, row_scale, col_scale) -> torch.Tensor:
                  ptr(col_scale), out.data_ptr(), m, n, d, stream)
     if err != 0:
         raise RuntimeError(f"gcn_spmm kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[wrapper] += 1
-    else:
-        LAUNCHES[wrapper] += 1
+    _graph.count(wrapper)
     return out.to(out_dtype)
 
 

@@ -23,11 +23,10 @@ import time
 
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, _graph
 from repro_torch._tree import tree_map
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
-from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
 from repro_torch.obs.device import count, span
@@ -70,12 +69,9 @@ class DecodeGraph:
     launch. Before the capture one eager step runs on the capture's side
     stream, on a copy of the caches it writes (``_warmup_caches``): a
     recurrent state advances at every step, so a step on the caches
-    themselves would be one step too many. The graph holds the memory of
-    its intermediates until ``release``.
-
-    Launch counting: the warm-up's kernels count as they run; the capture
-    records ``held`` (wrapper -> launches in the graph, from
-    ``kernel.CAPTURED``) and every replay adds them to ``LAUNCHES``."""
+    themselves would be one step too many. The graph (``_graph.capture``,
+    which also counts its replays' launches) holds the memory of its
+    intermediates until ``release``."""
 
     def __init__(self, decode_fn, params, token: torch.Tensor, pos: int,
                  caches, steps: int):
@@ -89,28 +85,20 @@ class DecodeGraph:
                                   device=dev)
         with span("serve.capture"):
             scratch = _warmup_caches(caches)
-            side = _device.side_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            before = dict(dec_kernel.CAPTURED)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
+
+            def warmup():
                 with span("serve.capture.warmup"):
                     decode_fn(params, self.token, self.pos, scratch)
-                # capture_begin, not torch.cuda.graph(): that one empties the
-                # allocator's cache first, and the next prefill would pay to
-                # allocate its memory again
-                self.graph.capture_begin()
-                try:
-                    nxt, _ = decode_fn(params, self.token, self.pos, caches)
-                    self.tokens.index_copy_(1, self.col, nxt)
-                    self.token.copy_(nxt)
-                    self.pos.add_(1)
-                    self.col.add_(1)
-                finally:
-                    self.graph.capture_end()
-            torch.cuda.current_stream(dev).wait_stream(side)
+
+            def step():
+                nxt, _ = decode_fn(params, self.token, self.pos, caches)
+                self.tokens.index_copy_(1, self.col, nxt)
+                self.token.copy_(nxt)
+                self.pos.add_(1)
+                self.col.add_(1)
+
+            self.graph, _ = _graph.capture(step, dev, warmup=warmup)
             del scratch   # after the wait: its last use was on the side stream
-        self.held = {k: dec_kernel.CAPTURED[k] - n for k, n in before.items()}
 
     def replay(self) -> None:
         """Decode the next token (at most ``steps`` replays)."""
@@ -119,7 +107,6 @@ class DecodeGraph:
                                "tokens; capture a new one to decode more")
         self.graph.replay()
         self.replays += 1
-        dec_kernel.count_replays(self.held)
 
     def release(self) -> None:
         """Free the graph and its memory pool."""

@@ -35,15 +35,12 @@ import argparse
 import dataclasses
 import time
 
-import torch
 import torch.distributed as dist
 
-from repro_torch import _device
+from repro_torch import _device, _graph
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
-from repro_torch.kernels.adamw import kernel as adamw_kernel
-from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import common as cc
 from repro_torch.models.registry import get_api
@@ -52,10 +49,6 @@ from repro_torch.parallel.sharding import ShardingRules, activation_resolver
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (device_batch, init_train_state,
                                              make_train_step)
-
-
-# the kernel modules whose launches a train graph holds
-_COUNTED = (flash_kernel, adamw_kernel)
 
 
 class TrainGraph:
@@ -71,13 +64,9 @@ class TrainGraph:
     the step eagerly on the side stream, in place on the state, and that
     is this call's step; then the graph is captured, which runs nothing. So
     no step is applied twice. A failed capture raises; nothing falls back to the
-    eager step. The graph holds the memory of the step's intermediates until
+    eager step. The graph (``_graph.capture``, which also counts its
+    replays' launches) holds the memory of the step's intermediates until
     ``release``.
-
-    Launch counting: the warm-up's flash and AdamW launches count as they
-    run; the capture records ``held`` (wrapper -> launches in the graph,
-    from each kernel module's ``CAPTURED``) and every replay adds them to
-    its ``LAUNCHES``.
 
     With a recorder installed (``obs.recording``) a call is the span
     ``train.step``, holding ``train.feed`` (the copies into the static
@@ -91,7 +80,6 @@ class TrainGraph:
         self.batch: dict = {}
         self.metrics: dict = {}
         self.graph = None
-        self.held: dict = {}
 
     def __call__(self, batch: dict) -> dict:
         with span("train.step"):
@@ -103,8 +91,6 @@ class TrainGraph:
             with span("train.replay"):
                 self.graph.replay()
             count("train.graph.replays")
-        for kernel in _COUNTED:
-            kernel.count_replays({k: self.held[k] for k in kernel.CAPTURED})
         return self.metrics
 
     def _first(self, batch: dict) -> dict:
@@ -112,24 +98,13 @@ class TrainGraph:
         dev = next(iter(batch.values())).device
         with span("train.feed"):
             self.batch = {k: v.clone() for k, v in batch.items()}
-        side = _device.side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = {k: n for kernel in _COUNTED for k, n in kernel.CAPTURED.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            _, metrics = self.step_fn(self.state, self.batch)   # this step
-            # capture_begin, not torch.cuda.graph(): that one empties the
-            # allocator's cache first (see launch/serve.py::DecodeGraph)
-            with span("train.capture"):
-                graph.capture_begin()
-                try:
-                    _, self.metrics = self.step_fn(self.state, self.batch)
-                finally:
-                    graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
-        self.held = {k: n - before[k] for kernel in _COUNTED
-                     for k, n in kernel.CAPTURED.items()}
+
+        def step():
+            _, self.metrics = self.step_fn(self.state, self.batch)
+
+        self.graph, metrics = _graph.capture(   # the warm-up is this step
+            step, dev, warmup=lambda: self.step_fn(self.state, self.batch)[1],
+            span="train.capture")
         return metrics
 
     def release(self) -> None:

@@ -30,7 +30,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch import obs
+from repro_torch import _graph, obs
 from repro_torch._tree import leaves, tree_map
 from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.training import optimizer as topt
@@ -94,7 +94,7 @@ def _clone_state(state):
 def _counted(fn):
     """(fn's result, the optimizer's leaf counters while it ran, the
     kernel's launches)."""
-    adamw_kernel.reset_launches()
+    _graph.reset()
     with obs.recording(obs.Recorder()) as rec:
         out = fn()
     got = rec.metrics.snapshot()["counters"]
@@ -205,8 +205,8 @@ def test_graph_replays_equal_calls():
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
-    adamw_kernel.reset_launches()
-    before = dict(adamw_kernel.CAPTURED)
+    _graph.reset()
+    before = _graph.CAPTURED.copy()
     with torch.cuda.stream(side):
         graph.capture_begin()
         try:
@@ -214,7 +214,7 @@ def test_graph_replays_equal_calls():
         finally:
             graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    held = {k: adamw_kernel.CAPTURED[k] - n for k, n in before.items()}
+    held = {k: _graph.CAPTURED[k] - before[k] for k in adamw_kernel.LAUNCHES}
     assert adamw_kernel.LAUNCHES == {"global_norm": 0, "adamw_update": 0}
     # the norm: one launch of bf16 tiles and the sum; the update: one table
     assert held == {"global_norm": 2, "adamw_update": 1}
@@ -223,7 +223,7 @@ def test_graph_replays_equal_calls():
         for dst, src in zip(leaves(static_g), leaves(g)):
             dst.copy_(src)
         graph.replay()
-        adamw_kernel.count_replays(held)
+        _graph.count_replays(held)
     torch.cuda.synchronize()
     assert adamw_kernel.LAUNCHES == {k: 3 * n for k, n in held.items()}
     assert _same(params, eager_p)
@@ -245,7 +245,7 @@ def test_global_norm_matches_eager_and_repeats(dtype, tree_name):
         tree["blocks"][1]["empty"] = torch.empty(0, dtype=dtype, device="cuda")
     ls = leaves(tree)
     assert adamw_kernel.takes_grads(ls)
-    adamw_kernel.reset_launches()
+    _graph.reset()
     got = topt.global_norm(tree)
     assert adamw_kernel.LAUNCHES == {**_launches(tree), "adamw_update": 0}
     again = topt.global_norm(tree)

@@ -11,6 +11,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch.kernels.decode_attention import kernel as tdec
 from repro_torch.kernels.decode_attention import ref as tdec_ref
 from repro_torch.kernels.flash_attention import kernel as tflash
@@ -261,18 +262,18 @@ def test_decode_kernel_replays_in_a_cuda_graph():
     tdec.decode_attention(q, k, v, valid)   # eager first call: attributes
     torch.cuda.synchronize()
     launches, captured = tdec.LAUNCHES["decode_attention"], \
-        tdec.CAPTURED["decode_attention"]
+        _graph.CAPTURED["decode_attention"]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = tdec.decode_attention(q, k, v, valid)
     assert tdec.LAUNCHES["decode_attention"] == launches
-    assert tdec.CAPTURED["decode_attention"] == captured + 1
+    assert _graph.CAPTURED["decode_attention"] == captured + 1
     rng = np.random.default_rng(9)
     for _ in range(2):
         k.copy_(normal(rng, tuple(k.shape), "bfloat16"))
         v.copy_(normal(rng, tuple(v.shape), "bfloat16"))
         graph.replay()
-        tdec.count_replays({"decode_attention": 1})
+        _graph.count_replays({"decode_attention": 1})
         eager = tdec.decode_attention(q, k, v, valid)
         torch.cuda.synchronize()
         assert torch.equal(out, eager)

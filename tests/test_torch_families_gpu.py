@@ -22,6 +22,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch._tree import tree_map
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.configs.base import MoESpec
@@ -117,8 +118,7 @@ def test_reduced_family_serves_on_cuda_as_on_cpu(arch, fp32_matmuls):
     tcommon.RUNTIME["use_flash"] = False
     cpu_gen, _ = tserve.serve_batch(cfg, params, batch, gen_n,
                                     log=lambda *_: None)
-    tflash.reset_launches()
-    tdec.reset_launches()
+    _graph.reset()
     cuda_gen, stats = tserve.serve_batch(cfg, params_cuda, batch, gen_n,
                                          log=lambda *_: None)
     assert stats["backend"] == "cuda" and tcommon.RUNTIME["use_flash"]

@@ -24,6 +24,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch.configs import get_config
 from repro_torch.configs.base import Segment
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
@@ -186,7 +187,7 @@ def test_function_under_checkpoint_matches_plain_autograd(dtype):
     q, k, v, do = bwd_inputs(case, seed=3)
     want = plain_grads(q, k, v, do, True, 48)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    tflash.reset_launches()
+    _graph.reset()
     o = torch.utils.checkpoint.checkpoint(
         lambda q, k, v: tflash_ops.flash_attention(q, k, v, window=48),
         *leaves, use_reentrant=False)
@@ -229,7 +230,7 @@ def test_train_step_with_kernels_matches_plain_path():
         for flash in (True, False):
             tcommon.RUNTIME["use_flash"] = flash
             state = ttrain_step.TrainState(params, topt.adamw_init(params))
-            tflash.reset_launches()
+            _graph.reset()
             new_state, m = step(state, batch)
             torch.cuda.synchronize()
             metrics[flash] = {k: float(x) for k, x in m.items()}

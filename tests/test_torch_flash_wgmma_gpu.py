@@ -27,7 +27,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch import obs
+from repro_torch import _graph, obs
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import kernel as tflash
 from repro_torch.kernels.flash_attention import ref as tflash_ref
@@ -146,7 +146,7 @@ def test_mla_flash_launches_one_wgmma_forward_with_v_in_place():
     scale = attention.mla_softmax_scale(spec)
     assert not v.is_contiguous()
     assert tflash.dispatch(dn + dr, v.dtype, [v], dv=dv)["copy"] == [False]
-    tflash.reset_launches()
+    _graph.reset()
     with obs.recording(obs.Recorder()) as rec, torch.no_grad():
         out = attention._mla_flash(q_nope, q_rope, k_nope, k_rope, v, scale)
     torch.cuda.synchronize()

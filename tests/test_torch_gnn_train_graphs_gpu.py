@@ -16,7 +16,10 @@ two param sets:
   with the graphs of the first call;
 * the caller's params and the first call's result are left alone;
 * ``opt_state.step`` counts the reference's updates (the eager first step
-  is applied once, the capture runs nothing).
+  is applied once, the capture runs nothing);
+* the AdamW kernel's launches of a captured run, the first (warm-up,
+  capture, replays) and a second one (replays only), are those of the eager
+  step loop: every replayed epoch counts the launches its graph holds.
 
 Without a CUDA card every test skips."""
 import numpy as np
@@ -25,10 +28,12 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch._tree import leaves
 from repro_torch.core import cost_model as cm
 from repro_torch.core import gnn
 from repro_torch.core import train as gnn_train
+from repro_torch.kernels.adamw import kernel as tadamw
 
 TASKS = [cm.GPT2_1_5B, cm.BERT_LARGE]
 STEPS = {"joint": 12, "scan": 4, "bucketed": 4, "sequential": 3}
@@ -112,3 +117,29 @@ def test_captured_train_gnn_equals_eager_steps(no_tf32, mode):
     assert all(torch.equal(a, b) for a, b in zip(leaves(got1), kept1))
     assert all(torch.equal(a, b) for a, b in zip(leaves(p2), keep))
     assert np.isfinite(h2[-1]["loss"]) and h2[-1]["loss"] < h2[0]["loss"]
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(STEPS))
+def test_captured_train_gnn_counts_adamw_in_every_replay(no_tf32, mode):
+    _need_cuda()
+    cfg = gnn_train.gnn_config_for(TASKS)
+    ds = _dataset(mode)
+    steps = STEPS[mode]
+    params = gnn.init(cfg, ds[0].feats.shape[1], seed=1, device="cuda")
+    _graph.reset()
+    _eager(cfg, ds, steps, params, mode)
+    eager = dict(tadamw.LAUNCHES)
+    assert eager["adamw_update"] > 0 and eager["global_norm"] > 0
+
+    gnn_train._TRAINERS.clear()
+    for call in ("captures", "only replays"):
+        _graph.reset()
+        gnn_train.train_gnn(cfg, ds, steps=steps, params=params, mode=mode,
+                            device="cuda")
+        assert tadamw.LAUNCHES == eager, f"{mode}: the call that {call}"
+    (trainer,) = gnn_train._TRAINERS.values()
+    programs = (list(trainer.programs.values()) if mode == "sequential"
+                else trainer.programs)
+    assert all(set(p.graph.held) == set(eager) for p in programs)

@@ -19,6 +19,10 @@ installed:
   ``tests/test_torch_train_step.py``'s tolerances (the two loops run on
   different streams), and the flash launches of the replays are counted
   as an eager loop counts them.
+* ``_graph.capture``: one graph whose body launches a flash forward and a
+  decode step holds one launch of each module's wrapper; its warm-up
+  counts as it runs and each of 3 replays adds what the graph holds to
+  each module's ``LAUNCHES``.
 
 Without a CUDA card every test skips (the kernels have no CPU mode)."""
 import dataclasses
@@ -29,12 +33,15 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch._tree import leaves
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import gnn
 from repro_torch.core import train as gnn_train
 from repro_torch.core.graph import random_fleet
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+from repro_torch.kernels.adamw import kernel as tadamw
+from repro_torch.kernels.decode_attention import kernel as tdec
 from repro_torch.kernels.flash_attention import kernel as tflash
 from repro_torch.kernels.gcn_spmm import kernel as tspmm
 from repro_torch.launch import train as launch_train
@@ -87,8 +94,8 @@ def test_bucket_graph_equals_eager_padded_forward(no_tf32, bucket, use_pallas):
     p1, p2 = (gnn.init(cfg, d_in, seed=s, device="cuda") for s in (1, 2))
     gnn_train._FORWARDS.clear()
     gnn_train.reset_trace_counts()
-    tspmm.reset_launches()
-    captured = dict(tspmm.CAPTURED)
+    _graph.reset()
+    captured = _graph.CAPTURED.copy()
     per_call = 3 if use_pallas else 0
     for calls, params in enumerate((p1, p2, p1, p2), 1):
         want = _eager_padded(params, cfg, graph)
@@ -102,8 +109,9 @@ def test_bucket_graph_equals_eager_padded_forward(no_tf32, bucket, use_pallas):
                                              device="cuda")).max() > 1e-3
     assert gnn_train.trace_counts() == {(cfg, bucket): 1}
     (fwd,) = gnn_train._FORWARDS[(cfg, bucket, d_in)].values()
-    assert fwd.held == {"scaled_spmm": per_call, "spmm": 0}
-    assert tspmm.CAPTURED["scaled_spmm"] - captured["scaled_spmm"] == per_call
+    assert {k: fwd.graph.held.get(k, 0) for k in tspmm.LAUNCHES} == {
+        "scaled_spmm": per_call, "spmm": 0}
+    assert _graph.CAPTURED["scaled_spmm"] - captured["scaled_spmm"] == per_call
     # four eager forwards and six predicts, each call counted once
     assert tspmm.LAUNCHES["scaled_spmm"] == 10 * per_call
 
@@ -144,11 +152,11 @@ def test_graphed_train_loop_equals_eager_loop(no_tf32, arch):
     _need_cuda()
     cfg = reduce_for_smoke(get_config(arch))
     assert cfg.remat
-    tflash.reset_launches()
+    _graph.reset()
     want_state, want = _eager_loop(cfg)
     eager_launches = dict(tflash.LAUNCHES)
-    tflash.reset_launches()
-    captured = dict(tflash.CAPTURED)
+    _graph.reset()
+    captured = _graph.CAPTURED.copy()
     state, got = launch_train.train_loop(
         cfg, STEPS, BATCH, SEQ, lr=LR, seed=0, log_every=1,
         log=lambda *_: None, device="cuda")
@@ -159,7 +167,7 @@ def test_graphed_train_loop_equals_eager_loop(no_tf32, arch):
         "flash_attention": 2 * causal * STEPS,
         "flash_attention.wgmma": wgmma_share(cfg, 2 * causal * STEPS),
         "flash_attention_bwd": causal * STEPS}
-    assert {k: tflash.CAPTURED[k] - n for k, n in captured.items()} == {
+    assert {k: _graph.CAPTURED[k] - captured[k] for k in tflash.LAUNCHES} == {
         "flash_attention": 2 * causal,
         "flash_attention.wgmma": wgmma_share(cfg, 2 * causal),
         "flash_attention_bwd": causal}
@@ -176,3 +184,38 @@ def test_graphed_train_loop_equals_eager_loop(no_tf32, arch):
     assert max((a.float() - b.float()).abs().max().item() for a, b in zip(
         leaves(state.params),
         leaves(get_api(cfg).init_params(cfg, seed=0, device="cuda")))) > 1e-4
+
+
+@pytest.mark.gpu
+def test_one_capture_counts_the_launches_of_two_kernel_modules():
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
+                                      dtype=torch.bfloat16)
+    q, k, v = bf16(1, 128, 4, 64), bf16(1, 128, 2, 64), bf16(1, 128, 2, 64)
+    dq, dk, dv = bf16(2, 1, 4, 64), bf16(2, 256, 1, 64), bf16(2, 256, 1, 64)
+    valid = torch.ones(256, dtype=torch.bool, device="cuda")
+    out = {}
+
+    def body():
+        out["flash"] = tflash.flash_attention(q, k, v)
+        out["decode"] = tdec.decode_attention(dq, dk, dv, valid)
+
+    wgmma = int(tflash.dispatch(64, torch.bfloat16, [], group=2)["body"]
+                == "wgmma")
+    _graph.reset()
+    graph, _ = _graph.capture(body, torch.device("cuda",
+                                                 torch.cuda.current_device()))
+    held = {"flash_attention": 1, "flash_attention.wgmma": wgmma,
+            "flash_attention_bwd": 0, "decode_attention": 1}
+    assert graph.held == {k: n for k, n in held.items() if n}
+    assert {**tflash.LAUNCHES, **tdec.LAUNCHES} == held   # the warm-up
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert {**tflash.LAUNCHES, **tdec.LAUNCHES} == {
+        k: 4 * n for k, n in held.items()}
+    assert sum(tspmm.LAUNCHES.values()) + sum(tadamw.LAUNCHES.values()) == 0
+    assert torch.equal(out["flash"], tflash.flash_attention(q, k, v))
+    assert torch.equal(out["decode"], tdec.decode_attention(dq, dk, dv, valid))
+    graph.reset()

@@ -13,6 +13,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch.kernels.decode_attention import kernel as tdec_kernel
 from repro_torch.kernels.decode_attention import ops as tdec
 from repro_torch.kernels.flash_attention import kernel as tflash_kernel
@@ -56,8 +57,7 @@ def test_meta_calls_give_the_plain_functions_shapes_without_a_launch(dtype):
 def test_cuda_calls_still_reach_the_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    for m in KERNELS:
-        m.reset_launches()
+    _graph.reset()
     out = _run(*_inputs("cuda", torch.float32))
     torch.cuda.synchronize()
     assert all(t.is_cuda for t in out)

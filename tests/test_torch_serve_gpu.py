@@ -17,6 +17,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
 from repro_torch.kernels.decode_attention import kernel as tdec
@@ -136,7 +137,7 @@ def test_serve_batch_graphs_decode_and_counts_its_launches(flash_on):
     _need_cuda()
     gen_n = 9
     cfg, params, tokens, batch = _setup("float32", 16, gen_n, seed=2)
-    tdec.reset_launches()
+    _graph.reset()
     gen, stats = tserve.serve_batch(cfg, params, batch, gen_n, log=lambda *_: None)
     assert tdec.LAUNCHES["decode_attention"] == cfg.n_layers * gen_n
     assert stats["decode_capture_s"] > 0 and stats["backend"] == "cuda"

@@ -14,7 +14,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch import _device
+from repro_torch import _device, _graph
 from repro_torch.core.graph import random_fleet
 from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.serve import evaluate as tse
@@ -53,7 +53,7 @@ def test_fused_hulk_serving_equals_plain_on_the_card():
             tev._GNN_CACHE[key] = (params, kcfg)
             hosts = HulkPlacement(scn.fleet(0), scn.model, scn.n_replicas,
                                   params, kcfg).desired()
-            tkernel.reset_launches()
+            _graph.reset()
             res, raw = tse.run_serve(scn, "hulk", seed=0)
             torch.cuda.synchronize()
             runs[use_pallas] = (hosts, canonical_records(raw), res.as_dict(),
@@ -77,7 +77,7 @@ def test_fused_hulk_scores_equal_plain_at_64_nodes():
     params, cfg, _ = _card_gnn(scn.model, scn.n_replicas)
     fleet = random_fleet(64, seed=7)
     plain = HulkPlacement(fleet, scn.model, 8, params, cfg)
-    tkernel.reset_launches()
+    _graph.reset()
     fused = HulkPlacement(fleet, scn.model, 8, params,
                           dataclasses.replace(cfg, use_pallas=True))
     assert tkernel.LAUNCHES["scaled_spmm"] > 0

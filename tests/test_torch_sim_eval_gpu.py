@@ -14,7 +14,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch import _device
+from repro_torch import _device, _graph
 from repro_torch.kernels.gcn_spmm import kernel as tkernel
 from repro_torch.sim import evaluate as tev
 from repro_torch.sim import scenarios as tsc
@@ -40,7 +40,7 @@ def test_fused_hulk_arm_equals_plain_on_the_card(name):
         for use_pallas in (False, True):
             tev._GNN_CACHE[key] = (params, dataclasses.replace(
                 cfg, use_pallas=use_pallas))
-            tkernel.reset_launches()
+            _graph.reset()
             row = tev.evaluate_scenario(scn, seed=0)
             torch.cuda.synchronize()
             rows[use_pallas] = (row, tkernel.LAUNCHES["scaled_spmm"])

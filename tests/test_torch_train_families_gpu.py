@@ -35,6 +35,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import SyntheticConfig, make_batch
@@ -98,7 +99,7 @@ def test_reduced_family_trains_on_cuda_as_on_cpu(arch):
         assert cfg.remat
         params = get_api(cfg).init_params(cfg, seed=0, device="cpu")
         want = _run(cfg, params, "cpu", {"use_flash": False})
-        tflash.reset_launches()
+        _graph.reset()
         got = _run(cfg, tree_map(lambda t: t.cuda(), params), "cuda",
                    {"use_flash": True, "q_chunk": 0})
         launches = dict(tflash.LAUNCHES)

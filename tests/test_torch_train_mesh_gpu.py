@@ -32,6 +32,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import _graph
 from repro_torch._tree import leaves
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.flash_attention import kernel as tflash
@@ -71,10 +72,10 @@ def test_one_card_mesh_step_equals_the_plain_card_step(no_tf32):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh_for
     cfg = _cfg("bfloat16")
-    tflash.reset_launches()
+    _graph.reset()
     plain_state, plain = launch_train.train_loop(cfg, STEPS, **LOOP)
     plain_launches = dict(tflash.LAUNCHES)
-    tflash.reset_launches()
+    _graph.reset()
     mesh = make_mesh_for(1)
     try:
         assert dist.get_backend() == "nccl"
